@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's CUDA kernel from the
+Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout and drives the serving slice (full HRNet-W48 DaNet
-+ SMPL, seeded random weights) on the card, in phases:
++ SMPL, seeded random weights) and the training slice (the full DaNet
+training step) on the card. The synthetic raw batches get 2D keypoints
+that their poses explain (`posed_keypoints`), so the fitted cameras frame
+body-sized silhouettes. In phases:
 
   0. environment: a CUDA card of capability 9.0, versions, the card's name
-     and power limit; build the kernel and print the compiler's
-     `-Xptxas -v` report;
+     and power limit; build both kernels (one nvcc each, started together)
+     and print the compilers' `-Xptxas -v` reports;
   1. the kernel against its plain PyTorch version at the production shape
      (B=8, 56x56x48, S=56, 24 parts, 21 outputs), fed by bilinear
      `_axis_weights` matrices and by random dense ones: fp32 (TF32 off)
@@ -20,11 +23,34 @@ sources in the checkout and drives the serving slice (full HRNet-W48 DaNet
      finite and shaped right, and every request launched the kernel;
   4. the kernel's time against the plain version's at B=64 bf16 (CUDA
      events, after warm-up, in turns plain, kernel, kernel, plain), and
-     the phase-1 check once more at that batch.
+     the phase-1 check once more at that batch;
+  5. the rasterizer kernel against its plain version at the training shape
+     (B=128, 56x56, 13,776 faces; vertices from `smpl_forward_aa` of
+     synthetic poses, cameras from `prepare_targets`): (a) the soup atlas
+     through `rasterize_flat`, (b) the closed atlas with culling through
+     `rasterize_flat_culled`, (c) the closed atlas through
+     `rasterize_flat_masked` with `backface_mask`, (d) f64 at B=2, and
+     (t) an exact depth tie between a live and a dead filler face through
+     `rasterize_flat_culled`. At most 1e-5 of the pixels may differ,
+     foreground must cover > 2%; then the kernel's and the plain version's
+     times at B=128 for (a)-(c) (CUDA events, turns);
+  6. one training step in f64, card against CPU: full W48 at 64 px, B=4,
+     soup atlas, PartDrop and jitter off, the same seeded weights and batch;
+     every loss term, every gradient and the parameters after one Adam
+     step agree at the stated tolerances, and the raster kernel launched;
+  7. bf16 mixed-precision training at full size (`DaNetConfig()`, 224 px,
+     B=64, the closed atlas with culling): 1 warm-up and 5 timed steps (the
+     main path), then one step each in `pretrain_mode` and through the
+     'pallas' and 'pallas_bandrange' renderer backends; the launch counts
+     are zeroed before each of these paths and read after it; losses
+     finite, parameters moved, one raster launch a step at least; imgs/s
+     and peak memory; then two more steps under `torch.profiler` (kernel
+     time per step, the stage spans, the 25 largest kernels).
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
-describing each kernel, and `{"ok": true, "device": {...}}`.
+describing each kernel (with the path its launch count was read from), and
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -35,6 +61,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,7 +69,14 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "danet_densepose2smpl_tpu_torch/csrc/part_crop_head.cu"
 KERNEL_REPLACES = "danet_densepose2smpl_tpu/kernels/part_crop_head.py:65"
+RASTER_SOURCE = "danet_densepose2smpl_tpu_torch/csrc/rasterizer.cu"
+RASTER_REPLACES = {   # entry point -> the TPU kernel it replaces
+    "rasterize_flat": "danet_densepose2smpl_tpu/kernels/rasterizer_pallas.py:143",
+    "rasterize_flat_masked": "danet_densepose2smpl_tpu/kernels/rasterizer_pallas.py:446",
+}
 SERVE_BATCH, SERVE_REQUESTS = 64, 8
+RASTER_BATCH, TRAIN_BATCH, TRAIN_STEPS = 128, 64, 5
+PIXELS_OFF_MAX = 1e-5     # fraction of raster pixels allowed to differ from the plain version
 
 
 def check(ok: bool, what: str) -> None:
@@ -77,6 +111,23 @@ def k1_inputs(b, h, w, c, s, dtype, device, seed, dense=False):
     return [t.to(device=device, dtype=dtype).contiguous() for t in (feats, wy, wx, kernel, bias)]
 
 
+def posed_keypoints(cfg, smpl, raw: dict, seed: int, scale: float = 0.9) -> dict:
+    """`raw` with 2D keypoints that its GT fits explain: their joints under
+    a weak-perspective camera of scale `scale`, plus noise of 0.01 (the
+    synthetic keypoints are random and fit cameras behind the body)."""
+    from danet_densepose2smpl_tpu_torch.smpl.loader import to_torch
+    from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward_aa
+
+    fit = np.where(raw["has_smpl"][:, None] > 0, raw["pose"], raw["opt_pose"])
+    joints = smpl_forward_aa(to_torch(smpl, "cpu", torch.float64), torch.from_numpy(raw["betas"]).double(),
+                             torch.from_numpy(fit).double()).joints.numpy()
+    res = cfg.danet.img_size
+    tz = 2 * 5000.0 / (res * scale)
+    kp = joints[..., :2] / (joints[..., 2:] + tz) * 5000.0 / (res / 2)
+    raw["keypoints"][..., :2] = (kp + np.random.RandomState(seed).randn(*kp.shape) * 0.01).astype(np.float32)
+    return raw
+
+
 def phase0_environment():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -86,16 +137,19 @@ def phase0_environment():
         print(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, REPO)
-    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import load_library
+    from danet_densepose2smpl_tpu_torch.kernels import part_crop_head, rasterizer
 
     print(f"phase 0: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, capability {cap}")
     print(f"phase 0: nvidia-smi: {card_line()}")
     t0 = time.perf_counter()
-    _, log = load_library()
-    print(f"phase 0: built {KERNEL_SOURCE} in {time.perf_counter() - t0:.2f} s; ptxas report:")
-    for line in log.strip().splitlines():
-        print(f"    {line}")
+    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, both at once
+        logs = list(pool.map(lambda mod: mod.load_library()[1], (part_crop_head, rasterizer)))
+    print(f"phase 0: built {KERNEL_SOURCE} and {RASTER_SOURCE} in {time.perf_counter() - t0:.2f} s")
+    for source, log in zip((KERNEL_SOURCE, RASTER_SOURCE), logs):
+        print(f"phase 0: ptxas report of {source}:")
+        for line in log.strip().splitlines():
+            print(f"    {line}")
 
 
 def phase1_kernel_vs_plain(dev):
@@ -224,20 +278,324 @@ def phase4_timing(dev, card):
     return ms, plain_ms, err
 
 
+def cuda_ms(fn, n):
+    """Mean ms per call of `fn()` over `n` calls after one warm-up, CUDA events."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def tie_scene(dev):
+    """4,000 faces, one image at S=16: face 0 is back-facing (dead), face 1
+    the same triangle wound the other way (live), both at z = 4 with dyadic
+    barycentrics, so their depths tie exactly; the other faces lie behind
+    the camera. With fewer live faces than the culled budget, face 0 fills
+    the compacted prefix after face 1, and face 1 must win the tie."""
+    n = 4000
+    verts = torch.zeros(1, 3 * n, 3, device=dev)
+    verts[0, :3] = torch.tensor([[0.0, 0.0, 4.0], [8.0, 0.0, 4.0], [0.0, 8.0, 4.0]])
+    verts[0, 3:, 2] = -1.0
+    faces = torch.arange(3 * n, device=dev).reshape(n, 3)
+    faces[1] = torch.tensor([0, 2, 1])
+    tex = torch.from_numpy(np.random.RandomState(0).rand(n, 3).astype(np.float32) + 0.5).to(dev)
+    return verts, faces, tex
+
+
+def phase5_raster(dev, card) -> dict:
+    from danet_densepose2smpl_tpu_torch.config import Config
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import (
+        closed_synthetic_atlas,
+        synthetic_densepose_atlas,
+    )
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model, to_torch
+    from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device
+
+    cfg = Config()
+    smpl = synthetic_smpl_model()
+    raw = posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, RASTER_BATCH, seed=1), seed=2)
+    prep = prepare_targets(cfg, to_torch(smpl, dev), batch_to_device(raw, dev))
+    verts, cam = prep["target_verts"], prep["target_cam"]
+    soup = R.IUVRenderer(synthetic_densepose_atlas(smpl), 224, 56)
+    closed_atlas, template = closed_synthetic_atlas(smpl.num_verts)
+    closed = R.IUVRenderer(closed_atlas, 224, 56, cull_verts=template)
+    check(closed.cull, "the closed atlas orients with no conflicted edge")
+    ts, _, vpx_s = soup.project(verts, cam)
+    tc, dp_c, vpx_c = closed.project(verts, cam)
+    fs, texs, fc, texc = ts["faces"], ts["face_tex"], tc["faces"], tc["face_tex"]
+    mask = R.backface_mask(dp_c, cam, fc)
+    live = closed.live_fraction(verts, cam)
+    budget = R.cull_budget(fc.shape[0], 1024, 0.55)
+    print(f"phase 5: B={RASTER_BATCH} S=56 F={fs.shape[0]}; fitted camera scale min {cam[:, 0].min().item()!r} "
+          f"max {cam[:, 0].max().item()!r}; closed atlas live_fraction min {live.min().item()!r} mean "
+          f"{live.mean().item()!r} max {live.max().item()!r} (budget {budget} faces = "
+          f"{budget / fc.shape[0]!r}); backface_mask culls {mask.float().mean().item()!r} of the faces")
+    chunk = 128   # the plain version's (B, S*S, chunk) temporaries
+    tv, tf, tt = tie_scene(dev)
+
+    runs = {
+        "a": ("soup atlas, rasterize_flat",
+              lambda: R.rasterize_flat(vpx_s, fs, texs, 56),
+              lambda: R.rasterize_flat_plain(vpx_s, fs, texs, 56, chunk=chunk)),
+        "b": ("closed atlas, rasterize_flat_culled",
+              lambda: R.rasterize_flat_culled(vpx_c, fc, texc, 56, 224.0, 1024, 0.55),
+              lambda: R.rasterize_flat_culled_plain(vpx_c, fc, texc, 56, 224.0, chunk, 0.55)),
+        "c": ("closed atlas, rasterize_flat_masked with backface_mask",
+              lambda: R.rasterize_flat_masked(vpx_c, fc, texc, 56, cull_mask=mask),
+              lambda: R.rasterize_flat_plain(vpx_c, fc, texc, 56, chunk=chunk, skip=mask)),
+        "d": ("soup atlas, rasterize_flat, f64, B=2",
+              lambda: R.rasterize_flat(vpx_s[:2].double(), fs, texs, 56),
+              lambda: R.rasterize_flat_plain(vpx_s[:2].double(), fs, texs, 56, chunk=chunk)),
+        "t": ("exact depth tie, live vs filler face, rasterize_flat_culled",
+              lambda: R.rasterize_flat_culled(tv, tf, tt, 16, 16.0, 1024, 0.55),
+              lambda: R.rasterize_flat_culled_plain(tv, tf, tt, 16, 16.0, 1024, 0.55)),
+    }
+    errs = {}
+    for key, (what, kernel, plain) in runs.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        exp = plain()
+        off = (got != exp).any(-1)
+        n_off, frac = int(off.sum()), off.float().mean().item()
+        shown = (exp[..., 0] > 0).float()
+        cover, empty = shown.mean().item(), int((shown.mean((1, 2)) == 0).sum())
+        err = (got.double() - exp.double()).abs().max().item()
+        errs[key] = err
+        print(f"phase 5: ({key}) {what}: {n_off} of {off.numel()} pixels differ ({frac!r}), "
+              f"max abs err {err!r}, foreground {cover!r}, {empty} empty images of {got.shape[0]}")
+        check(tuple(got.shape) == tuple(exp.shape) and bool(torch.isfinite(got).all()), f"raster ({key}) shape")
+        check(frac <= PIXELS_OFF_MAX, f"raster ({key}): {frac} of the pixels differ")
+        check(cover > 0.02 and empty == 0, f"raster ({key}): foreground {cover}, {empty} empty images")
+    tie = runs["t"][1]()[0][runs["t"][2]()[0, ..., 0] > 0]
+    check(bool((tie == tt[1]).all()), "the exact tie goes to the live face")
+
+    times = {}
+    for key in ("a", "c", "b"):   # the three entries on the training path's inputs
+        what, kernel, plain = runs[key]
+        t = {"plain": [], "kernel": []}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            t[turn].append(cuda_ms(plain, 1) if turn == "plain" else cuda_ms(kernel, 20))
+        times[key] = (min(t["kernel"]), min(t["plain"]))
+        print(f"phase 5: ({key}) B={RASTER_BATCH} fp32 {what}: kernel {t['kernel']} ms, "
+              f"plain {t['plain']} ms (CUDA events, mean of 20 / 1 call after a warm-up, turns "
+              f"plain/kernel/kernel/plain, plain chunk {chunk}); card {card}")
+    return {"rasterize_flat": (*times["a"], errs["a"]),
+            "rasterize_flat_masked": (*times["c"], errs["c"])}
+
+
+def phase6_step_f64(dev):
+    from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import synthetic_densepose_atlas
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device, create_train_state, make_train_step
+
+    cfg = Config(danet=DaNetConfig(img_size=64, heatmap_size=16, partdrop_rate=0.0,
+                                   stn_center_jitter=0.0, stn_scale_jitter=0.0))
+    smpl = synthetic_smpl_model()
+    atlas = synthetic_densepose_atlas(smpl)
+    raw = posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, 4, seed=2), seed=3)
+    base = random_init_(DaNet(cfg.danet), seed=0).double()
+    res = {}
+    for where, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        model = copy.deepcopy(base).to(d)
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, smpl, cfg, renderer=R.IUVRenderer(atlas, 64, 16))
+        batch = batch_to_device(raw, d, torch.float64)
+        R.rasterize_flat.launches = R.rasterize_flat_masked.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            launches = (R.rasterize_flat.launches, R.rasterize_flat_masked.launches)
+            check(launches[0] >= 1, f"the f64 step on the card launched rasterize_flat: {launches}")
+        print(f"phase 6: f64 step on {where}: {time.perf_counter() - t0:.2f} s, "
+              f"loss_total {metrics['loss_total'].item()!r}")
+        res[where] = ({k: v.item() for k, v in metrics.items()},
+                      {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                      {n: p.detach().cpu() for n, p in model.named_parameters()})
+    print(f"phase 6: raster launches (rasterize_flat, rasterize_flat_masked) in the card's step: {launches}")
+    (lc, gc, pc), (lg, gg, pg) = res["cpu"], res["cuda"]
+    check(lc.keys() == lg.keys(), "the same loss terms")
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc if lc[k] != 0)
+    check(all(lg[k] == 0 for k in lc if lc[k] == 0), "zero loss terms stay zero")
+    # a gradient may differ by 1e-9 of its tensor's largest entry plus 1e-12
+    # (the heatmap head's bias has an exact gradient of 0, ~1e-15 in floats)
+    grad_err = max((gg[n] - gc[n]).abs().max().item() / (1e-9 * gc[n].abs().max().item() + 1e-12) for n in gc)
+    # Adam's first update is lr * g / (|g| + 1e-8), a sign wherever |g| >> 1e-8:
+    # tight where the gradient stands far above its error bar, else <= 2 lr
+    lr = cfg.solver.base_lr
+    param_err = max(torch.where(gc[n].abs() >= 1e-6 * gc[n].abs().max(), (pg[n] - pc[n]).abs(), 0.0)
+                    .max().item() for n in pc)
+    param_all = max((pg[n] - pc[n]).abs().max().item() for n in pc)
+    print(f"phase 6: {len(lc)} loss terms, max rel err {loss_err!r} (tolerance 1e-9); {len(gc)} gradients, "
+          f"worst err / (1e-9 max|grad| + 1e-12) {grad_err!r} (tolerance 1); params after Adam max abs err "
+          f"{param_err!r} where |grad| >= 1e-6 max|grad| (tolerance 1e-9), {param_all!r} anywhere "
+          f"(tolerance 2 lr = {2 * lr!r})")
+    check(loss_err <= 1e-9, f"f64 losses card vs CPU: {loss_err}")
+    check(grad_err <= 1.0, f"f64 gradients card vs CPU: {grad_err}")
+    check(param_err <= 1e-9 and param_all <= 2 * lr + 1e-12, f"f64 params after Adam card vs CPU: {param_err}")
+
+
+def profile_steps(step, state, batch, gen, card, n=2):
+    """`n` train steps under torch.profiler: the stage ranges of
+    `make_train_step` and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in on_card
+                    if not getattr(e, "is_user_annotation", False)
+                    and not e.key.startswith(("train.", "Optimizer."))) / 1e3 / n
+    print(f"profile: {n} bf16 steps B={TRAIN_BATCH}: {wall_ms!r} ms/step on the host clock (profiler on), "
+          f"{kernel_ms!r} ms/step of kernel time; card {card}")
+    for e in events:
+        if e.key.startswith("train."):
+            # the host-side range sums the kernels it launched; the same
+            # range on the card spans its first to last kernel, gaps included
+            kind = ("span on the card" if e.device_type == DeviceType.CUDA
+                    else "kernels launched inside (the backward runs on autograd's thread)")
+            print(f"profile: {e.key}: {e.device_time_total / 1e3 / n!r} ms/step, {kind}")
+    print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+
+
+def raster_launches(fn):
+    """Run `fn()` with the raster launch counts zeroed just before it; return
+    (its result, {entry: launches} read just after it)."""
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+
+    R.rasterize_flat.launches = R.rasterize_flat_masked.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"rasterize_flat": R.rasterize_flat.launches,
+                 "rasterize_flat_masked": R.rasterize_flat_masked.launches}
+
+
+def phase7_train_bf16(dev, card) -> dict:
+    from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import closed_synthetic_atlas
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model, to_torch
+    from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device, create_train_state, make_train_step
+
+    cfg = Config(danet=DaNetConfig(compute_dtype="bfloat16"))
+    smpl = synthetic_smpl_model()
+    atlas, template = closed_synthetic_atlas(smpl.num_verts)
+    renderer = R.IUVRenderer(atlas, 224, 56, cull_verts=template)
+    check(renderer.cull, "culling is on for the closed atlas")
+    model = random_init_(DaNet(cfg.danet), seed=0).to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, smpl, cfg, renderer=renderer)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [batch_to_device(posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, TRAIN_BATCH, seed=10 + i),
+                                               seed=20 + i), dev)
+               for i in range(TRAIN_STEPS + 1)]
+    state, warm = step(state, batches[0], gen)    # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    # the main path: the training step as a user runs it, 5 steps timed
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    metrics, main = raster_launches(lambda: [step(state, b, gen)[1] for b in batches[1:]])
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    paths = {"main": main}
+    pre, paths["pretrain_mode"] = raster_launches(
+        lambda: make_train_step(model, smpl, cfg, renderer=renderer, pretrain_mode=True)(state, batches[0], gen)[1])
+    other = {}
+    for backend in ("pallas", "pallas_bandrange"):
+        r = R.IUVRenderer(atlas, 224, 56, cull_verts=template, backend=backend)
+        other[backend], paths[backend] = raster_launches(
+            lambda: make_train_step(model, smpl, cfg, renderer=r)(state, batches[1], gen)[1])
+    profile_steps(step, state, batches[2], gen, card)
+
+    for i, m in enumerate([warm] + metrics + [pre] + list(other.values())):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        check(not bad, f"bf16 step {i}: non-finite {bad}")
+    check("smpl_pose" not in pre and "loss_U" in pre, "pretrain_mode runs the IUV losses only")
+    moved = max((p.detach() - start[n]).abs().max().item() for n, p in model.named_parameters())
+    check(moved > 0, "the parameters moved")
+    check(main["rasterize_flat_masked"] >= TRAIN_STEPS and main["rasterize_flat"] == 0,
+          f"main path: raster launches {main} in {TRAIN_STEPS} steps")
+    check(paths["pretrain_mode"]["rasterize_flat_masked"] >= 1, f"pretrain_mode: {paths['pretrain_mode']}")
+    check(paths["pallas"]["rasterize_flat"] >= 1, f"the 'pallas' backend: {paths['pallas']}")
+    check(paths["pallas_bandrange"]["rasterize_flat_masked"] >= 1,
+          f"the 'pallas_bandrange' backend: {paths['pallas_bandrange']}")
+    prep = prepare_targets(cfg, to_torch(smpl, dev), batches[1], renderer=renderer)
+    live = renderer.live_fraction(prep["target_verts"], prep["target_cam"])
+    cover = (prep["uv_image_gt"][..., 0] > 0).float().mean().item() if "uv_image_gt" in prep else None
+    for i, m in enumerate([warm] + metrics):
+        top = sorted(((v.item(), k) for k, v in m.items() if k != "loss_total"), reverse=True)[:3]
+        print(f"phase 7: step {i} ({'warm-up' if i == 0 else 'timed'}): loss_total "
+              f"{m['loss_total'].item()!r}; largest terms {[(k, v) for v, k in top]}")
+    print(f"phase 7: bf16 train B={TRAIN_BATCH} 224 px: pretrain {pre['loss_total'].item()!r}, via 'pallas' "
+          f"{other['pallas']['loss_total'].item()!r}, via 'pallas_bandrange' "
+          f"{other['pallas_bandrange']['loss_total'].item()!r}; params moved up to {moved!r}; "
+          f"live_fraction max {live.max().item()!r}; GT foreground {cover!r}")
+    print(f"phase 7: {TRAIN_STEPS} steps in {dt!r} s: {TRAIN_BATCH * TRAIN_STEPS / dt!r} imgs/s "
+          f"(host clock, ends in synchronize); {dt / TRAIN_STEPS * 1e3!r} ms/step; peak memory "
+          f"{peak:.2f} GiB; raster launches by path {paths}; card {card}")
+    return paths
+
+
 def main():
     phase0_environment()
     dev = torch.device("cuda", 0)
     card = card_line()
-    phase1_kernel_vs_plain(dev)
-    phase2_slice_f64(dev)
-    launches = phase3_serving(dev, card)
-    ms, plain_ms, err = phase4_timing(dev, card)
+    timings = {}
+
+    def timed(n, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        timings[n] = time.perf_counter() - t0
+        return out
+
+    timed(1, lambda: phase1_kernel_vs_plain(dev))
+    timed(2, lambda: phase2_slice_f64(dev))
+    k1_launches = timed(3, lambda: phase3_serving(dev, card))
+    ms, plain_ms, err = timed(4, lambda: phase4_timing(dev, card))
+    raster = timed(5, lambda: phase5_raster(dev, card))
+    timed(6, lambda: phase6_step_f64(dev))
+    paths = timed(7, lambda: phase7_train_bf16(dev, card))
+    kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+                "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
+                f"{SERVE_REQUESTS} requests", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]
+    raster_paths = {  # entry -> (the phase-7 path its launches are read from, its label)
+        "rasterize_flat": ("pallas", "training step, IUVRenderer backend 'pallas', bf16, B=64, 1 step"),
+        "rasterize_flat_masked": ("main", f"training step (the main path: closed atlas, culled), bf16, "
+                                          f"B={TRAIN_BATCH}, {TRAIN_STEPS} steps"),
+    }
+    for name, (ms, plain_ms, err) in raster.items():
+        path, label = raster_paths[name]
+        kernels.append({"name": name, "route": "cuda", "source": RASTER_SOURCE, "replaces": RASTER_REPLACES[name],
+                        "launches": paths[path][name], "path": label, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms})
+    print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -1,4 +1,5 @@
-"""danet_densepose2smpl_tpu_torch — the PyTorch/CUDA port of DaNet serving.
+"""danet_densepose2smpl_tpu_torch — the PyTorch/CUDA port of DaNet serving
+and training.
 
 The JAX package `danet_densepose2smpl_tpu` is the reference; every module
 here keeps the name of its JAX counterpart so each pair is easy to find.
@@ -11,7 +12,9 @@ Layer map:
              PyTorch version; `csrc/` holds their sources
   nn/        nn.Module building blocks (HRNet-W48, ResNets, GCN, heads)
   models/    IUV estimator, SMPL regressor and the DaNet composition
-  smpl/      SMPL arrays and the LBS forward
+  smpl/      SMPL arrays, the LBS forward and the DensePose atlas
+  data/      synthetic raw training batches (numpy)
+  train/     GT preparation, the loss assembly and the training step
   port.py    flax variables -> this package's state_dict
   serve.py   `Predictor`: one request = one batch of images -> SMPL
 

@@ -35,12 +35,14 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(source: str) -> tuple[ctypes.CDLL, str]:
-    """Compile `csrc/<source>` (if not built yet) and load it.
+def build(source: str, extra_flags: tuple = ()) -> tuple[ctypes.CDLL, str]:
+    """Compile `csrc/<source>` (if not built yet) with NVCC_FLAGS plus
+    `extra_flags`, and load it.
 
     Returns the loaded library and the compiler's report."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     stem = f"{src.stem}-{digest}"
     lib_path = BUILD_DIR / f"lib{stem}.so"
     log_path = BUILD_DIR / f"{stem}.log"
@@ -52,7 +54,7 @@ def build(source: str) -> tuple[ctypes.CDLL, str]:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                [find_nvcc(), *flags, "-o", tmp, str(src)],
                 capture_output=True, text=True, check=False,
             )
             if proc.returncode != 0:

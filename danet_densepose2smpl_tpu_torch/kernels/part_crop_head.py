@@ -7,7 +7,9 @@ H100 and how its design answers is set out at the top of the CUDA source.
 
 `fused_part_predict` dispatches on the device of `feats`: a CPU tensor goes
 to the plain version, a CUDA tensor to the kernel, which launches or raises.
-`fused_part_predict.launches` counts kernel launches.
+`fused_part_predict.launches` counts kernel launches. The kernel has no
+backward (nor had the TPU kernel), so on every device the result carries a
+`grad_fn` whose backward raises: a gradient is never dropped silently.
 """
 
 from __future__ import annotations
@@ -82,6 +84,21 @@ def _check(feats, wy, wx, kernel, bias, out_size):
     return b, h, w, c, k, o
 
 
+class _ForwardOnly(torch.autograd.Function):
+    """Runs the crop + head; its backward refuses instead of returning a
+    zero or missing gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, wy, wx, kernel, bias, out_size):
+        return _fused_part_predict(feats, wy, wx, kernel, bias, out_size)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError(
+            "fused_part_predict has no backward: train through the separable crop + grouped "
+            "conv, or decide on a K1 backward by measuring (ROADMAP.md queue 2)")
+
+
 def fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Tensor:
     """Crop K parts from `feats` and apply the grouped 3x3 head, fused.
 
@@ -89,8 +106,12 @@ def fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Tens
     matrices (`ops.imwarp._axis_weights`, any dense values); kernel:
     (3, 3, C, K*O) grouped-conv weights in HWIO, output channel k*O + o
     belonging to part k; bias: (K*O,). Returns (B, K, S, S, O) in feats'
-    dtype.
+    dtype. Forward only: backward through the result raises.
     """
+    return _ForwardOnly.apply(feats, wy, wx, kernel, bias, out_size)
+
+
+def _fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Tensor:
     if feats.device.type == "cpu":
         return part_crop_head_plain(feats, wy, wx, kernel, bias, out_size)
     if feats.device.type != "cuda":

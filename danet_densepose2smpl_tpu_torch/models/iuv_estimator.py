@@ -1,14 +1,19 @@
-"""IUV estimator, eval path: image -> global IUV maps + 24 partial IUV
-stacks (port of the JAX `models/iuv_estimator.py`).
+"""IUV estimator: image -> global IUV maps + 24 partial IUV stacks (port
+of the JAX `models/iuv_estimator.py`).
 
 HRNet-W48 -> IUV heads (global U/V/Index/Ann + 24 joint heatmaps) ->
-soft-argmax joint centres -> part visibility -> STN scales with the learned
-per-joint ratio/offset -> 24 part crops + grouped partial-IUV head.
+soft-argmax joint centres -> (train: centre jitter) -> part visibility ->
+STN scales with the learned per-joint ratio/offset (train: scale jitter,
+twice, as the reference) -> 24 part crops + grouped partial-IUV head. The
+STN theta and scale are detached, as in JAX's 'iuv' mode.
 
-The crop + head always runs through `PartialIUVHead.fused`, whatever
-`fused_part_head` says: on a CUDA tensor that is the hand-written kernel,
-on a CPU tensor its plain version. It is the same function as the JAX
-separable-crop + grouped-conv path, computed without writing the crops.
+At eval the crop + head runs through `PartialIUVHead.fused`, whatever
+`fused_part_head` says: on a CUDA tensor the hand-written kernel (K1), on a
+CPU tensor its plain version. In train mode it is the JAX train path, the
+separable crop + grouped conv as autograd ops (K1 has no backward).
+Jitter noise comes in as uniforms in [0, 1) (`noise['center']` (B, 24, 2),
+`noise['scale']` (2, B, 24)), so tests can hand both packages the same
+numbers.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch.nn.functional as F
 from danet_densepose2smpl_tpu.core.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES, PoseHighResolutionNet
 from danet_densepose2smpl_tpu_torch.nn.iuv_head import IUVPredictHead, nhwc
-from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights
+from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights, separable_crop_concat
 from danet_densepose2smpl_tpu_torch.ops.keypoints import soft_argmax_2d
 from danet_densepose2smpl_tpu_torch.ops.structure import SMPL_CHILD2, SMPL_PARENT, smpl2dp_channel_mask
 
@@ -76,13 +81,17 @@ def crop_theta(center: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1], dim=-2)
 
 
-def stn_affine_params(centers, ratio, offset, part_hidden=None):
-    """Per-part STN (theta, scale) from joint centres (eval: no jitter).
+def stn_affine_params(centers, ratio, offset, part_hidden=None, scale_jitter: float = 0.0,
+                      scale_noise=None):
+    """Per-part STN (theta, scale) from joint centres, both detached.
 
     Part 0 scales to the keypoint bounding box; the others to 2x the larger
     half-distance to parent/child; then the learned ratio/offset; hidden
-    parts (except the root) fall back to 0.8x the box scale.
+    parts (except the root) fall back to 0.8x the box scale. With
+    `scale_jitter` > 0, scale *= 1 + jitter * (u - 0.5) before and again
+    after the fallback, u = scale_noise[0] and [1] (each (B, 24)).
     """
+    centers = centers.detach()
     box_diag = centers.amax(dim=1) - centers.amin(dim=1)          # (B, 2)
     scale_box = box_diag.amax(dim=-1) / 2.0                       # (B,)
     child = torch.as_tensor(SMPL_CHILD2, device=centers.device, dtype=torch.long)
@@ -92,10 +101,16 @@ def stn_affine_params(centers, ratio, offset, part_hidden=None):
     scale = 2.0 * torch.maximum(d_child, d_parent)                # (B, 24)
     scale = torch.cat([scale_box[:, None], scale[:, 1:]], dim=1)
     scale = scale * F.relu(ratio)[None, :] + F.relu(offset)[None, :]
+    jitter = scale_jitter > 0
+    if jitter:
+        scale = scale * (1 + scale_jitter * (scale_noise[0] - 0.5))
     if part_hidden is not None:
         hide = part_hidden.clone()
         hide[:, 0] = False  # root never falls back
         scale = torch.where(hide, 0.8 * scale_box[:, None], scale)
+    if jitter:
+        scale = scale * (1 + scale_jitter * (scale_noise[1] - 0.5))
+    scale = scale.detach()
     return crop_theta(centers, scale), scale
 
 
@@ -113,12 +128,14 @@ class IUVEstimator(nn.Module):
             "part_mask_t", torch.as_tensor(smpl2dp_channel_mask().T.copy()), persistent=False,
         )
 
-    def forward(self, image: torch.Tensor) -> dict:
-        """image: (B, 3, H, W), channels_last. Returns channels-last
-        predictions: u/v/index (B, S, S, 25); ann (B, S, S, 15); heatmaps
-        (B, S, S, 24); stn_centers (B, 24, 2); part_vis_scores (B, 24);
+    def forward(self, image: torch.Tensor, noise: dict | None = None) -> dict:
+        """image: (B, 3, H, W), channels_last; noise: the jitter uniforms
+        (train mode with jitter only). Returns channels-last predictions:
+        u/v/index (B, S, S, 25); ann (B, S, S, 15); heatmaps (B, S, S, 24);
+        stn_centers (B, 24, 2) (before jitter); part_vis_scores (B, 24);
         stn_theta (B, 24, 2, 3); stn_scale (B, 24); part_iuv
         (B, 24, S, S, 3, 7); feats (B, S, S, C)."""
+        c = self.cfg
         feats = self.iuv_est(image)
         out = self.iuv_est.final_pred(feats)
         # the kernel takes dense NHWC; a free view of the channels_last output
@@ -129,23 +146,35 @@ class IUVEstimator(nn.Module):
         s = hm.shape[1]
         centers = soft_argmax_2d(hm, temperature=10.0) / (0.5 * s) - 1.0
         out["stn_centers"] = centers
+        if self.training and c.stn_center_jitter > 0:
+            centers = centers + c.stn_center_jitter * (noise["center"] - 0.5)
+        centers = centers.detach()
 
         part_hidden = None
-        if self.cfg.stn_part_vis_score > 0:
+        if c.stn_part_vis_score > 0:
             # max over the joint's patch channels of the one-hot cleaned index
             # map = the mask entry of the winning channel
             winner = torch.argmax(out["index"], dim=-1)            # (B, S, S)
             score_maps = self.part_mask_t.to(hm.dtype)[winner]      # (B, S, S, 24)
             scores = point_sample(score_maps, centers)
-            part_hidden = scores < self.cfg.stn_part_vis_score
+            part_hidden = scores < c.stn_part_vis_score
             out["part_vis_scores"] = scores
 
-        theta, scale = stn_affine_params(centers, self.learned_ratio, self.learned_offset, part_hidden)
+        theta, scale = stn_affine_params(
+            centers, self.learned_ratio, self.learned_offset, part_hidden,
+            scale_jitter=c.stn_scale_jitter if self.training else 0.0,
+            scale_noise=noise["scale"] if self.training and c.stn_scale_jitter > 0 else None,
+        )
         out["stn_theta"] = theta
         out["stn_scale"] = scale
 
-        hh, ww = feats_nhwc.shape[1:3]
-        wy = _axis_weights(centers[..., 1], scale, hh, s, feats.dtype)
-        wx = _axis_weights(centers[..., 0], scale, ww, s, feats.dtype)
-        out["part_iuv"] = self.iuv_est.final_pred.predict_partial_iuv.fused(feats_nhwc, wy, wx)
+        head = self.iuv_est.final_pred.predict_partial_iuv
+        if self.training:
+            crops = separable_crop_concat(feats_nhwc, theta[..., :, 2], theta[..., 0, 0], s)
+            out["part_iuv"] = head(crops.permute(0, 3, 1, 2))
+        else:
+            hh, ww = feats_nhwc.shape[1:3]
+            wy = _axis_weights(theta[..., 1, 2], theta[..., 0, 0], hh, s, feats.dtype)
+            wx = _axis_weights(theta[..., 0, 2], theta[..., 0, 0], ww, s, feats.dtype)
+            out["part_iuv"] = head.fused(feats_nhwc, wy, wx)
         return out

@@ -1,13 +1,19 @@
-"""Decomposed SMPL parameter regressor, 'gcn' strategy, eval path (port of
-the JAX `models/smpl_regressor.py::DecomposedPredictor`).
+"""Decomposed SMPL parameter regressor, 'gcn' strategy (port of the JAX
+`models/smpl_regressor.py::DecomposedPredictor`).
 
 body net (cam + shape) over the 75-ch global IUV map; limb net over the 24
 partial IUV stacks; grouped layer4 -> per-part rotation features; rot2pos
 GCN, learned-edge refinement GCN, pos2rot GCN; grouped 6D pose heads added
 to the mean pose. Names follow the reference checkpoint
 (`iuv2smpl.smpl_para_Outs.*`). The aux heads `pose_regressors.0` and
-`coord_regressors.{0,1}` are built as in the JAX model, whose parameter
-tree holds them at eval too; their outputs are not computed at eval.
+`coord_regressors.{0,1}` feed the train-only `joint_rotation` and
+`joint_position` outputs; at eval they are not computed.
+
+The constant tables (mean cam/shape, mean pose, the three adjacencies) stay
+at least fp32 whatever dtype the module is cast to, as the JAX package's
+jnp constants do: in a bf16 module the mean-pose add, the GCN adjacency
+products and every layer after them run in fp32, as JAX's type promotion
+has them.
 """
 
 from __future__ import annotations
@@ -69,14 +75,21 @@ class PartwiseDense(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
-        return self[1](x.reshape(b, -1, 1, 1)).reshape(b, self.num_parts, -1)
+        conv = self[1]
+        dt = torch.promote_types(x.dtype, conv.weight.dtype)   # einsum promotion in JAX
+        y = F.conv2d(x.reshape(b, -1, 1, 1).to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                     groups=conv.groups)
+        return y.reshape(b, self.num_parts, -1)
 
 
 class DecomposedPredictor(nn.Module):
+    CONSTANTS = ("mean_cam_shape", "mean_pose", "r2p_A", "p2r_A", "A_mask")
+
     def __init__(self, cfg: DaNetConfig, mean_params: MeanParams):
         super().__init__()
         r = cfg.refinement
         f = r.feat_dim
+        self.position_heads = cfg.joint_position_weights > 0
         self.body_net = nn.Sequential(
             *Conv1x1BNRelu(75, 64),
             SmplResNet(cfg.glo_num_layers, in_channels=64, num_classes=13),
@@ -107,11 +120,29 @@ class DecomposedPredictor(nn.Module):
         self.register_buffer("p2r_A", const(pos2rot_adjacency()), persistent=False)
         self.register_buffer("A_mask", const(refine_edge_mask()), persistent=False)
 
-    def forward(self, iuv_map: torch.Tensor, part_iuv_map: torch.Tensor) -> torch.Tensor:
+    def _apply(self, fn, recurse=True):
+        # keep the constant tables at promote(fp32, target dtype): .to(bf16)
+        # moves them but leaves them fp32, .double() makes them f64
+        kept = {name: self._buffers[name] for name in self.CONSTANTS}
+        super()._apply(fn, recurse)
+        for name, t in kept.items():
+            moved = self._buffers[name]
+            self._buffers[name] = t.to(device=moved.device,
+                                       dtype=torch.promote_types(torch.float32, moved.dtype))
+        return self
+
+    def _to_rotmat_flat(self, pose6d: torch.Tensor) -> torch.Tensor:
+        b = pose6d.shape[0]
+        pose = pose6d.reshape(b, 144) + self.mean_pose
+        return rot6d_to_rotmat(pose.reshape(b * 24, 6)).reshape(b, 216)
+
+    def forward(self, iuv_map: torch.Tensor, part_iuv_map: torch.Tensor) -> dict:
         """iuv_map: (B, 75, S, S) channels_last; part_iuv_map:
-        (B, 24, S, S, 3, 7). Returns para (B, 229) = [cam 3, shape 10,
-        rotmats 216]."""
+        (B, 24, S, S, 3, 7). Returns {'para': (B, 229) = [cam 3, shape 10,
+        rotmats 216], 'joint_rotation': [...], 'joint_position': [...]}; the
+        two lists are filled in train mode only."""
         b = iuv_map.shape[0]
+        out = {"joint_rotation": [], "joint_position": []}
         global_para, _ = self.body_net(iuv_map)
         global_para = global_para + self.mean_cam_shape
 
@@ -120,15 +151,21 @@ class DecomposedPredictor(nn.Module):
         _, limb_feat = self.limb_net(limb_in)
         hs = limb_feat.shape[-1]
         rot_feats = self.limb_reslayer(limb_feat.reshape(b, -1, hs, hs))   # (B, 24, F)
+        if self.training:
+            out["joint_rotation"].append(self._to_rotmat_flat(self.pose_regressors[0](rot_feats)))
 
         pos_init = self.r2p_gcn(rot_feats, self.r2p_A)
+        positions = self.training and self.position_heads
+        if positions:
+            out["joint_position"].append(self.coord_regressors[0](pos_init))
         ei = self.edge_importance[0]
-        graph_A = self.A_mask.to(ei.dtype) * F.relu(ei)
-        eye = torch.eye(24, dtype=ei.dtype, device=ei.device)
+        graph_A = self.A_mask * F.relu(ei)
+        eye = torch.eye(24, dtype=graph_A.dtype, device=ei.device)
         pos_refined = pos_init + self.refine_gcn(pos_init, normalize_undigraph(eye + graph_A))
+        if positions:
+            out["joint_position"].append(self.coord_regressors[1](pos_refined))
         rot_refined = self.p2r_gcn(pos_refined, self.p2r_A)
 
         local_pose = self.pose_regressors[1](rot_refined)                    # (B, 24, 6)
-        pose = local_pose.reshape(b, 144) + self.mean_pose
-        smpl_pose = rot6d_to_rotmat(pose.reshape(b * 24, 6)).reshape(b, 216)
-        return torch.cat([global_para, smpl_pose], dim=1)
+        out["para"] = torch.cat([global_para, self._to_rotmat_flat(local_pose)], dim=1)
+        return out

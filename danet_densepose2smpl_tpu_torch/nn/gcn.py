@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from danet_densepose2smpl_tpu_torch.nn.layers import BN_EPS
+from danet_densepose2smpl_tpu_torch.nn.layers import BN_EPS, BatchNorm1d
 
 
 def normalize_undigraph(A: torch.Tensor) -> torch.Tensor:
@@ -28,8 +28,12 @@ class GraphConv(nn.Module):
         nn.init.xavier_uniform_(self.weight)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        # x: (B, N, F); adj: (N, N)
-        return torch.matmul(adj.to(x.dtype), x) @ self.weight + self.bias
+        # x: (B, N, F); adj: (N, N). Promotes as JAX does: an fp32 adjacency
+        # lifts bf16 features (and then the bf16 weights) to fp32.
+        dt = torch.promote_types(adj.dtype, x.dtype)
+        y = torch.matmul(adj.to(dt), x.to(dt))
+        dt = torch.promote_types(dt, self.weight.dtype)
+        return y.to(dt) @ self.weight.to(dt) + self.bias.to(dt)
 
 
 class GCN(nn.Module):
@@ -42,7 +46,7 @@ class GCN(nn.Module):
         ins = [in_dim] + dims[:-1]
         self.gc = nn.ModuleList(GraphConv(i, o) for i, o in zip(ins, dims))
         self.act = nn.ModuleList(
-            nn.Sequential(nn.BatchNorm1d(num_nodes, eps=BN_EPS), nn.ReLU(inplace=True))
+            nn.Sequential(BatchNorm1d(num_nodes, eps=BN_EPS), nn.ReLU(inplace=True))
             for _ in dims
         )
 

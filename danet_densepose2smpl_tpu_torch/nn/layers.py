@@ -3,7 +3,8 @@
 Module and attribute names follow the reference checkpoint's state_dict
 (conv1/bn1/conv2/bn2[/conv3/bn3], downsample.{0,1}, blocks of a layer as
 `{i}`), so a released state_dict loads name for name. BatchNorm eps is
-1e-5, as flax's default.
+1e-5, as flax's default; in train mode its running variance takes the
+biased batch variance, as flax's does (see `FlaxRunningVar`).
 """
 
 from __future__ import annotations
@@ -21,8 +22,55 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,
     return nn.Conv2d(cin, cout, kernel, stride, kernel // 2, groups=groups, bias=bias)
 
 
-def bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS)
+class FlaxRunningVar:
+    """BatchNorm mixin: in train mode, update `running_var` with the biased
+    batch variance, as flax does (torch's own update takes the unbiased
+    one, a factor n/(n-1) that is large at the regressor's 1x1 and 2x2
+    maps). The momentum is already flax's: torch 0.1 = flax 0.9.
+
+    F.batch_norm writes (1-m)*rv + m*var*n/(n-1); handing it rv/k,
+    k = (n-1)/n, and keeping k times its result turns that into
+    (1-m)*rv + m*var without another pass over the activations."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            if x.dtype != self.weight.dtype and not torch.is_autocast_enabled(x.device.type):
+                return _eval_bn_promoted(self, x)
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        if n < 2:
+            raise ValueError(f"BatchNorm in train mode needs more than one value per channel, got {n}")
+        k = (n - 1) / n
+        # a scaled copy: autograd may save the tensor F.batch_norm updates
+        running_var = self.running_var / k
+        y = F.batch_norm(x, self.running_mean, running_var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.copy_(running_var * k)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def _eval_bn_promoted(m, x):
+    """Eval BatchNorm with flax's dtype flow for mixed inputs (fp32
+    activations into bf16 statistics and parameters):
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, the rsqrt and scale
+    product in the statistics' dtype, the rest promoted."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(m.running_var + m.eps) * m.weight
+    return (x - m.running_mean.reshape(shape)) * mul.reshape(shape) + m.bias.reshape(shape)
+
+
+class BatchNorm2d(FlaxRunningVar, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(FlaxRunningVar, nn.BatchNorm1d):
+    pass
+
+
+def bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS)
 
 
 class BNReLU(nn.Sequential):

@@ -4,7 +4,10 @@
 (`bench.py::bench_inference.forward`, and `cli/demo.py` without the
 rendering): DaNet eval, then SMPL LBS on the predicted shape and rotations.
 The model lives on one explicit device in float32 or bfloat16; bf16 serving
-casts parameters, buffers and activations to bf16 and keeps SMPL in fp32.
+casts parameters, BatchNorm statistics and activations to bf16 and keeps
+the regressor's constant tables and SMPL in fp32. As in the JAX package's
+bf16 path, the regressor's graph stages then promote to fp32, so `para`
+comes out fp32.
 """
 
 from __future__ import annotations
@@ -84,8 +87,9 @@ class Predictor:
         """images_nhwc: (B, H, W, 3) normalized RGB (numpy or tensor).
 
         Returns para (B, 229), pred_cam (B, 3), pred_shape (B, 10),
-        pred_rotmat (B, 24, 3, 3) in the serving dtype, and vertices
-        (B, V, 3) and joints (B, 49, 3) in fp32."""
+        pred_rotmat (B, 24, 3, 3), vertices (B, V, 3) and joints (B, 49, 3),
+        all fp32 (the regressor promotes to fp32 from its first graph
+        stage, as JAX's bf16 path does)."""
         if isinstance(images_nhwc, np.ndarray):
             images_nhwc = torch.from_numpy(images_nhwc)
         x = images_nhwc.to(device=self.device, dtype=self.dtype)

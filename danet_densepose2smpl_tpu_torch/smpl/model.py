@@ -1,6 +1,7 @@
 """Batched SMPL forward (blendshapes + joint regression + LBS).
 
-Counterpart of the JAX package's `smpl/model.py::smpl_forward`. It runs in
+Counterpart of the JAX package's `smpl/model.py::smpl_forward` and
+`smpl_forward_aa`. It runs in
 the dtype of `betas` (fp32 when serving, f64 in the parity tests); the
 millimeter accuracy budget rules out TF32, which PyTorch's matmuls leave off
 unless a caller turns it on.
@@ -19,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from danet_densepose2smpl_tpu.constants import J24_TO_J19
+from danet_densepose2smpl_tpu_torch.ops.rotations import batch_rodrigues
 from danet_densepose2smpl_tpu_torch.ops.structure import NUM_SMPL_JOINTS, SMPL_PARENT
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel
 
@@ -97,3 +99,11 @@ def smpl_forward(
     return SMPLOutput(
         vertices=verts, joints=joints49, smpl_joints=joints_world, joints_j19=joints_j19,
     )
+
+
+def smpl_forward_aa(model: SMPLModel, betas: torch.Tensor, pose_aa: torch.Tensor,
+                    transl: torch.Tensor | None = None) -> SMPLOutput:
+    """SMPL forward from a 72-dim axis-angle pose (global orient first)."""
+    b = pose_aa.shape[0]
+    rotmats = batch_rodrigues(pose_aa.reshape(b * NUM_SMPL_JOINTS, 3))
+    return smpl_forward(model, betas, rotmats.reshape(b, NUM_SMPL_JOINTS, 3, 3), transl)

@@ -24,6 +24,7 @@ from danet_densepose2smpl_tpu.nn.iuv_head import IUVPredictHead as JIUVPredictHe
 from danet_densepose2smpl_tpu.nn.resnet import LimbResLayers as JLimbResLayers
 from danet_densepose2smpl_tpu.nn.resnet import SmplResNet as JSmplResNet
 from danet_densepose2smpl_tpu.ops.structure import rot2pos_adjacency
+from danet_densepose2smpl_tpu.parallel.mesh import cast_float_tree
 
 from danet_densepose2smpl_tpu_torch import port
 from danet_densepose2smpl_tpu_torch.models.smpl_regressor import DecomposedPredictor
@@ -158,6 +159,37 @@ def test_decomposed_predictor(rng):
     exp = np.asarray(jmod.apply(variables, jnp.asarray(iuv), jnp.asarray(part))["para"])
     ours = load(DecomposedPredictor(cfg, mp), variables, port.decomposed_rules(cfg))
     with torch.no_grad():
-        got = ours(nchw(iuv), torch.from_numpy(part))
+        got = ours(nchw(iuv), torch.from_numpy(part))["para"]
     assert got.shape == exp.shape == (2, 229)
     np.testing.assert_allclose(to_np(got), exp, **TOL)
+
+
+def test_decomposed_predictor_bf16_matches_jax(rng):
+    """bf16 serving: parameters and BatchNorm statistics in bf16, the
+    constant tables (mean cam/shape, mean pose, adjacencies) left fp32, as
+    JAX's `cast_float_tree` serving path leaves its jnp constants. JAX then
+    promotes the mean-pose add and every stage from the first GCN on to
+    fp32, so `para` is fp32 on both sides.
+
+    Bar: atol 2e-2 on para (max |para| ~1.2). Both packages keep the body
+    and limb ResNets in bf16 and round their activations at different
+    points; JAX's own bf16 para lies ~1e-2 from its fp32 para, and the two
+    bf16 results agree to ~9e-3."""
+    cfg = DaNetConfig()
+    mp = default_mean_params()
+    s = 16
+    iuv = (rng.rand(2, s, s, 75) > 0.7).astype(np.float32)
+    part = (rng.rand(2, 24, s, s, 3, 7) > 0.7).astype(np.float32)
+    jmod = JDecomposedPredictor(cfg, mp)
+    variables = randomize(jmod, jnp.asarray(iuv), jnp.asarray(part), seed=5)
+    exp = jmod.apply(cast_float_tree(variables, jnp.bfloat16), jnp.asarray(iuv, jnp.bfloat16),
+                     jnp.asarray(part, jnp.bfloat16))["para"]
+    ours = load(DecomposedPredictor(cfg, mp), variables, port.decomposed_rules(cfg)).to(torch.bfloat16)
+    assert all(getattr(ours, n).dtype == torch.float32 for n in DecomposedPredictor.CONSTANTS)
+    assert ours.body_net[0].weight.dtype == ours.r2p_gcn.gc[0].weight.dtype == torch.bfloat16
+    with torch.no_grad():
+        got = ours(nchw(iuv).to(torch.bfloat16), torch.from_numpy(part).to(torch.bfloat16))["para"]
+    assert exp.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_allclose(to_np(got), np.asarray(exp), atol=2e-2, rtol=0)
+    # .double() still lifts the tables to f64 (the f64 parity path)
+    assert ours.double().mean_pose.dtype == torch.float64

@@ -134,3 +134,21 @@ def test_cuda_kernel_matches_plain(rng, cuda_device, dtype, tol):
         err = (got.double() - ref.double()).abs().max().item()
         scale = ref.double().abs().max().item() if dtype == "bfloat16" else 1.0
         assert err <= tol * scale, (dtype, err, scale)
+
+
+@pytest.mark.parametrize("requires", ["feats", "kernel"])
+def test_backward_refuses_on_cpu(rng, requires):
+    """K1 has no backward: on the CPU, as on the card, the result carries a
+    grad_fn whose backward raises, instead of a result that silently lost
+    its gradient. Without grad (serving) it runs as before."""
+    feats, centers, scales, kernel, bias, s = _inputs(rng)
+    h, w = feats.shape[1:3]
+    wy, wx = _weights(centers, scales, h, w, s)
+    f, k = torch.from_numpy(feats), torch.from_numpy(kernel)
+    (f if requires == "feats" else k).requires_grad_(True)
+    out = fused_part_predict(f, wy, wx, k, torch.from_numpy(bias), s)
+    assert out.requires_grad
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        out.sum().backward()
+    with torch.no_grad():
+        assert not fused_part_predict(f, wy, wx, k, torch.from_numpy(bias), s).requires_grad

@@ -1,0 +1,310 @@
+"""The port's rasterizer (K2, K4, K5 contracts): its plain versions against
+the JAX functions on the CPU, the copied atlas tables, the camera helpers,
+`IUVRenderer`, the device dispatch, and (on a card only) the CUDA kernel
+against the plain version.
+
+Bars: pixels identical on >= 99.99% against JAX (XLA may contract a
+product the port rounds twice, which moves a pixel centre lying on an edge
+within an ulp), exactly equal on the closed test mesh; the kernel against
+the plain version on the card is expected bit-identical."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from danet_densepose2smpl_tpu.kernels import rasterizer as jr
+from danet_densepose2smpl_tpu.kernels.rasterizer_pallas import (
+    backface_mask as jax_backface_mask,
+    rasterize_flat_pallas_bandrange,
+)
+from danet_densepose2smpl_tpu.smpl import densepose_atlas as jatlas
+from danet_densepose2smpl_tpu.smpl import smpl_forward_aa as jax_smpl_forward_aa
+from danet_densepose2smpl_tpu.smpl.loader import synthetic_smpl_model as jax_synthetic_smpl
+
+from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+from danet_densepose2smpl_tpu_torch.smpl import densepose_atlas as atlas_mod
+from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+
+torch.set_num_threads(1)
+AGREE = 0.9999
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _agree(a, b):
+    return np.isclose(np.asarray(a), np.asarray(b), atol=0, rtol=0).all(-1).mean()
+
+
+def _closed_fixture(num_verts, seed, b, rng_seed=1):
+    """tests/test_rasterizer.py::_closed_fixture, as numpy."""
+    verts, faces = jatlas.closed_test_mesh(num_verts, seed=seed)
+    faces, conflicts = jatlas.orient_faces(faces, verts)
+    assert conflicts == 0
+    rng = np.random.RandomState(rng_seed)
+    vb = np.stack([verts * (1 + 0.1 * rng.randn()) + rng.randn(3) * 0.05 for _ in range(b)]).astype(np.float32)
+    cam = np.tile([0.9, 0.02, -0.03], (b, 1)).astype(np.float32)
+    tex = rng.rand(len(faces), 3).astype(np.float32)
+    vpx = np.asarray(jr.project_weak_perspective(jnp.asarray(vb), jnp.asarray(cam), 224.0))
+    return vb, cam, faces, tex, vpx
+
+
+@pytest.fixture(scope="module")
+def soup_scene():
+    """The full-size synthetic atlas (13,776 faces) under posed synthetic
+    SMPL bodies, B=2."""
+    smpl = jax_synthetic_smpl()
+    atlas = jatlas.synthetic_densepose_atlas(smpl)
+    rng = np.random.RandomState(4)
+    out = jax_smpl_forward_aa(smpl, jnp.asarray(rng.randn(2, 10) * 0.5, jnp.float32),
+                              jnp.asarray(rng.randn(2, 72) * 0.3, jnp.float32))
+    cam = np.array([[0.9, 0.02, -0.05], [0.8, -0.04, 0.03]], np.float32)
+    vpx = np.asarray(jr.project_weak_perspective(out.vertices, jnp.asarray(cam)))
+    return smpl, atlas, np.asarray(out.vertices), cam, vpx
+
+
+# --------------------------------------------------------------------------
+# copied tables and camera helpers
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["closed_test_mesh", "orient_faces", "closed_synthetic_atlas",
+                                  "synthetic_densepose_atlas"])
+def test_atlas_tables_equal(name):
+    if name == "closed_test_mesh":
+        ours, theirs = atlas_mod.closed_test_mesh(700, seed=3), jatlas.closed_test_mesh(700, seed=3)
+    elif name == "orient_faces":
+        verts, faces = jatlas.closed_test_mesh(700, seed=3)
+        ours, theirs = atlas_mod.orient_faces(faces, verts), jatlas.orient_faces(faces, verts)
+    elif name == "closed_synthetic_atlas":
+        (a, va), (b, vb) = atlas_mod.closed_synthetic_atlas(700, seed=2), jatlas.closed_synthetic_atlas(700, seed=2)
+        ours, theirs = tuple(a) + (a.face_textures, va), tuple(b) + (b.face_textures, vb)
+    else:
+        a = atlas_mod.synthetic_densepose_atlas(synthetic_smpl_model(num_verts=400, seed=1), seed=1)
+        b = jatlas.synthetic_densepose_atlas(jax_synthetic_smpl(num_verts=400, seed=1), seed=1)
+        ours, theirs = tuple(a) + (a.face_textures,), tuple(b) + (b.face_textures,)
+    assert len(ours) == len(theirs)
+    for x, y in zip(ours, theirs):
+        if isinstance(y, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(x, y)
+
+
+def test_camera_helpers(rng):
+    verts = rng.randn(2, 40, 3).astype(np.float32) * 0.3
+    cam = np.array([[0.9, 0.05, -0.02], [1.1, 0.0, 0.1]], np.float32)
+    faces = rng.randint(0, 40, (60, 3)).astype(np.int32)
+    np.testing.assert_allclose(R.camera_space(_t(verts), _t(cam)).numpy(),
+                               np.asarray(jr.camera_space(jnp.asarray(verts), jnp.asarray(cam))), rtol=1e-6)
+    vpx = R.project_weak_perspective(_t(verts), _t(cam))
+    jvpx = jr.project_weak_perspective(jnp.asarray(verts), jnp.asarray(cam))
+    np.testing.assert_allclose(vpx.numpy(), np.asarray(jvpx), rtol=1e-6, atol=1e-4)
+    f64 = _t(faces).long()
+    _, dead = R.dead_faces(_t(np.asarray(jvpx)), f64)
+    _, jdead = jr.dead_faces(jvpx, jnp.asarray(faces))
+    np.testing.assert_array_equal(dead.numpy(), np.asarray(jdead))
+    np.testing.assert_array_equal(
+        R.backface_mask(_t(verts), _t(cam), f64).numpy(),
+        np.asarray(jax_backface_mask(jnp.asarray(verts), jnp.asarray(cam), jnp.asarray(faces))))
+
+
+# --------------------------------------------------------------------------
+# plain versions against the JAX functions
+# --------------------------------------------------------------------------
+
+def test_rasterize_flat_plain_full_synthetic_atlas(soup_scene):
+    smpl, atlas, _, _, vpx = soup_scene
+    faces, tex = atlas.faces, atlas.face_textures
+    exp = np.asarray(jr.rasterize_flat(jnp.asarray(vpx), jnp.asarray(faces), jnp.asarray(tex), 56))
+    got = R.rasterize_flat_plain(_t(vpx), _t(faces).long(), _t(tex), 56, chunk=1024)
+    assert got.shape == (2, 56, 56, 3) and got.dtype == torch.float32
+    assert (exp[..., 0] > 0).mean() > 0.02
+    assert _agree(got, exp) >= AGREE
+    # `chunk` is a memory knob only
+    np.testing.assert_array_equal(R.rasterize_flat_plain(_t(vpx), _t(faces).long(), _t(tex), 56, chunk=700).numpy(),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize("nf", [40, 120, 300])
+def test_rasterize_flat_plain_random_soups(nf):
+    """The random soups of tests/test_rasterizer.py."""
+    rng = np.random.RandomState(nf)
+    b, nv = 2, 50
+    verts = rng.randn(b, nv, 3).astype(np.float32) * 0.12
+    cam = np.tile([0.9, 0.0, 0.0], (b, 1)).astype(np.float32)
+    faces = rng.randint(0, nv, (nf, 3)).astype(np.int32)
+    tex = rng.rand(nf, 3).astype(np.float32)
+    vpx = np.asarray(jr.project_weak_perspective(jnp.asarray(verts), jnp.asarray(cam)))
+    exp = np.asarray(jr.rasterize_flat(jnp.asarray(vpx), jnp.asarray(faces), jnp.asarray(tex), 56, chunk=64))
+    got = R.rasterize_flat_plain(_t(vpx), _t(faces).long(), _t(tex), 56, chunk=64)
+    assert _agree(got, exp) >= AGREE
+
+
+def test_rasterize_flat_plain_exact_on_closed_test_mesh():
+    _, _, faces, tex, vpx = _closed_fixture(900, seed=0, b=2)
+    exp = np.asarray(jr.rasterize_flat(jnp.asarray(vpx), jnp.asarray(faces), jnp.asarray(tex), 56, 224.0, 256))
+    got = R.rasterize_flat_plain(_t(vpx), _t(faces).long(), _t(tex), 56, 224.0, 256)
+    assert (exp[..., 0] > 0).mean() > 0.02
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+@pytest.mark.parametrize("num_verts,budget_frac,chunk", [
+    (900, 0.6, 256),      # budget over every face: the fall-through to rasterize_flat
+    (900, 1.0, 128),      # budget_frac >= 1: the same fall-through
+    (900, 0.2, 256),      # budget 1024 of ~1,800 faces: live faces plus dead filler
+    (2500, 0.2, 256),     # budget 1024 of ~5,000: live faces beyond it are dropped
+])
+def test_rasterize_flat_culled_plain_matches_jax(num_verts, budget_frac, chunk):
+    _, _, faces, tex, vpx = _closed_fixture(num_verts, seed=0, b=2)
+    exp = np.asarray(jr.rasterize_flat_culled(jnp.asarray(vpx), jnp.asarray(faces), jnp.asarray(tex),
+                                              56, 224.0, chunk, budget_frac))
+    got = R.rasterize_flat_culled_plain(_t(vpx), _t(faces).long(), _t(tex), 56, 224.0, chunk, budget_frac)
+    np.testing.assert_array_equal(got.numpy(), exp)
+    # the card's form of the same function: the full-order masked raster
+    # with the face sets of `culled_face_sets`
+    f64 = _t(faces).long()
+    budget = R.cull_budget(len(faces), chunk, budget_frac)
+    if budget < len(faces):
+        skip, filler = R.culled_face_sets(_t(vpx), f64, budget)
+        assert int((~skip).sum(1).max()) <= budget and not (skip & filler).any()
+        masked = R.rasterize_flat_plain(_t(vpx), f64, _t(tex), 56, 224.0, chunk, skip, filler)
+        np.testing.assert_array_equal(masked.numpy(), exp)
+
+
+def _tie_scene():
+    """4,000 faces, one image at S=16: face 0 is back-facing (dead), face 1
+    the same triangle wound the other way (live), both at z = 4 with
+    dyadic barycentrics, so their depths tie exactly; the other faces lie
+    behind the camera. Fewer faces are live than the budget of 3,072, so
+    face 0 fills the compacted prefix after face 1."""
+    n = 4000
+    verts = np.zeros((1, 3 + 3 * n, 3), np.float32)
+    verts[0, :3] = [[0, 0, 4], [8, 0, 4], [0, 8, 4]]
+    verts[0, 3:, 2] = -1.0
+    faces = np.arange(3 + 3 * n).reshape(-1, 3)[:n + 1].copy()
+    faces[0], faces[1] = [0, 1, 2], [0, 2, 1]
+    faces = faces[:n]
+    tex = np.random.RandomState(0).rand(n, 3).astype(np.float32) + 0.5
+    return verts, faces, tex
+
+
+def test_culled_exact_tie_goes_to_the_live_face():
+    """K5 resolves an exact z-tie between a live face and a dead filler
+    face by compacted order (live first), whatever their ids; the card's
+    form of the culled entry holds the same order through `ties_last`."""
+    verts, faces, tex = _tie_scene()
+    f64 = _t(faces).long()
+    _, dead = R.dead_faces(_t(verts), f64)
+    assert bool(dead[0, 0]) and not bool(dead[0, 1])
+    exp = np.asarray(jr.rasterize_flat_culled(jnp.asarray(verts), jnp.asarray(faces), jnp.asarray(tex),
+                                              16, 16.0, 1024, 0.55))
+    got = R.rasterize_flat_culled(_t(verts), f64, _t(tex), 16, 16.0, 1024, 0.55)
+    np.testing.assert_array_equal(got.numpy(), exp)
+    covered = exp[0, ..., 0] > 0
+    assert covered.mean() > 0.1
+    np.testing.assert_array_equal(exp[0][covered], np.broadcast_to(tex[1], exp[0][covered].shape))
+    skip, filler = R.culled_face_sets(_t(verts), f64, R.cull_budget(len(faces), 1024, 0.55))
+    assert bool(filler[0, 0]) and not bool(skip[0, 0])
+    masked = R.rasterize_flat_masked(_t(verts), f64, _t(tex), 16, 16.0, skip, 1024, filler)
+    np.testing.assert_array_equal(masked.numpy(), exp)
+    # without the tie order the full-order raster keeps the lower id
+    by_id = R.rasterize_flat_masked(_t(verts), f64, _t(tex), 16, 16.0, skip, 1024)
+    np.testing.assert_array_equal(by_id[0][covered].numpy(), np.broadcast_to(tex[0], exp[0][covered].shape))
+
+
+def test_rasterize_flat_masked_plain_matches_jax_bandrange():
+    """K4 with its backface cull mask (interpret mode) against the masked
+    plain version."""
+    vb, cam, faces, tex, vpx = _closed_fixture(900, seed=0, b=2, rng_seed=3)
+    mask = jax_backface_mask(jnp.asarray(vb), jnp.asarray(cam), jnp.asarray(faces))
+    exp = np.asarray(rasterize_flat_pallas_bandrange(
+        jnp.asarray(vpx), jnp.asarray(faces), jnp.asarray(tex), 56, interpret=True, cull_mask=mask))
+    ours_mask = R.backface_mask(_t(vb), _t(cam), _t(faces).long())
+    np.testing.assert_array_equal(ours_mask.numpy(), np.asarray(mask))
+    got = R.rasterize_flat_masked(_t(vpx), _t(faces).long(), _t(tex), 56, cull_mask=ours_mask)
+    assert (exp[..., 0] > 0).mean() > 0.02
+    assert _agree(got, exp) >= AGREE
+
+
+@pytest.mark.parametrize("backend,cull", [("xla", False), ("xla", True), ("pallas", False),
+                                          ("pallas_bandrange", True)])
+def test_iuv_renderer_matches_jax(backend, cull):
+    """IUVRenderer on the closed synthetic atlas, every backend name,
+    against the JAX renderer's 'xla' form of the same function, and
+    live_fraction equal."""
+    atlas, verts = jatlas.closed_synthetic_atlas(700, seed=4)
+    rng = np.random.RandomState(5)
+    vb = np.stack([verts * (1 + 0.1 * rng.randn()) + rng.randn(3) * 0.05 for _ in range(3)]).astype(np.float32)
+    cam = np.tile([0.85, 0.0, 0.05], (3, 1)).astype(np.float32)
+    cull_verts = verts if cull else None
+    jrend = jr.IUVRenderer(atlas, chunk=256, cull_verts=cull_verts)
+    rend = R.IUVRenderer(atlas, chunk=256, cull_verts=cull_verts, backend=backend)
+    assert rend.cull == jrend.cull == cull
+    exp = np.asarray(jrend(jnp.asarray(vb), jnp.asarray(cam)))
+    got = rend(_t(vb), _t(cam))
+    assert got.shape == (3, 56, 56, 3) and (exp[..., 0] > 0).mean() > 0.02
+    assert _agree(got, exp) >= AGREE
+    if cull:
+        np.testing.assert_allclose(rend.live_fraction(_t(vb), _t(cam)).numpy(),
+                                   np.asarray(jrend.live_fraction(jnp.asarray(vb), jnp.asarray(cam))), atol=1e-7)
+
+
+def test_renderer_soup_atlas_disables_culling():
+    smpl = synthetic_smpl_model(num_verts=400)
+    with pytest.warns(UserWarning, match="conflicted"):
+        r = R.IUVRenderer(atlas_mod.synthetic_densepose_atlas(smpl), cull_verts=smpl.v_template)
+    assert not r.cull
+    with pytest.raises(ValueError, match="backend"):
+        R.IUVRenderer(atlas_mod.synthetic_densepose_atlas(smpl), backend="banded")
+
+
+# --------------------------------------------------------------------------
+# dispatch and the card
+# --------------------------------------------------------------------------
+
+def test_wrappers_on_cpu_never_launch():
+    _, _, faces, tex, vpx = _closed_fixture(300, seed=1, b=2)
+    before = (R.rasterize_flat.launches, R.rasterize_flat_masked.launches)
+    args = (_t(vpx), _t(faces).long(), _t(tex), 32)
+    np.testing.assert_array_equal(R.rasterize_flat(*args).numpy(), R.rasterize_flat_plain(*args).numpy())
+    R.rasterize_flat_masked(*args, cull_mask=torch.zeros(2, len(faces), dtype=torch.bool))
+    R.rasterize_flat_culled(*args, 224.0, 256, 0.3)
+    assert (R.rasterize_flat.launches, R.rasterize_flat_masked.launches) == before
+    with pytest.raises(ValueError, match="no kernel"):
+        R.rasterize_flat(_t(vpx).to("meta"), _t(faces).long(), _t(tex), 32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_matches_plain(cuda_device, dtype):
+    vb, cam, faces, tex, vpx = _closed_fixture(2500, seed=0, b=3)
+    v = _t(vpx).to(cuda_device, dtype)
+    f, tx = _t(faces).long().to(cuda_device), _t(tex).to(cuda_device)
+    mask = R.backface_mask(_t(vb).to(cuda_device, dtype), _t(cam).to(cuda_device, dtype), f)
+    cases = [
+        (R.rasterize_flat(v, f, tx, 56), R.rasterize_flat_plain(v, f, tx, 56)),
+        (R.rasterize_flat_masked(v, f, tx, 56, cull_mask=mask),
+         R.rasterize_flat_plain(v, f, tx, 56, skip=mask)),
+        (R.rasterize_flat_culled(v, f, tx, 56, 224.0, 256, 0.2),
+         R.rasterize_flat_culled_plain(v, f, tx, 56, 224.0, 256, 0.2)),
+    ]
+    torch.cuda.synchronize()
+    for got, exp in cases:
+        assert _agree(got.cpu(), exp.cpu()) >= 1 - 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_culled_tie_order(cuda_device):
+    verts, faces, tex = _tie_scene()
+    args = (_t(verts).to(cuda_device), _t(faces).long().to(cuda_device), _t(tex).to(cuda_device), 16, 16.0, 1024, 0.55)
+    got = R.rasterize_flat_culled(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), R.rasterize_flat_culled_plain(*args).cpu().numpy())

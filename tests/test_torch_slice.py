@@ -115,17 +115,22 @@ def test_unported_configs_raise():
                {"decomposed": False}, {"hrnet_pad_channels": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DaNet(DaNetConfig(**kw))
-    with pytest.raises(NotImplementedError, match="train mode"):
-        DaNet(DaNetConfig(part_head_chunks=4)).train()
+    # train mode is ported; its memory options are not
+    for kw in ({"part_head_chunks": 4}, {"remat_backbone": True}):
+        with pytest.raises(NotImplementedError, match="train mode"):
+            DaNet(DaNetConfig(**kw)).train()
+    assert DaNet(DaNetConfig()).train().training
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (serve included) leaves jax and
-    flax out of sys.modules."""
+    """Importing every module of the port (serve, train, data and the
+    rasterizer included) leaves jax and flax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import danet_densepose2smpl_tpu_torch as p\n"
         "import danet_densepose2smpl_tpu_torch.serve\n"
+        "import danet_densepose2smpl_tpu_torch.train.step, danet_densepose2smpl_tpu_torch.data.synthetic\n"
+        "import danet_densepose2smpl_tpu_torch.kernels.rasterizer\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
