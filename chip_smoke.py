@@ -45,7 +45,22 @@ body-sized silhouettes. In phases:
      are zeroed before each of these paths and read after it; losses
      finite, parameters moved, one raster launch a step at least; imgs/s
      and peak memory; then two more steps under `torch.profiler` (kernel
-     time per step, the stage spans, the 25 largest kernels).
+     time per step, the stage spans, the 25 largest kernels);
+  8. eval: (a) the banded raster (K3, `rasterize_flat_banded`) against its
+     plain version and bit-equal to the `rasterize_flat` kernel at 224x224,
+     B=16 fp32 and B=2 f64, with `PartRenderer`'s 2-channel texture on two
+     meshes of the real counts (the synthetic SMPL body under posed
+     cameras, and the closed test mesh), with the chunks each tile visits;
+     (b) the times of K3, its sort alone, its kernel alone and the
+     `rasterize_flat` kernel (CUDA events, turns) and of the plain version;
+     (c) `run_lsp_eval` through `Predictor` in bf16 over 4 batches of B=16
+     with `PartRenderer('pallas_banded')` and with 'auto': the same printed
+     metrics, and K1 and the raster launched once per batch for the
+     prediction and once for the rendered-GT fallback; (d) `run_pose_eval`
+     on h36m-p2 (finite MPJPE / PA-MPJPE, the per-action table) and the
+     harness in f64, card against CPU, within 1e-9 relative. One more pass
+     of each eval runs under `torch.profiler`: host and kernel time by
+     stage range, and the card's idle share.
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
@@ -72,11 +87,21 @@ KERNEL_REPLACES = "danet_densepose2smpl_tpu/kernels/part_crop_head.py:65"
 RASTER_SOURCE = "danet_densepose2smpl_tpu_torch/csrc/rasterizer.cu"
 RASTER_REPLACES = {   # entry point -> the TPU kernel it replaces
     "rasterize_flat": "danet_densepose2smpl_tpu/kernels/rasterizer_pallas.py:143",
+    "rasterize_flat_banded": "danet_densepose2smpl_tpu/kernels/rasterizer_pallas.py:323",
     "rasterize_flat_masked": "danet_densepose2smpl_tpu/kernels/rasterizer_pallas.py:446",
 }
 SERVE_BATCH, SERVE_REQUESTS = 64, 8
 RASTER_BATCH, TRAIN_BATCH, TRAIN_STEPS = 128, 64, 5
+EVAL_BATCH, EVAL_BATCHES = 16, 4
 PIXELS_OFF_MAX = 1e-5     # fraction of raster pixels allowed to differ from the plain version
+# NVIDIA H100 SXM data sheet peaks (dense): the bound of each kernel
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}   # bf16 tensor cores; fp32 outside them
+# fp32 operations of one (pixel, face) candidate in the raster: three edge
+# functions (2 subtractions, a product and a fused multiply-add each), their
+# three sign products, three divisions and the depth (a product and two
+# fused multiply-adds)
+RASTER_OPS_PER_CANDIDATE = 3 * 5 + 3 + 3 + 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -275,7 +300,10 @@ def phase4_timing(dev, card):
     print(f"phase 4: K1 vs plain at B={SERVE_BATCH} bf16: max abs err {err!r} (max|ref| {ref_max!r}, "
           f"tolerance {2e-2 * ref_max!r})")
     check(err <= 2e-2 * ref_max, f"K1 bf16 B={SERVE_BATCH}: {err} > {2e-2 * ref_max}")
-    return ms, plain_ms, err
+    bound_ms, bound_by = k1_bound(args, 56)
+    print(f"phase 4: K1 bound {bound_ms!r} ms ({bound_by}); library call: none (no one PyTorch call "
+          f"computes the crop and the grouped conv)")
+    return ms, plain_ms, err, bound_ms, bound_by
 
 
 def cuda_ms(fn, n):
@@ -386,8 +414,55 @@ def phase5_raster(dev, card) -> dict:
         print(f"phase 5: ({key}) B={RASTER_BATCH} fp32 {what}: kernel {t['kernel']} ms, "
               f"plain {t['plain']} ms (CUDA events, mean of 20 / 1 call after a warm-up, turns "
               f"plain/kernel/kernel/plain, plain chunk {chunk}); card {card}")
-    return {"rasterize_flat": (*times["a"], errs["a"]),
-            "rasterize_flat_masked": (*times["c"], errs["c"])}
+    bounds = {"a": raster_bound(vpx_s, fs, texs, 56), "c": raster_bound(vpx_c, fc, texc, 56, skip=mask)}
+    print(f"phase 5: bounds (ms, by) of (a) {bounds['a']!r}, (c) {bounds['c']!r}; library call: none")
+    return {"rasterize_flat": (*times["a"], errs["a"], *bounds["a"]),
+            "rasterize_flat_masked": (*times["c"], errs["c"], *bounds["c"])}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
+    """(ms, 'bytes' or 'operations'): the least time of the H100 for work
+    that moves `n_bytes` and does `n_ops` operations of `kind`."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def k1_bound(args, s) -> tuple[float, str]:
+    """K1's inputs and output once, and its operations on these inputs: the
+    separable crop over the interpolation matrices' nonzeros (the kernel
+    skips zeros) and the grouped 3x3 conv, in bf16."""
+    feats, wy, wx, kernel, bias = args
+    b, h, w, c = feats.shape
+    o = kernel.shape[-1] // 24
+    crop = 2 * c * (w * int((wy != 0).sum()) + s * int((wx != 0).sum()))
+    conv = 2 * b * 24 * s * s * o * 9 * c
+    out_bytes = b * 24 * s * s * o * feats.element_size()
+    return bound(nbytes(*args) + out_bytes, crop + conv, "bf16")
+
+
+def raster_bound(verts_px, faces, face_tex, s, orig_size=224.0, skip=None) -> tuple[float, str]:
+    """A raster's inputs and output once, and RASTER_OPS_PER_CANDIDATE fp32
+    operations for each (pixel centre, face) pair whose pixel centre lies
+    in the face's bounding box, over the faces that can cover a pixel."""
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+
+    tri = verts_px[:, faces, :]
+    xy = tri[..., :2].float() * (s / orig_size)
+    box = R.face_boxes(xy, tri[..., 2])
+    shown = box[..., 0] < 1e30
+    if skip is not None:
+        shown &= ~skip
+    # pixel centres j + 0.5 inside [box min + 1, box max - 1] (face_boxes widens by a pixel)
+    lo, hi = (box[..., 0::2] + 0.5).ceil().clamp(0, s), (box[..., 1::2] - 1.5).floor().add(1).clamp(0, s)
+    pairs = ((hi - lo).clamp_min(0).prod(-1) * shown).sum().item()
+    out_bytes = verts_px.shape[0] * s * s * face_tex.shape[-1] * face_tex.element_size()
+    inputs = nbytes(verts_px, faces, face_tex) + (nbytes(skip) if skip is not None else 0)
+    return bound(inputs + out_bytes, pairs * RASTER_OPS_PER_CANDIDATE, "fp32")
 
 
 def phase6_step_f64(dev):
@@ -454,12 +529,12 @@ def profile_steps(step, state, batch, gen, card, n=2):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()   # inside: the profiler's start and its trace processing stay out
         for _ in range(n):
             step(state, batch, gen)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = prof.key_averages()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA]
     kernel_ms = sum(e.self_device_time_total for e in on_card
@@ -475,6 +550,49 @@ def profile_steps(step, state, batch, gen, card, n=2):
                     else "kernels launched inside (the backward runs on autograd's thread)")
             print(f"profile: {e.key}: {e.device_time_total / 1e3 / n!r} ms/step, {kind}")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+
+
+def profile_ranges(fn, prefix: str, what: str, card) -> None:
+    """Run `fn()` once under torch.profiler; print its host-clock time, the
+    kernel time inside it and the card's idle share, and for each
+    `record_function` range whose name starts with `prefix`, the host time
+    spent in it and the device time of the kernels launched inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernel_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                    and not e.key.startswith(prefix)) / 1e3
+    print(f"profile: {what}: {wall_ms!r} ms on the host clock (profiler on), {kernel_ms!r} ms of kernel time, "
+          f"device idle {1 - kernel_ms / wall_ms!r}; card {card}")
+    for e in events:
+        if e.key.startswith(prefix) and e.device_type == DeviceType.CPU:
+            print(f"profile: {e.key}: host {e.cpu_time_total / 1e3!r} ms, kernels launched inside "
+                  f"{e.device_time_total / 1e3!r} ms, {e.count} calls")
+
+
+def device_ms_by_kernel(fn, n) -> dict:
+    """{kernel name (first 60 characters): ms per call of `fn()`} over `n`
+    calls after one warm-up, from torch.profiler's device times: what the
+    card spent, without the host's launch overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def raster_launches(fn):
@@ -561,6 +679,251 @@ def phase7_train_bf16(dev, card) -> dict:
     return paths
 
 
+def eval_batches(seed: int, n: int, b: int, res: int = 224) -> list:
+    """`n` eval batches of `b` synthetic ImageNet-normalized images, each
+    with its original frame (a shape of 200-400 px per side drawn from the
+    seed, and a centre and scale whose box covers most of the shorter side,
+    as a person crop does), GT pose and betas, gender, pose_3d and sample
+    indices."""
+    rng = np.random.RandomState(seed)
+    mean, std = np.array([0.485, 0.456, 0.406]), np.array([0.229, 0.224, 0.225])
+    out = []
+    for i in range(n):
+        shapes = rng.randint(200, 401, (b, 2))                       # (H, W)
+        wh = shapes[:, ::-1].astype(np.float64)
+        out.append({
+            "img": ((rng.rand(b, res, res, 3) - mean) / std).astype(np.float32),
+            "center": wh / 2 + rng.uniform(-0.1, 0.1, (b, 2)) * wh,
+            "scale": shapes.min(1) / 200.0 * rng.uniform(0.8, 1.0, b),
+            "orig_shape": shapes,
+            "pose": (rng.randn(b, 72) * 0.2).astype(np.float32),
+            "betas": (rng.randn(b, 10) * 0.3).astype(np.float32),
+            "gender": rng.randint(0, 2, b).astype(np.int32),
+            "pose_3d": np.concatenate([rng.randn(b, 24, 3) * 0.2, np.ones((b, 24, 1))], -1).astype(np.float32),
+            "sample_index": np.arange(i * b, (i + 1) * b, dtype=np.int32),
+        })
+    return out
+
+
+def tile_loads(verts_px, faces, s: int):
+    """What each 16x16 tile of an S x S raster meets, recomputed from
+    `band_setup` and `face_boxes`: ((B, tiles) faces whose box meets the
+    tile, the work of its block in either entry; (B, tiles) the banded
+    kernel's 256-face chunks whose extent meets it; the number of chunks)."""
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+
+    b, n_faces = verts_px.shape[0], faces.shape[0]
+    order = R.band_setup(verts_px, faces, s, 224.0)
+    tri = torch.gather(verts_px[:, faces, :], 1, order[:, :, None, None].expand(b, n_faces, 3, 3))
+    box = R.face_boxes(tri[..., :2] * (s / 224.0), tri[..., 2])
+    t0 = torch.arange(0, s, 16, device=verts_px.device, dtype=torch.float32)
+    x0, y0 = t0[None, None, :, None], t0[None, :, None, None]
+
+    def meet(e):                                                      # (B, N, 4) -> (B, tiles)
+        e = e[:, None, None]
+        hit = (e[..., 1] >= x0) & (e[..., 0] <= x0 + 16) & (e[..., 3] >= y0) & (e[..., 2] <= y0 + 16)
+        return hit.sum(-1).reshape(b, -1)
+
+    ext = R.chunk_extents(box, 256)
+    return meet(box), meet(ext), ext.shape[1]
+
+
+def phase8_eval(dev, card) -> dict:
+    from danet_densepose2smpl_tpu_torch.config import Config
+    from danet_densepose2smpl_tpu_torch.constants import H36M_TO_J14, J24_TO_J14
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.eval.harness import make_eval_step, run_pose_eval, synthetic_h36m_regressor
+    from danet_densepose2smpl_tpu_torch.eval.lsp import run_lsp_eval
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import fused_part_predict
+    from danet_densepose2smpl_tpu_torch.kernels.part_renderer import vertex_parts_from_lbs
+    from danet_densepose2smpl_tpu_torch.ops.rotations import batch_rodrigues
+    from danet_densepose2smpl_tpu_torch.serve import Predictor
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import closed_test_mesh
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model, to_torch
+    from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward
+    from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device
+
+    # (a) K3 against its plain version and the rasterize_flat kernel at 224 x 224
+    # with PartRenderer's [silhouette, part] texture, on two meshes of the real
+    # counts (6,890 vertices, 13,776 faces): the synthetic SMPL model under
+    # posed cameras (its faces join random vertices: the LSP path's mesh
+    # here), and the closed test mesh (local faces, the real SMPL mesh's kind)
+    cfg = Config()
+    smpl = synthetic_smpl_model()
+    raw = posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, EVAL_BATCH, seed=30), seed=31)
+    prep = prepare_targets(cfg, to_torch(smpl, dev), batch_to_device(raw, dev))
+    part = vertex_parts_from_lbs(smpl)[smpl.faces[:, 0]].astype(np.float32)
+    closed_v, closed_f = closed_test_mesh(smpl.num_verts)
+    rng = np.random.RandomState(32)
+    vb = np.stack([closed_v * (1 + 0.1 * rng.randn()) + rng.randn(3) * 0.05 for _ in range(EVAL_BATCH)])
+    closed_part = 1 + np.clip((closed_v[closed_f[:, 0], 1] + 1.05) / 2.1 * 6, 0, 5).astype(np.int64)
+    cam = torch.tensor([[0.9, 0.02, -0.03]], device=dev).expand(EVAL_BATCH, 3)
+    meshes = {
+        "synthetic SMPL": (R.project_weak_perspective(prep["target_verts"], prep["target_cam"], 224.0),
+                           smpl.faces, part),
+        "closed mesh": (R.project_weak_perspective(torch.as_tensor(vb, dtype=torch.float32, device=dev), cam, 224.0),
+                        closed_f, closed_part.astype(np.float32)),
+    }
+    s = 224
+    err, times = None, {}
+    for mesh, (vpx, f, p) in meshes.items():
+        faces = torch.as_tensor(f.astype(np.int64), device=dev)
+        tex = torch.as_tensor(np.stack([np.ones_like(p), p], 1), device=dev)
+        meshes[mesh] = (vpx, faces, tex)
+        for what, v in ((f"fp32, B={EVAL_BATCH}", vpx), ("f64, B=2", vpx[:2].double())):
+            got = R.rasterize_flat_banded(v, faces, tex, s)
+            flat = R.rasterize_flat(v, faces, tex, s)
+            torch.cuda.synchronize()
+            plain = R.rasterize_flat_banded_plain(v, faces, tex, s, 224.0, 256)
+            off = (got != plain).any(-1)
+            frac = off.float().mean().item()
+            shown = (plain[..., 0] > 0).float()
+            cover, empty = shown.mean().item(), int((shown.mean((1, 2)) == 0).sum())
+            e = (got.double() - plain.double()).abs().max().item()
+            err = e if err is None else max(err, e)
+            print(f"phase 8: (a) K3 {mesh}, {what}, S={s}, F={faces.shape[0]}: {int(off.sum())} of {off.numel()} "
+                  f"pixels differ from the plain version ({frac!r}), max abs err {e!r}; bit-equal to the "
+                  f"rasterize_flat kernel: {torch.equal(got, flat)}; foreground {cover!r}, {empty} empty images")
+            check(tuple(got.shape) == (v.shape[0], s, s, 2) and bool(torch.isfinite(got).all()), f"K3 {what} shape")
+            check(frac <= PIXELS_OFF_MAX, f"K3 {mesh} {what}: {frac} of the pixels differ from the plain version")
+            check(torch.equal(got, flat), f"K3 {mesh} {what}: not bit-equal to the rasterize_flat kernel")
+            check(cover > 0.02 and empty == 0, f"K3 {mesh} {what}: foreground {cover}, {empty} empty images")
+        loads, visits, n_chunks = tile_loads(vpx, faces, s)
+        busy = loads[loads > 0].float()
+        q = torch.quantile(busy, torch.tensor([0.5, 0.99], device=busy.device)).tolist()
+        print(f"phase 8: (a) {mesh}: faces whose box meets a 16x16 tile, over the {busy.numel()} of {loads.numel()} "
+              f"tiles that meet any: median {q[0]!r}, p99 {q[1]!r}, max {int(loads.max())}, mean "
+              f"{busy.mean().item()!r}; (pixel, face) candidates {int(loads.sum()) * 256}; chunks of 256 faces "
+              f"a tile visits in the banded kernel, of {n_chunks}: mean {visits.float().mean().item()!r} "
+              f"({visits[visits > 0].float().mean().item()!r} over the tiles that visit any), max "
+              f"{int(visits.max())}; tiles that visit none {(visits == 0).float().mean().item()!r}")
+
+        # (b) times at B=16 fp32, in turns; K3's entry split into its sort
+        # (`band_setup`) and its two kernels on that order
+        order = R.band_setup(vpx, faces, s)
+        calls = {
+            "K3": lambda: R.rasterize_flat_banded(vpx, faces, tex, s),
+            "rasterize_flat": lambda: R.rasterize_flat(vpx, faces, tex, s),
+            "K3 sort": lambda: R.band_setup(vpx, faces, s),
+            "K3 kernels": lambda: R._launch(vpx, faces, tex, s, 224.0, order=order),
+        }
+        t = {k: [] for k in (*calls, "plain")}
+        for turn in ("K3", "rasterize_flat", "K3 sort", "K3 kernels", "K3", "plain", "rasterize_flat",
+                     "K3 kernels", "K3 sort", "plain"):
+            if turn == "plain":
+                t[turn].append(cuda_ms(lambda: R.rasterize_flat_banded_plain(vpx, faces, tex, s, 224.0, 256), 1))
+            else:
+                t[turn].append(cuda_ms(calls[turn], 20))
+        times[mesh] = t
+        for name in ("K3", "rasterize_flat"):
+            print(f"phase 8: (b) {mesh}, {name}: device time per call by kernel (torch.profiler, 10 calls): "
+                  f"{device_ms_by_kernel(calls[name], 10)}")
+        bnd = raster_bound(vpx, faces, tex, s)
+        print(f"phase 8: (b) {mesh}, B={EVAL_BATCH} S={s} fp32: K3 {t['K3']} ms (its sort {t['K3 sort']}, its "
+              f"kernels {t['K3 kernels']}), rasterize_flat kernel {t['rasterize_flat']} ms, plain (chunk 256) "
+              f"{t['plain']} ms (CUDA events, mean of 20 / 1 after a warm-up, in turns); bound {bnd!r} (ms, by); "
+              f"library call: none; card {card}")
+    vpx, faces, tex = meshes["synthetic SMPL"]
+    bound_ms, bound_by = raster_bound(vpx, faces, tex, s)
+    t = times["synthetic SMPL"]
+
+    # (c) LSP eval through Predictor (bf16), both PartRenderer backends. Seed 1:
+    # its random regressor predicts cameras that keep part of the body in the
+    # crop (seed 0's predicted scale is negative, and every render is empty)
+    predictor = Predictor(dev, torch.bfloat16, seed=1)
+    batches = eval_batches(40, EVAL_BATCHES, EVAL_BATCH)
+
+    def infer(img):
+        return predictor.predict(img)["para"]
+
+    para0 = infer(torch.from_numpy(batches[0]["img"]))     # warm-up
+    cams = para0[:, :3]
+    torch.cuda.synchronize()
+    print(f"phase 8: (c) predicted cameras of batch 0: scale min {cams[:, 0].min().item()!r} max "
+          f"{cams[:, 0].max().item()!r}")
+    # the render the LSP eval pays: batch 0's predicted bodies, as PartRenderer projects them
+    verts0 = smpl_forward(to_torch(smpl, dev, para0.dtype), para0[:, 3:13], para0[:, 13:].reshape(-1, 24, 3, 3))
+    vpx0 = R.project_weak_perspective(verts0.vertices, cams, 224.0)
+    _, faces_s, tex_s = meshes["synthetic SMPL"]
+    img0 = R.rasterize_flat_banded(vpx0, faces_s, tex_s, s)
+    check(torch.equal(img0, R.rasterize_flat(vpx0, faces_s, tex_s, s)),
+          "K3 on the eval's predicted bodies: not bit-equal to the rasterize_flat kernel")
+    own = {"K3": [], "rasterize_flat": []}
+    for name in ("K3", "rasterize_flat", "rasterize_flat", "K3"):
+        entry = R.rasterize_flat_banded if name == "K3" else R.rasterize_flat
+        own[name].append(cuda_ms(lambda: entry(vpx0, faces_s, tex_s, s), 20))
+    loads, visits, _ = tile_loads(vpx0, faces_s, s)
+    print(f"phase 8: (c) the eval's render of batch 0's predicted bodies, B={EVAL_BATCH} S={s}: K3 {own['K3']} ms, "
+          f"rasterize_flat kernel {own['rasterize_flat']} ms (CUDA events, mean of 20, in turns); foreground "
+          f"{(img0[..., 0] > 0).float().mean().item()!r}; tiles that meet a face {(loads > 0).float().mean().item()!r}, "
+          f"faces a non-empty tile meets: median {loads[loads > 0].float().median().item()!r}, max "
+          f"{int(loads.max())}; chunks it visits: mean {visits[visits > 0].float().mean().item()!r}; card {card}")
+    expected = {  # one K1 launch a batch; one raster launch for the prediction and one for the GT fallback
+        "pallas_banded": {"part_crop_head": EVAL_BATCHES, "rasterize_flat_banded": 2 * EVAL_BATCHES,
+                          "rasterize_flat": 0},
+        "auto": {"part_crop_head": EVAL_BATCHES, "rasterize_flat_banded": 0, "rasterize_flat": 2 * EVAL_BATCHES},
+    }
+    results, counts = [], {}
+    for backend in ("pallas_banded", "auto", "auto", "pallas_banded"):    # in turns
+        fused_part_predict.launches = R.rasterize_flat.launches = R.rasterize_flat_banded.launches = 0
+        t0 = time.perf_counter()
+        results.append(run_lsp_eval(infer, enumerate(batches), smpl, backend=backend, log_every=0))
+        dt = time.perf_counter() - t0          # the final metrics are read on the host: synchronized
+        counts[backend] = {"part_crop_head": fused_part_predict.launches,
+                           "rasterize_flat_banded": R.rasterize_flat_banded.launches,
+                           "rasterize_flat": R.rasterize_flat.launches}
+        print(f"phase 8: (c) LSP eval, PartRenderer('{backend}'), {EVAL_BATCHES} batches of B={EVAL_BATCH} "
+              f"bf16: {EVAL_BATCHES * EVAL_BATCH / dt!r} imgs/s (host clock); launches {counts[backend]}; "
+              f"{results[-1]}; card {card}")
+        check(counts[backend] == expected[backend], f"LSP eval via '{backend}': launches {counts[backend]}")
+    check(all(r == results[0] for r in results), "both backends, every run, print the same metrics")
+    profile_ranges(lambda: run_lsp_eval(infer, enumerate(batches), smpl, backend="pallas_banded", log_every=0),
+                   "lsp.", f"(c) LSP eval, PartRenderer('pallas_banded'), {EVAL_BATCHES} batches of B={EVAL_BATCH} "
+                   "bf16", card)
+
+    # (d) pose eval, h36m-p2, and the harness in f64 card against CPU
+    jreg = synthetic_h36m_regressor(smpl.num_verts)
+    acts = ("Walking", "Eating", "Posing", "Greeting")
+    names = np.array([f"images/S9_{acts[i % 4]}.5427_{i:05d}.jpg" for i in range(EVAL_BATCHES * EVAL_BATCH)])
+    fused_part_predict.launches = 0
+    t0 = time.perf_counter()
+    res = run_pose_eval(infer, enumerate(batches), "h36m-p2", smpl, jreg, imgnames=names, log_every=0)
+    dt = time.perf_counter() - t0
+    print(f"phase 8: (d) pose eval h36m-p2, {EVAL_BATCHES} batches of B={EVAL_BATCH} bf16: "
+          f"{EVAL_BATCHES * EVAL_BATCH / dt!r} imgs/s (host clock); K1 launches {fused_part_predict.launches}")
+    print(res.summary("h36m-p2"))
+    check(res.mpjpe.shape == (EVAL_BATCHES * EVAL_BATCH,) and bool(np.isfinite(res.mpjpe).all())
+          and bool(np.isfinite(res.pa_mpjpe).all()), "pose eval: finite per-sample MPJPE and PA-MPJPE")
+    check(set(res.per_action) == set(acts), f"pose eval: per-action table {sorted(res.per_action)}")
+    check(fused_part_predict.launches == EVAL_BATCHES, f"pose eval: K1 launches {fused_part_predict.launches}")
+    profile_ranges(lambda: run_pose_eval(infer, enumerate(batches), "h36m-p2", smpl, jreg, imgnames=names,
+                                         log_every=0),
+                   "pose.", f"(d) pose eval h36m-p2, {EVAL_BATCHES} batches of B={EVAL_BATCH} bf16", card)
+    rng = np.random.RandomState(41)
+    rot = batch_rodrigues(torch.from_numpy(rng.randn(EVAL_BATCH * 24, 3) * 0.2)).reshape(EVAL_BATCH, 216)
+    para = torch.cat([torch.tensor([[0.9, 0.0, 0.0]], dtype=torch.float64).expand(EVAL_BATCH, 3),
+                      torch.from_numpy(rng.randn(EVAL_BATCH, 10) * 0.3), rot], 1)
+    bt = batches[0]
+    worst = 0.0
+    for gendered in (False, True):
+        male, female = synthetic_smpl_model(seed=3), synthetic_smpl_model(seed=4)
+        outs = []
+        for d in ("cpu", dev):
+            step = make_eval_step(lambda img, d=d: para.to(d), smpl, jreg, H36M_TO_J14, J24_TO_J14, gendered,
+                                  male, female)
+            (m, pa), _ = step(None, bt["pose"], bt["betas"], bt["gender"], bt["pose_3d"])
+            outs.append((m.cpu(), pa.cpu()))
+        for a, b in zip(outs[1], outs[0]):
+            worst = max(worst, ((a - b).abs() / b.abs()).max().item())
+    print(f"phase 8: (d) harness f64 card vs CPU on fixed para (pose_3d and 3DPW gendered branches): "
+          f"max rel err {worst!r} (tolerance 1e-9)")
+    check(worst <= 1e-9, f"f64 harness card vs CPU: {worst}")
+    return {"ms": min(t["K3"]), "plain_ms": min(t["plain"]), "max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches": counts["pallas_banded"]["rasterize_flat_banded"]}
+
+
 def main():
     phase0_environment()
     dev = torch.device("cuda", 0)
@@ -576,23 +939,31 @@ def main():
     timed(1, lambda: phase1_kernel_vs_plain(dev))
     timed(2, lambda: phase2_slice_f64(dev))
     k1_launches = timed(3, lambda: phase3_serving(dev, card))
-    ms, plain_ms, err = timed(4, lambda: phase4_timing(dev, card))
+    ms, plain_ms, err, bound_ms, bound_by = timed(4, lambda: phase4_timing(dev, card))
     raster = timed(5, lambda: phase5_raster(dev, card))
     timed(6, lambda: phase6_step_f64(dev))
     paths = timed(7, lambda: phase7_train_bf16(dev, card))
+    k3 = timed(8, lambda: phase8_eval(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
-                f"{SERVE_REQUESTS} requests", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]
+                f"{SERVE_REQUESTS} requests", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
     raster_paths = {  # entry -> (the phase-7 path its launches are read from, its label)
         "rasterize_flat": ("pallas", "training step, IUVRenderer backend 'pallas', bf16, B=64, 1 step"),
         "rasterize_flat_masked": ("main", f"training step (the main path: closed atlas, culled), bf16, "
                                           f"B={TRAIN_BATCH}, {TRAIN_STEPS} steps"),
     }
-    for name, (ms, plain_ms, err) in raster.items():
+    for name, (ms, plain_ms, err, bound_ms, bound_by) in raster.items():
         path, label = raster_paths[name]
         kernels.append({"name": name, "route": "cuda", "source": RASTER_SOURCE, "replaces": RASTER_REPLACES[name],
                         "launches": paths[path][name], "path": label, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    kernels.append({"name": "rasterize_flat_banded", "route": "cuda", "source": RASTER_SOURCE,
+                    "replaces": RASTER_REPLACES["rasterize_flat_banded"], "launches": k3["launches"],
+                    "path": f"eval: run_lsp_eval with PartRenderer('pallas_banded'), Predictor bf16, "
+                            f"{EVAL_BATCHES} batches of B={EVAL_BATCH}",
+                    "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+                    "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None})
     print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,10 @@
 // Hopper (sm_90a). Built by kernels/build.py with nvcc into a shared library
 // with a plain C interface; the wrapper is kernels/rasterizer.py.
 //
-// Replaces, with one kernel, three functions of the JAX package:
+// Replaces, with one pair of kernels, four functions of the JAX package:
 //   kernels/rasterizer_pallas.py::rasterize_flat_pallas            (K2, TPU)
+//   kernels/rasterizer_pallas.py::rasterize_flat_pallas_banded     (K3, TPU;
+//                                       the entry rasterize_flat_banded)
 //   kernels/rasterizer_pallas.py::rasterize_flat_pallas_bandrange  (K4, TPU,
 //                                                      with its cull_mask)
 //   kernels/rasterizer.py::rasterize_flat / rasterize_flat_culled  (K5, XLA)
@@ -38,8 +40,32 @@
 //      (the order of rasterize_flat_culled's compacted prefix, where the
 //      dead filler faces follow the live ones). One texture fetch at the end.
 // Nothing carries between blocks; a block re-reads the face records of its
-// image from L2. Binning faces per tile and tensor-core edge functions are
-// later work.
+// image from L2. Tensor-core edge functions are later work.
+//
+// The banded entry (K3's design, for the 224x224 LSP render). Its bound is
+// instruction issue too: a B=16 batch reads ~1.6 MB of inputs and writes
+// 6.4 MB, microseconds at 3.35 TB/s. At S=224 an image has 196 tiles, and
+// streaming every face's box through every tile is 196 * 13,776 = 2.7M box
+// tests per image, in 54 rounds of loads, ballots and barriers per tile,
+// for the few faces that meet the tile. K3 sorts the faces by the y of their centre so that
+// each chunk of faces lies in a narrow band of rows, and skips the (band,
+// chunk) pairs that do not touch. Here the wrapper sorts (a stable argsort,
+// as K3 sorts in XLA before its pallas_call) and hands the order in:
+//   1. face_setup writes face order[b, i] into slot i, and each of its
+//      256-thread blocks, one per 256-face chunk, reduces the chunk's boxes
+//      into one extent (empty boxes of invalid faces do not widen it; a
+//      chunk with no valid face keeps the empty extent);
+//   2. raster<T, true> reads the chunk's extent before anything else and
+//      skips the chunk, in every thread at once, when it misses the tile;
+//      the chunks it keeps run as above, ranked by the original face id, so
+//      the visiting order cannot change the least (z, id) and the output
+//      is rasterize_flat's bit for bit. K3's one-hot texture matmul and its
+//      sequential (band, chunk) grid were for the TPU and are not carried.
+// Measured on the H100 (PERF.md, chip_smoke.py phase 8), the skipped rounds
+// were not where the time went: a 224x224 tile that meets a few hundred to
+// ~2,000 faces tests each at all 256 of its pixels, one block in series, and
+// the banded raster takes the time of the unbanded one. Spreading a heavy
+// tile's faces over more threads is the next step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +76,7 @@ constexpr int kTile = 16;
 constexpr int kThreads = kTile * kTile;   // one pixel a thread
 constexpr int kChunk = kThreads;          // faces staged per round, one a thread
 constexpr int kWarps = kThreads / 32;
+constexpr float kEmpty = 1e30f;           // the empty box is (kEmpty, -kEmpty, kEmpty, -kEmpty)
 
 // Corner k's edge function is w_k = ex[k] * (py - ay[k]) - ey[k] * (px - ax[k])
 // with a = v[(k+1)%3], e = v[(k+2)%3] - a: w0 = edge(v1, v2), w1 = edge(v2, v0),
@@ -70,51 +97,83 @@ __device__ __forceinline__ double madd(double a, double b, double c) {
   return __dadd_rn(__dmul_rn(a, b), c);
 }
 
+// One block per (chunk of kChunk slots, image), one slot a thread. Slot i of
+// image b holds face order[b, i], or face i when order is null. With a
+// non-null `extent` the block also writes the union of its boxes.
 template <typename T>
-__global__ void face_setup(const T* __restrict__ verts, const int* __restrict__ faces,
-                           const uint8_t* __restrict__ skip, int B, int V, int F, T scale,
-                           FaceRecord<T>* __restrict__ rec, float4* __restrict__ box) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)B * F) return;
-  const int b = (int)(i / F), f = (int)(i % F);
-  const T* vb = verts + (long long)b * V * 3;
-  T x[3], y[3], z[3];
+__global__ void __launch_bounds__(kChunk)
+face_setup(const T* __restrict__ verts, const int* __restrict__ faces, const int* __restrict__ order,
+           const uint8_t* __restrict__ skip, int V, int F, T scale, FaceRecord<T>* __restrict__ rec,
+           float4* __restrict__ box, float4* __restrict__ extent) {
+  const int b = blockIdx.y;
+  const int slot = blockIdx.x * kChunk + threadIdx.x;
+  const long long i = (long long)b * F + slot;
+  float4 bx = make_float4(kEmpty, -kEmpty, kEmpty, -kEmpty);   // (xmin, xmax, ymin, ymax)
+  if (slot < F) {
+    const int f = order != nullptr ? order[i] : slot;
+    const T* vb = verts + (long long)b * V * 3;
+    T x[3], y[3], z[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const int vi = faces[f * 3 + k];
-    x[k] = vb[vi * 3 + 0] * scale;
-    y[k] = vb[vi * 3 + 1] * scale;
-    z[k] = vb[vi * 3 + 2];
-  }
-  const T area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0]);
-  const bool valid = absval(area) > T(1e-12) && z[0] > T(0) && z[1] > T(0) && z[2] > T(0) &&
-                     !(skip != nullptr && (skip[i] & 1));
-  FaceRecord<T> r;
+    for (int k = 0; k < 3; ++k) {
+      const int vi = faces[f * 3 + k];
+      x[k] = vb[vi * 3 + 0] * scale;
+      y[k] = vb[vi * 3 + 1] * scale;
+      z[k] = vb[vi * 3 + 2];
+    }
+    const T area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0]);
+    const bool valid = absval(area) > T(1e-12) && z[0] > T(0) && z[1] > T(0) && z[2] > T(0) &&
+                       !(skip != nullptr && (skip[(long long)b * F + f] & 1));
+    FaceRecord<T> r;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const int a = (k + 1) % 3, c = (k + 2) % 3;
-    r.ax[k] = x[a];
-    r.ay[k] = y[a];
-    r.ex[k] = x[c] - x[a];
-    r.ey[k] = y[c] - y[a];
-    r.z[k] = z[k];
+    for (int k = 0; k < 3; ++k) {
+      const int a = (k + 1) % 3, c = (k + 2) % 3;
+      r.ax[k] = x[a];
+      r.ay[k] = y[a];
+      r.ex[k] = x[c] - x[a];
+      r.ey[k] = y[c] - y[a];
+      r.z[k] = z[k];
+    }
+    r.area = area;
+    rec[i] = r;
+    if (valid) {
+      bx.x = (float)fmin(fmin((double)x[0], (double)x[1]), (double)x[2]) - 1.0f;
+      bx.y = (float)fmax(fmax((double)x[0], (double)x[1]), (double)x[2]) + 1.0f;
+      bx.z = (float)fmin(fmin((double)y[0], (double)y[1]), (double)y[2]) - 1.0f;
+      bx.w = (float)fmax(fmax((double)y[0], (double)y[1]), (double)y[2]) + 1.0f;
+    }
+    box[i] = bx;
   }
-  r.area = area;
-  rec[i] = r;
-  float4 bx = make_float4(1e30f, -1e30f, 1e30f, -1e30f);   // (xmin, xmax, ymin, ymax)
-  if (valid) {
-    bx.x = (float)fmin(fmin((double)x[0], (double)x[1]), (double)x[2]) - 1.0f;
-    bx.y = (float)fmax(fmax((double)x[0], (double)x[1]), (double)x[2]) + 1.0f;
-    bx.z = (float)fmin(fmin((double)y[0], (double)y[1]), (double)y[2]) - 1.0f;
-    bx.w = (float)fmax(fmax((double)y[0], (double)y[1]), (double)y[2]) + 1.0f;
+  if (extent != nullptr) {   // the same branch in every thread of the grid
+    __shared__ float4 wbox[kWarps];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      bx.x = fminf(bx.x, __shfl_xor_sync(0xffffffffu, bx.x, o));
+      bx.y = fmaxf(bx.y, __shfl_xor_sync(0xffffffffu, bx.y, o));
+      bx.z = fminf(bx.z, __shfl_xor_sync(0xffffffffu, bx.z, o));
+      bx.w = fmaxf(bx.w, __shfl_xor_sync(0xffffffffu, bx.w, o));
+    }
+    if (threadIdx.x % 32 == 0) wbox[threadIdx.x / 32] = bx;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float4 u = wbox[0];
+      for (int w = 1; w < kWarps; ++w) {
+        u.x = fminf(u.x, wbox[w].x);
+        u.y = fmaxf(u.y, wbox[w].y);
+        u.z = fminf(u.z, wbox[w].z);
+        u.w = fmaxf(u.w, wbox[w].w);
+      }
+      extent[(long long)b * gridDim.x + blockIdx.x] = u;
+    }
   }
-  box[i] = bx;
 }
 
-template <typename T>
+// kBanded: slots hold faces in `order`, and chunks whose `extent` misses the
+// tile are skipped; otherwise slot f is face f, ranked by its `skip` code.
+template <typename T, bool kBanded>
 __global__ void __launch_bounds__(kThreads)
 raster(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
-       const uint8_t* __restrict__ skip, const T* __restrict__ tex, int F, int S, int C,
+       const uint8_t* __restrict__ skip, const int* __restrict__ order,
+       const float4* __restrict__ extent, const T* __restrict__ tex, int F, int S, int C,
        T* __restrict__ out) {
   __shared__ FaceRecord<T> srec[kChunk];
   __shared__ int sid[kChunk];
@@ -134,7 +193,12 @@ raster(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
 
   T zbest = T(1e9);
   int best = -1;   // rank of the nearest face so far
-  for (int base = 0; base < F; base += kChunk) {
+  const long long cbase = (long long)b * ((F + kChunk - 1) / kChunk);
+  for (int base = 0, chunk = 0; base < F; base += kChunk, ++chunk) {
+    if (kBanded) {   // one value for the whole block: every thread skips alike
+      const float4 e = extent[cbase + chunk];
+      if (!(e.y >= xlo && e.x <= xhi && e.w >= ylo && e.z <= yhi)) continue;
+    }
     const int f = base + threadIdx.x;
     bool hit = false;
     if (f < F) {
@@ -154,7 +218,7 @@ raster(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
     if (hit) {
       const int pos = off + __popc(m & ((1u << lane) - 1u));
       srec[pos] = rec[fbase + f];
-      sid[pos] = (skip != nullptr && (skip[fbase + f] & 2)) ? f + F : f;
+      sid[pos] = kBanded ? order[fbase + f] : (skip != nullptr && (skip[fbase + f] & 2)) ? f + F : f;
     }
     __syncthreads();
     for (int i = 0; i < total; ++i) {
@@ -182,19 +246,26 @@ raster(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
 }
 
 template <typename T>
-int launch(const void* verts, const int* faces, const void* tex, const uint8_t* skip, int B, int V,
-           int F, int S, int C, double scale, void* rec, void* box, void* out, cudaStream_t stream) {
-  const long long n = (long long)B * F;
-  const int setup_threads = 256;
-  face_setup<T><<<(unsigned)((n + setup_threads - 1) / setup_threads), setup_threads, 0, stream>>>(
-      static_cast<const T*>(verts), faces, skip, B, V, F, (T)scale,
-      static_cast<FaceRecord<T>*>(rec), static_cast<float4*>(box));
+int launch(const void* verts, const int* faces, const void* tex, const uint8_t* skip, const int* order,
+           int B, int V, int F, int S, int C, double scale, void* rec, void* box, void* extent, void* out,
+           cudaStream_t stream) {
+  const dim3 setup_grid((F + kChunk - 1) / kChunk, B);
+  face_setup<T><<<setup_grid, kChunk, 0, stream>>>(
+      static_cast<const T*>(verts), faces, order, skip, V, F, (T)scale,
+      static_cast<FaceRecord<T>*>(rec), static_cast<float4*>(box), static_cast<float4*>(extent));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((S + kTile - 1) / kTile) * ((S + kTile - 1) / kTile);
-  raster<T><<<dim3(tiles, B), kThreads, 0, stream>>>(
-      static_cast<const FaceRecord<T>*>(rec), static_cast<const float4*>(box), skip,
-      static_cast<const T*>(tex), F, S, C, static_cast<T*>(out));
+  const auto* r = static_cast<const FaceRecord<T>*>(rec);
+  const auto* bx = static_cast<const float4*>(box);
+  if (order != nullptr) {
+    raster<T, true><<<dim3(tiles, B), kThreads, 0, stream>>>(
+        r, bx, nullptr, order, static_cast<const float4*>(extent), static_cast<const T*>(tex), F, S, C,
+        static_cast<T*>(out));
+  } else {
+    raster<T, false><<<dim3(tiles, B), kThreads, 0, stream>>>(
+        r, bx, skip, nullptr, nullptr, static_cast<const T*>(tex), F, S, C, static_cast<T*>(out));
+  }
   return (int)cudaGetLastError();
 }
 
@@ -214,8 +285,25 @@ extern "C" int rasterize_flat(int dtype, const void* verts, const void* faces, c
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || F <= 0 || S <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return launch<float>(verts, f, tex, m, B, V, F, S, C, scale, rec, box, out, st);
-    case 1: return launch<double>(verts, f, tex, m, B, V, F, S, C, scale, rec, box, out, st);
+    case 0: return launch<float>(verts, f, tex, m, nullptr, B, V, F, S, C, scale, rec, box, nullptr, out, st);
+    case 1: return launch<double>(verts, f, tex, m, nullptr, B, V, F, S, C, scale, rec, box, nullptr, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The banded raster (K3): as rasterize_flat without skip codes, plus
+// order (B, F) int32, a permutation of 0..F-1 per image (the wrapper's
+// y-centre sort), and extent, scratch of B*ceil(F/256)*16 bytes.
+extern "C" int rasterize_flat_banded(int dtype, const void* verts, const void* faces, const void* tex,
+                                     const void* order, int B, int V, int F, int S, int C, double scale,
+                                     void* rec, void* box, void* extent, void* out, void* stream) {
+  const int* f = static_cast<const int*>(faces);
+  const int* o = static_cast<const int*>(order);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || F <= 0 || S <= 0 || C <= 0 || o == nullptr) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return launch<float>(verts, f, tex, nullptr, o, B, V, F, S, C, scale, rec, box, extent, out, st);
+    case 1: return launch<double>(verts, f, tex, nullptr, o, B, V, F, S, C, scale, rec, box, extent, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,1 +1,1 @@
-"""Synthetic training batches (numpy), for tests and the smoke run."""
+"""Synthetic training batches (numpy) and the eval crop transforms."""

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from danet_densepose2smpl_tpu.core.config import Config
+from danet_densepose2smpl_tpu_torch.config import Config
 
 
 def synthetic_raw_batch(cfg: Config, batch_size: int, seed: int = 0, num_dp_points: int = 196):

@@ -3,7 +3,7 @@ CUDA kernel `csrc/rasterizer.cu`, its plain PyTorch versions, the camera
 helpers and `IUVRenderer` (port of the JAX `kernels/rasterizer.py` and
 `kernels/rasterizer_pallas.py`).
 
-One hand-written kernel serves three entry points, one per JAX function:
+One hand-written kernel file serves four entry points, one per JAX function:
 
   rasterize_flat         K5's `rasterize_flat`, and K2 `rasterize_flat_pallas`
                          (the same contract)
@@ -12,6 +12,10 @@ One hand-written kernel serves three entry points, one per JAX function:
   rasterize_flat_culled  K5's `rasterize_flat_culled`: on the card, the
                          masked raster with the face set and tie order of
                          the compacted prefix (see `culled_face_sets`)
+  rasterize_flat_banded  K3 `rasterize_flat_pallas_banded`: the contract of
+                         `rasterize_flat`, with faces sorted by y
+                         (`band_setup`) and each 16x16 tile skipping the
+                         256-face chunks whose extent misses it
 
 Each dispatches on the device of `verts_px`: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, which launches or raises. The port
@@ -45,11 +49,14 @@ import warnings
 import numpy as np
 import torch
 
-from danet_densepose2smpl_tpu.constants import FOCAL_LENGTH
+from danet_densepose2smpl_tpu_torch.constants import FOCAL_LENGTH
 from danet_densepose2smpl_tpu_torch.kernels.build import build
 from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import DensePoseAtlas, orient_faces
 
 _BIG = 1e9
+_EMPTY = 1e30                     # the empty box's sentinel extent
+_TILE = 16                        # kTile in csrc/rasterizer.cu
+_KERNEL_CHUNK = 256               # kChunk: faces per chunk extent in the banded kernel
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _FACE_RECORD_VALUES = 16          # FaceRecord<T> in csrc/rasterizer.cu
 _BOX_BYTES = 16                   # one float4 per face
@@ -128,6 +135,31 @@ def _fma(a, b, c):
     return a * b + c
 
 
+def _chunk_depths(cxy, cz, px, py):
+    """(B, P, K) depth of each pixel in each face of one chunk, _BIG where
+    the pixel is outside the face or the face is invalid (K5's formulas).
+
+    cxy (B, K, 3, 2), cz (B, K, 3); px, py broadcast against (B, P, K)."""
+    v0, v1, v2 = cxy[:, :, 0], cxy[:, :, 1], cxy[:, :, 2]
+    area = (v1[..., 0] - v0[..., 0]) * (v2[..., 1] - v0[..., 1]) - (
+        v1[..., 1] - v0[..., 1]) * (v2[..., 0] - v0[..., 0])
+
+    def edge(a, bb):
+        ex = bb[..., 0] - a[..., 0]
+        ey = bb[..., 1] - a[..., 1]
+        return _fma(ex[:, None, :], py - a[:, None, :, 1], -(ey[:, None, :] * (px - a[:, None, :, 0])))
+
+    w0, w1, w2 = edge(v1, v2), edge(v2, v0), edge(v0, v1)
+    sgn = torch.sign(area)[:, None, :]
+    inside = (w0 * sgn >= 0) & (w1 * sgn >= 0) & (w2 * sgn >= 0)
+    big_area = area.abs() > 1e-12
+    denom = torch.where(big_area, area, torch.ones_like(area))[:, None, :]
+    b0, b1, b2 = w0 / denom, w1 / denom, w2 / denom
+    zpix = _fma(b2, cz[:, None, :, 2], _fma(b0, cz[:, None, :, 0], b1 * cz[:, None, :, 1]))
+    valid = inside & big_area[:, None, :] & (zpix > 1e-6) & (cz > 0).all(-1)[:, None, :]
+    return torch.where(valid, zpix, torch.full_like(zpix, _BIG))
+
+
 def _zbuffer_scan(xy, z, pxy):
     """Scan face chunks, carrying the winning face's flat position.
 
@@ -139,25 +171,7 @@ def _zbuffer_scan(xy, z, pxy):
     zbuf = torch.full((b, p), _BIG, dtype=xy.dtype, device=xy.device)
     bestid = torch.full((b, p), n_chunks * chunk, dtype=torch.long, device=xy.device)
     for ci in range(n_chunks):
-        cxy, cz = xy[:, ci], z[:, ci]
-        v0, v1, v2 = cxy[:, :, 0], cxy[:, :, 1], cxy[:, :, 2]
-        area = (v1[..., 0] - v0[..., 0]) * (v2[..., 1] - v0[..., 1]) - (
-            v1[..., 1] - v0[..., 1]) * (v2[..., 0] - v0[..., 0])
-
-        def edge(a, bb):
-            ex = bb[..., 0] - a[..., 0]
-            ey = bb[..., 1] - a[..., 1]
-            return _fma(ex[:, None, :], py - a[:, None, :, 1], -(ey[:, None, :] * (px - a[:, None, :, 0])))
-
-        w0, w1, w2 = edge(v1, v2), edge(v2, v0), edge(v0, v1)
-        sgn = torch.sign(area)[:, None, :]
-        inside = (w0 * sgn >= 0) & (w1 * sgn >= 0) & (w2 * sgn >= 0)
-        big_area = area.abs() > 1e-12
-        denom = torch.where(big_area, area, torch.ones_like(area))[:, None, :]
-        b0, b1, b2 = w0 / denom, w1 / denom, w2 / denom
-        zpix = _fma(b2, cz[:, None, :, 2], _fma(b0, cz[:, None, :, 0], b1 * cz[:, None, :, 1]))
-        valid = inside & big_area[:, None, :] & (zpix > 1e-6) & (cz > 0).all(-1)[:, None, :]
-        zmask = torch.where(valid, zpix, torch.full_like(zpix, _BIG))
+        zmask = _chunk_depths(xy[:, ci], z[:, ci], px, py)
         zbest, best = zmask.min(dim=-1)          # first minimal index, as jnp.argmin
         better = zbest < zbuf
         zbuf = torch.where(better, zbest, zbuf)
@@ -235,6 +249,89 @@ def culled_face_sets(verts_px, faces, budget: int):
     return ~in_prefix, dead & in_prefix
 
 
+def band_setup(verts_px, faces, out_size: int, orig_size: float = 224.0):
+    """(B, F) int64 face order of the banded raster: faces sorted by the
+    mean y of their corners in out-map units (K3's `_band_setup`,
+    `rasterizer_pallas.py:224-228`), with a stable sort so that the CPU and
+    the card break ties alike."""
+    y_center = (verts_px[:, faces, 1] * (out_size / orig_size)).mean(-1)
+    return torch.argsort(y_center, dim=1, stable=True)
+
+
+def face_boxes(xy, z):
+    """(..., 4) fp32 boxes (xmin, xmax, ymin, ymax) of faces with corners
+    xy (..., 3, 2) in out-map units and depths z (..., 3), widened by a
+    pixel, as the kernel's face_setup writes them; the empty box
+    (1e30, -1e30, 1e30, -1e30) for a face that can cover no pixel (area
+    within 1e-12 of 0, or a corner at z <= 0)."""
+    x, y = xy[..., 0], xy[..., 1]
+    area = (x[..., 1] - x[..., 0]) * (y[..., 2] - y[..., 0]) - (y[..., 1] - y[..., 0]) * (x[..., 2] - x[..., 0])
+    valid = (area.abs() > 1e-12) & (z > 0).all(-1)
+    box = torch.stack([x.min(-1).values.float() - 1.0, x.max(-1).values.float() + 1.0,
+                       y.min(-1).values.float() - 1.0, y.max(-1).values.float() + 1.0], dim=-1)
+    empty = torch.tensor([_EMPTY, -_EMPTY, _EMPTY, -_EMPTY], dtype=torch.float32, device=box.device)
+    return torch.where(valid[..., None], box, empty)
+
+
+def chunk_extents(box, chunk: int):
+    """(B, ceil(F / chunk), 4) union of each run of `chunk` consecutive face
+    boxes (B, F, 4): the extent the banded raster tests a tile against
+    (the last run padded with empty boxes)."""
+    b, n_faces = box.shape[:2]
+    empty = box.new_tensor([_EMPTY, -_EMPTY, _EMPTY, -_EMPTY]).expand(b, (-n_faces) % chunk, 4)
+    box = torch.cat([box, empty], dim=1).reshape(b, -1, chunk, 4)
+    return torch.stack([box[..., 0].amin(-1), box[..., 1].amax(-1),
+                        box[..., 2].amin(-1), box[..., 3].amax(-1)], dim=-1)
+
+
+def rasterize_flat_banded_plain(verts_px, faces, face_tex, out_size: int, orig_size: float = 224.0,
+                                chunk: int = 1024):
+    """Plain version of `rasterize_flat_banded`, with the kernel's skipping.
+
+    Faces in `band_setup` order are cut into chunks of `chunk`; each chunk's
+    extent is the union of its `face_boxes`. Each 16x16 tile of pixels (the
+    kernel's tile; 16 rows are a band) scans only the chunks whose extent
+    meets the tile, and keeps the least (z, face id). A face that covers a
+    pixel centre of the tile has a box, and so a chunk, that meets it: the
+    output equals `rasterize_flat_plain`'s exactly."""
+    b, s = verts_px.shape[0], out_size
+    n_faces, c = faces.shape[0], face_tex.shape[-1]
+    order = band_setup(verts_px, faces, s, orig_size)
+    tri = torch.gather(verts_px[:, faces, :], 1, order[:, :, None, None].expand(b, n_faces, 3, 3))
+    xy, z, ids = tri[..., :2] * (s / orig_size), tri[..., 2], order
+    pad = (-n_faces) % chunk
+    if pad:   # padding faces are invalid and carry the background id
+        xy = torch.cat([xy, xy.new_zeros(b, pad, 3, 2)], dim=1)
+        z = torch.cat([z, z.new_full((b, pad, 3), -1.0)], dim=1)
+        ids = torch.cat([ids, ids.new_full((b, pad), n_faces)], dim=1)
+    n_chunks = (n_faces + pad) // chunk
+    extent = chunk_extents(face_boxes(xy, z), chunk)                                   # (B, NC, 4)
+    xy, z = xy.reshape(b, n_chunks, chunk, 3, 2), z.reshape(b, n_chunks, chunk, 3)
+    ids = ids.reshape(b, n_chunks, chunk)
+    bestid = torch.full((b, s, s), n_faces, dtype=torch.long, device=verts_px.device)
+    for y0 in range(0, s, _TILE):
+        for x0 in range(0, s, _TILE):
+            touch = ((extent[..., 1] >= x0) & (extent[..., 0] <= x0 + _TILE)
+                     & (extent[..., 3] >= y0) & (extent[..., 2] <= y0 + _TILE))        # (B, NC)
+            rows = torch.arange(y0, min(y0 + _TILE, s), dtype=xy.dtype, device=xy.device) + 0.5
+            cols = torch.arange(x0, min(x0 + _TILE, s), dtype=xy.dtype, device=xy.device) + 0.5
+            py, px = (t.reshape(1, -1, 1) for t in torch.meshgrid(rows, cols, indexing="ij"))
+            zbuf = torch.full((b, py.shape[1]), _BIG, dtype=xy.dtype, device=xy.device)
+            best = torch.full((b, py.shape[1]), n_faces, dtype=torch.long, device=xy.device)
+            for ci in torch.nonzero(touch.any(0)).flatten().tolist():
+                zmask = _chunk_depths(xy[:, ci], z[:, ci], px, py)
+                zmask = torch.where(touch[:, ci, None, None], zmask, _BIG)
+                zbest = zmask.amin(-1)
+                hit = (zmask == zbest[..., None]) & (zbest < _BIG)[..., None]
+                bid = torch.where(hit, ids[:, ci, None, :], n_faces).amin(-1)
+                better = (zbest < zbuf) | ((zbest == zbuf) & (bid < best))
+                zbuf = torch.where(better, zbest, zbuf)
+                best = torch.where(better, bid, best)
+            bestid[:, y0:y0 + _TILE, x0:x0 + _TILE] = best.reshape(b, len(rows), len(cols))
+    table = torch.cat([face_tex, face_tex.new_zeros(1, c)], dim=0)
+    return table[bestid]
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -246,10 +343,11 @@ def load_library():
     # no contracted products (and IEEE division, nvcc's default): every
     # rounding where the plain version has it
     lib, log = build("rasterizer.cu", ("-fmad=false",))
-    fn = lib.rasterize_flat
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_double] + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
+    lib.rasterize_flat.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                                   + [ctypes.c_double] + [ctypes.c_void_p] * 4)
+    lib.rasterize_flat_banded.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                                          + [ctypes.c_double] + [ctypes.c_void_p] * 5)
+    lib.rasterize_flat.restype = lib.rasterize_flat_banded.restype = ctypes.c_int
     return lib, log
 
 
@@ -259,9 +357,11 @@ def _check_device(name, verts_px):
     return verts_px.device.type == "cuda"
 
 
-def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=None, ties_last=None):
-    """Run csrc/rasterizer.cu on CUDA tensors. Returns (B, S, S, C) in
-    face_tex's dtype."""
+def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=None, ties_last=None,
+            order=None):
+    """Run csrc/rasterizer.cu on CUDA tensors: the banded kernel when
+    `order` ((B, F) face order of `band_setup`) is given. Returns
+    (B, S, S, C) in face_tex's dtype."""
     dt = verts_px.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"rasterizer kernel: unsupported dtype {dt}")
@@ -275,10 +375,11 @@ def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=Non
     n_faces, c = face_tex.shape
     dev = verts_px.device
     masks = {k: m for k, m in (("skip", skip), ("ties_last", ties_last)) if m is not None}
-    for name, t in (("faces", faces), ("face_tex", face_tex), *masks.items()):
+    per_face = masks | ({"order": order} if order is not None else {})
+    for name, t in (("faces", faces), ("face_tex", face_tex), *per_face.items()):
         if t.device != dev:
             raise ValueError(f"rasterizer kernel: {name} on {t.device}, verts_px on {dev}")
-    for name, m in masks.items():
+    for name, m in per_face.items():
         if tuple(m.shape) != (b, n_faces):
             raise ValueError(f"rasterizer kernel: {name} {tuple(m.shape)} is not (B, F) = {(b, n_faces)}")
     if b * n_faces >= 2 ** 31 or 2 * n_faces >= 2 ** 31 or out_size <= 0:
@@ -300,12 +401,22 @@ def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=Non
     lib, _ = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rasterize_flat(
-            _DTYPE_CODE[dt], verts_px.data_ptr(), faces32.data_ptr(), tex.data_ptr(),
-            codes.data_ptr() if codes is not None else None,
-            b, v, n_faces, out_size, c, out_size / orig_size,
-            records.data_ptr(), boxes.data_ptr(), out.data_ptr(), stream,
-        )
+        if order is None:
+            err = lib.rasterize_flat(
+                _DTYPE_CODE[dt], verts_px.data_ptr(), faces32.data_ptr(), tex.data_ptr(),
+                codes.data_ptr() if codes is not None else None,
+                b, v, n_faces, out_size, c, out_size / orig_size,
+                records.data_ptr(), boxes.data_ptr(), out.data_ptr(), stream,
+            )
+        else:
+            order32 = order.to(torch.int32).contiguous()
+            n_chunks = -(-n_faces // _KERNEL_CHUNK)
+            extents = torch.empty(b * n_chunks * _BOX_BYTES, dtype=torch.uint8, device=dev)
+            err = lib.rasterize_flat_banded(
+                _DTYPE_CODE[dt], verts_px.data_ptr(), faces32.data_ptr(), tex.data_ptr(), order32.data_ptr(),
+                b, v, n_faces, out_size, c, out_size / orig_size,
+                records.data_ptr(), boxes.data_ptr(), extents.data_ptr(), out.data_ptr(), stream,
+            )
     if err != 0:
         raise RuntimeError(f"rasterizer kernel launch failed: cudaError {err}")
     return out.to(face_tex.dtype)
@@ -360,8 +471,24 @@ def rasterize_flat_culled(verts_px, faces, face_tex, out_size: int, orig_size: f
     return rasterize_flat_masked(verts_px, faces, face_tex, out_size, orig_size, skip, chunk, filler)
 
 
+def rasterize_flat_banded(verts_px, faces, face_tex, out_size: int, orig_size: float = 224.0,
+                          chunk: int = 1024):
+    """`rasterize_flat` through K3's design: faces in `band_setup` order,
+    and each tile of pixels skips every chunk of faces whose extent misses
+    it. The same output as `rasterize_flat`, bit for bit. `chunk` is the
+    plain version's chunk of faces (the kernel's is 256). Replaces K3
+    `rasterize_flat_pallas_banded`."""
+    if not _check_device("rasterize_flat_banded", verts_px):
+        return rasterize_flat_banded_plain(verts_px, faces, face_tex, out_size, orig_size, chunk)
+    order = band_setup(verts_px, faces, out_size, orig_size)
+    out = _launch(verts_px, faces, face_tex, out_size, orig_size, order=order)
+    rasterize_flat_banded.launches += 1
+    return out
+
+
 rasterize_flat.launches = 0
 rasterize_flat_masked.launches = 0
+rasterize_flat_banded.launches = 0
 
 
 class IUVRenderer:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.models.iuv_estimator import IUVEstimator
 from danet_densepose2smpl_tpu_torch.models.smpl_regressor import (
     DecomposedPredictor,

@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES, PoseHighResolutionNet
 from danet_densepose2smpl_tpu_torch.nn.iuv_head import IUVPredictHead, nhwc
 from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights, separable_crop_concat

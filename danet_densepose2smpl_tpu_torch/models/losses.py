@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.ops.imwarp import grid_sample_bilinear
 from danet_densepose2smpl_tpu_torch.ops.keypoints import gaussian_heatmaps
 from danet_densepose2smpl_tpu_torch.ops.projection import perspective_projection

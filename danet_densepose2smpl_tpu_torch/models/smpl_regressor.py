@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.nn.gcn import GCN, normalize_undigraph
 from danet_densepose2smpl_tpu_torch.nn.layers import BNReLU
 from danet_densepose2smpl_tpu_torch.nn.resnet import LimbResLayers, SmplResNet

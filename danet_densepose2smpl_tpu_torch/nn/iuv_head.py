@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from danet_densepose2smpl_tpu.constants import ANN_CHANNELS, IUV_CHANNELS
+from danet_densepose2smpl_tpu_torch.constants import ANN_CHANNELS, IUV_CHANNELS
 from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import fused_part_predict
 from danet_densepose2smpl_tpu_torch.nn.layers import Bottleneck, ResLayer, conv
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from danet_densepose2smpl_tpu.constants import IUV_CHANNELS, NUM_DP_PATCHES, index2ann_matrix
+from danet_densepose2smpl_tpu_torch.constants import IUV_CHANNELS, NUM_DP_PATCHES, index2ann_matrix
 
 
 def one_hot_argmax(x: torch.Tensor) -> torch.Tensor:

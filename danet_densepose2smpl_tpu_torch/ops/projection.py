@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from danet_densepose2smpl_tpu.constants import FOCAL_LENGTH, IMG_RES
+from danet_densepose2smpl_tpu_torch.constants import FOCAL_LENGTH, IMG_RES
 
 
 def perspective_projection(points: torch.Tensor, rotation: torch.Tensor,

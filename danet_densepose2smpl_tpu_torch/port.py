@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES
 
 

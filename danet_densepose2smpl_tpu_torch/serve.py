@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.models.danet import DaNet
 from danet_densepose2smpl_tpu_torch.nn.gcn import GraphConv
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, synthetic_smpl_model, to_torch

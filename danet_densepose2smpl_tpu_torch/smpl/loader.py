@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from danet_densepose2smpl_tpu.constants import JOINT_MAP_TO_EXTENDED
+from danet_densepose2smpl_tpu_torch.constants import JOINT_MAP_TO_EXTENDED
 from danet_densepose2smpl_tpu_torch.ops.structure import NUM_SMPL_JOINTS
 
 NUM_VERTS = 6890

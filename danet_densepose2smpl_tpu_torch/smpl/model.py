@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from danet_densepose2smpl_tpu.constants import J24_TO_J19
+from danet_densepose2smpl_tpu_torch.constants import J24_TO_J19
 from danet_densepose2smpl_tpu_torch.ops.rotations import batch_rodrigues
 from danet_densepose2smpl_tpu_torch.ops.structure import NUM_SMPL_JOINTS, SMPL_PARENT
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel

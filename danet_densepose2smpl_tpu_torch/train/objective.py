@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.models import losses as L
 from danet_densepose2smpl_tpu_torch.ops.imwarp import separable_crop_pixel_major
 from danet_densepose2smpl_tpu_torch.ops.iuvmap import iuv_img2map

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from danet_densepose2smpl_tpu.core.config import Config
+from danet_densepose2smpl_tpu_torch.config import Config
 from danet_densepose2smpl_tpu_torch.ops.projection import estimate_translation, perspective_projection
 from danet_densepose2smpl_tpu_torch.ops.rotations import batch_rodrigues
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from danet_densepose2smpl_tpu.core.config import Config
+from danet_densepose2smpl_tpu_torch.config import Config
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.train.objective import compute_losses
 from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets

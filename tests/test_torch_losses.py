@@ -14,7 +14,6 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
-from danet_densepose2smpl_tpu.core.config import Config, DaNetConfig
 from danet_densepose2smpl_tpu.kernels.rasterizer import IUVRenderer as JIUVRenderer
 from danet_densepose2smpl_tpu.models import losses as JL
 from danet_densepose2smpl_tpu.ops import imwarp as jimwarp
@@ -28,6 +27,7 @@ from danet_densepose2smpl_tpu.smpl.model import smpl_forward_aa as jax_smpl_forw
 from danet_densepose2smpl_tpu.train import objective as jobjective
 from danet_densepose2smpl_tpu.train.prepare import prepare_targets as jax_prepare_targets
 
+from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig
 from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
 from danet_densepose2smpl_tpu_torch.kernels.rasterizer import IUVRenderer
 from danet_densepose2smpl_tpu_torch.models import losses as L
@@ -41,6 +41,7 @@ from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward_aa
 from danet_densepose2smpl_tpu_torch.train import objective
 from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
 from danet_densepose2smpl_tpu_torch.train.step import batch_to_device
+from test_torch_config import jax_cfg
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-10, atol=1e-12)
@@ -190,28 +191,28 @@ def test_loss_function_matches_jax(case, rng):
         g = jax_img2map(j(gt))
         ours = L.body_uv_losses(*(_t(maps[k]) for k in ("u", "v", "index", "ann")),
                                 *iuv_img2map(_t(gt)), _t(has), cfg)
-        theirs = JL.body_uv_losses(*(j(maps[k]) for k in ("u", "v", "index", "ann")), *g, j(has), cfg)
+        theirs = JL.body_uv_losses(*(j(maps[k]) for k in ("u", "v", "index", "ann")), *g, j(has), jax_cfg(cfg))
     elif case == "partial_uv":
         pred, pgt = rng.randn(b, 24, 6, 6, 3, 7), rng.rand(b, 24, 6, 6, 3, 7)
-        ours, theirs = L.partial_uv_losses(_t(pred), _t(pgt), _t(has), cfg), JL.partial_uv_losses(j(pred), j(pgt), j(has), cfg)
+        ours, theirs = L.partial_uv_losses(_t(pred), _t(pgt), _t(has), cfg), JL.partial_uv_losses(j(pred), j(pgt), j(has), jax_cfg(cfg))
     elif case == "dp_uvia":
         dp = _dp(rng)
         ours = L.dp_uvia_losses(*(_t(maps[k]) for k in ("u", "v", "index", "ann")),
                                 {k: _t(v) for k, v in dp.items()}, _t(has), cfg)
         theirs = JL.dp_uvia_losses(*(j(maps[k]) for k in ("u", "v", "index", "ann")),
-                                   {k: j(v) for k, v in dp.items()}, j(has), cfg)
+                                   {k: j(v) for k, v in dp.items()}, j(has), jax_cfg(cfg))
     elif case in ("stn", "stn_heatmap"):
         kps = np.concatenate([rng.uniform(-1, 1, (b, 24, 2)), rng.rand(b, 24, 1)], -1)
         if case == "stn":
             c = rng.uniform(-1, 1, (b, 24, 2))
-            ours, theirs = L.stn_losses(_t(c), _t(kps), cfg), JL.stn_losses(j(c), j(kps), cfg)
+            ours, theirs = L.stn_losses(_t(c), _t(kps), cfg), JL.stn_losses(j(c), j(kps), jax_cfg(cfg))
         else:
             hm = rng.rand(b, 8, 8, 24)
-            ours, theirs = L.stn_heatmap_loss(_t(hm), _t(kps), cfg), JL.stn_heatmap_loss(j(hm), j(kps), cfg)
+            ours, theirs = L.stn_heatmap_loss(_t(hm), _t(kps), cfg), JL.stn_heatmap_loss(j(hm), j(kps), jax_cfg(cfg))
     elif case == "smpl_param":
         args = (rot, rng.randn(b, 24, 3, 3), rng.randn(b, 10), rng.randn(b, 10))
         ours = L.smpl_param_losses(_t(args[0]), _t(args[2]), _t(args[1]), _t(args[3]), _t(has), cfg)
-        theirs = JL.smpl_param_losses(j(args[0]), j(args[2]), j(args[1]), j(args[3]), j(has), cfg)
+        theirs = JL.smpl_param_losses(j(args[0]), j(args[2]), j(args[1]), j(args[3]), j(has), jax_cfg(cfg))
     elif case == "keypoint_2d":
         pred, kp = rng.randn(b, 49, 2), np.concatenate([rng.randn(b, 49, 2), rng.rand(b, 49, 1)], -1)
         ours, theirs = L.keypoint_2d_loss(_t(pred), _t(kp), 0.3, 1.0), JL.keypoint_2d_loss(j(pred), j(kp), 0.3, 1.0)
@@ -225,13 +226,13 @@ def test_loss_function_matches_jax(case, rng):
         a, c = rng.randn(b, 3), rng.randn(b, 3)
         ours, theirs = L.cam_losses(_t(a), _t(c), _t(has)), JL.cam_losses(j(a), j(c), j(has))
     elif case == "orthogonal":
-        ours, theirs = L.orthogonal_loss(_t(rot), cfg), JL.orthogonal_loss(j(rot), cfg)
+        ours, theirs = L.orthogonal_loss(_t(rot), cfg), JL.orthogonal_loss(j(rot), jax_cfg(cfg))
     elif case == "aux_rotation":
         a, c = rng.randn(b, 216), rng.randn(b, 216)
-        ours, theirs = L.aux_rotation_loss(_t(a), _t(c), _t(has), cfg), JL.aux_rotation_loss(j(a), j(c), j(has), cfg)
+        ours, theirs = L.aux_rotation_loss(_t(a), _t(c), _t(has), cfg), JL.aux_rotation_loss(j(a), j(c), j(has), jax_cfg(cfg))
     elif case == "aux_position":
         a, c = rng.randn(b, 24, 3), rng.randn(b, 24, 3)
-        ours, theirs = L.aux_position_loss(_t(a), _t(c), _t(has), cfg), JL.aux_position_loss(j(a), j(c), j(has), cfg)
+        ours, theirs = L.aux_position_loss(_t(a), _t(c), _t(has), cfg), JL.aux_position_loss(j(a), j(c), j(has), jax_cfg(cfg))
     else:
         joints, cam = rng.randn(b, 49, 3) * 0.3, np.abs(rng.randn(b, 3)) + 0.5
         ours, theirs = L.reproject(_t(joints), _t(cam), 224.0), JL.reproject(j(joints), j(cam), 224.0)
@@ -280,7 +281,7 @@ def prepared():
     raw["keypoints"][..., :2] = (kp + np.random.RandomState(8).randn(*kp.shape) * 0.01).astype(np.float32)
     jsmpl = jax_synthetic_smpl(num_verts=400, seed=1)
     jbatch = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64) if a.dtype == np.float32 else jnp.asarray(a), raw)
-    theirs = jax_prepare_targets(cfg, jsmpl, jbatch, renderer=JIUVRenderer(jax_atlas(jsmpl), 64, 16, chunk=256))
+    theirs = jax_prepare_targets(jax_cfg(cfg), jsmpl, jbatch, renderer=JIUVRenderer(jax_atlas(jsmpl), 64, 16, chunk=256))
     ours = prepare_targets(cfg, to_torch(smpl, "cpu"), batch_to_device(raw, "cpu", torch.float64),
                            renderer=IUVRenderer(synthetic_densepose_atlas(smpl), 64, 16, chunk=256))
     jax.config.update("jax_enable_x64", False)
@@ -328,7 +329,7 @@ def test_compute_losses_matches_jax(prepared, pretrain_mode, rng):
 
     dcfg = DaNetConfig(img_size=64, heatmap_size=16, stn_hm_weights=0.5, orthogonal_weights=0.1, verts_weights=0.2)
     jax.config.update("jax_enable_x64", True)
-    t_total, t_losses = jobjective.compute_losses(dcfg, jsmpl, conv(out, jnp.asarray), theirs_b,
+    t_total, t_losses = jobjective.compute_losses(jax_cfg(dcfg), jsmpl, conv(out, jnp.asarray), theirs_b,
                                                   pretrain_mode=pretrain_mode, openpose_weight=0.2)
     total, losses = objective.compute_losses(dcfg, smpl, conv(out, _t), ours_b,
                                              pretrain_mode=pretrain_mode, openpose_weight=0.2)

@@ -12,7 +12,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
 from danet_densepose2smpl_tpu.models.iuv_estimator import LEARNED_OFFSET, LEARNED_RATIO
 from danet_densepose2smpl_tpu.models.smpl_regressor import (
     DecomposedPredictor as JDecomposedPredictor,
@@ -27,11 +26,13 @@ from danet_densepose2smpl_tpu.ops.structure import rot2pos_adjacency
 from danet_densepose2smpl_tpu.parallel.mesh import cast_float_tree
 
 from danet_densepose2smpl_tpu_torch import port
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.models.smpl_regressor import DecomposedPredictor
 from danet_densepose2smpl_tpu_torch.nn.gcn import GCN
 from danet_densepose2smpl_tpu_torch.nn.hrnet import PoseHighResolutionNet
 from danet_densepose2smpl_tpu_torch.nn.iuv_head import IUVPredictHead
 from danet_densepose2smpl_tpu_torch.nn.resnet import LimbResLayers, SmplResNet
+from test_torch_config import jax_cfg
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -154,7 +155,7 @@ def test_decomposed_predictor(rng):
     s = 16
     iuv = rng.rand(2, s, s, 75).astype(np.float32)
     part = rng.rand(2, 24, s, s, 3, 7).astype(np.float32)
-    jmod = JDecomposedPredictor(cfg, mp)
+    jmod = JDecomposedPredictor(jax_cfg(cfg), mp)
     variables = randomize(jmod, jnp.asarray(iuv), jnp.asarray(part), seed=5)
     exp = np.asarray(jmod.apply(variables, jnp.asarray(iuv), jnp.asarray(part))["para"])
     ours = load(DecomposedPredictor(cfg, mp), variables, port.decomposed_rules(cfg))
@@ -180,7 +181,7 @@ def test_decomposed_predictor_bf16_matches_jax(rng):
     s = 16
     iuv = (rng.rand(2, s, s, 75) > 0.7).astype(np.float32)
     part = (rng.rand(2, 24, s, s, 3, 7) > 0.7).astype(np.float32)
-    jmod = JDecomposedPredictor(cfg, mp)
+    jmod = JDecomposedPredictor(jax_cfg(cfg), mp)
     variables = randomize(jmod, jnp.asarray(iuv), jnp.asarray(part), seed=5)
     exp = jmod.apply(cast_float_tree(variables, jnp.bfloat16), jnp.asarray(iuv, jnp.bfloat16),
                      jnp.asarray(part, jnp.bfloat16))["para"]

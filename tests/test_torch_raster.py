@@ -1,7 +1,7 @@
-"""The port's rasterizer (K2, K4, K5 contracts): its plain versions against
-the JAX functions on the CPU, the copied atlas tables, the camera helpers,
-`IUVRenderer`, the device dispatch, and (on a card only) the CUDA kernel
-against the plain version.
+"""The port's rasterizer (K2, K3, K4, K5 contracts): its plain versions
+against the JAX functions on the CPU, the copied atlas tables, the camera
+helpers, `IUVRenderer`, `PartRenderer`, the device dispatch, and (on a card
+only) the CUDA kernel against the plain version.
 
 Bars: pixels identical on >= 99.99% against JAX (XLA may contract a
 product the port rounds twice, which moves a pixel centre lying on an edge
@@ -15,8 +15,10 @@ import torch
 import jax.numpy as jnp
 
 from danet_densepose2smpl_tpu.kernels import rasterizer as jr
+from danet_densepose2smpl_tpu.kernels.part_renderer import PartRenderer as JPartRenderer
 from danet_densepose2smpl_tpu.kernels.rasterizer_pallas import (
     backface_mask as jax_backface_mask,
+    rasterize_flat_pallas_banded,
     rasterize_flat_pallas_bandrange,
 )
 from danet_densepose2smpl_tpu.smpl import densepose_atlas as jatlas
@@ -24,6 +26,7 @@ from danet_densepose2smpl_tpu.smpl import smpl_forward_aa as jax_smpl_forward_aa
 from danet_densepose2smpl_tpu.smpl.loader import synthetic_smpl_model as jax_synthetic_smpl
 
 from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+from danet_densepose2smpl_tpu_torch.kernels.part_renderer import PartRenderer
 from danet_densepose2smpl_tpu_torch.smpl import densepose_atlas as atlas_mod
 from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
 
@@ -261,6 +264,114 @@ def test_renderer_soup_atlas_disables_culling():
 
 
 # --------------------------------------------------------------------------
+# the banded raster (K3) and PartRenderer
+# --------------------------------------------------------------------------
+
+def _soup(seed, b, nv, nf, spread, s, dtype=np.float32, n_invalid=0):
+    """Random soup in the 224 px frame, for an S x S map; `spread` sets how
+    many rows a face spans. The first `n_invalid` faces get a corner behind the
+    camera or collapse to a line, so they can cover nothing."""
+    rng = np.random.RandomState(seed)
+    verts = rng.randn(b, nv, 3) * spread
+    cam = np.tile([0.9, 0.0, 0.0], (b, 1))
+    faces = rng.randint(0, nv, (nf, 3))
+    vpx = np.asarray(jr.project_weak_perspective(jnp.asarray(verts, jnp.float32),
+                                                 jnp.asarray(cam, jnp.float32))).astype(dtype)
+    vpx = np.concatenate([vpx, vpx[:, :2] * [1, 1, -1], vpx[:, :1] * [1, 1, 1]], axis=1)
+    bad = np.stack([np.array([nv, nv + 1, 0]), np.array([nv + 2, nv + 2, 1])])[np.arange(n_invalid) % 2]
+    faces = np.concatenate([bad, faces])
+    return vpx, faces, rng.rand(len(faces), 3).astype(dtype)
+
+
+@pytest.mark.parametrize("s,chunk,spread,n_invalid,dtype", [
+    (56, 64, 0.12, 0, np.float32),
+    (40, 16, 0.6, 9, np.float32),      # faces spanning many bands, invalid faces
+    (23, 32, 0.5, 5, np.float64),      # S not a multiple of 16, f64
+    (50, 1024, 0.2, 3, np.float32),    # one ragged chunk
+])
+def test_rasterize_flat_banded_plain_equals_rasterize_flat_plain(s, chunk, spread, n_invalid, dtype):
+    vpx, faces, tex = _soup(s, 2, 60, 400, spread, s, dtype, n_invalid)
+    args = (_t(vpx), _t(faces).long(), _t(tex), s, 224.0)
+    exp = R.rasterize_flat_plain(*args, chunk=128)
+    got = R.rasterize_flat_banded_plain(*args, chunk=chunk)
+    assert got.dtype == exp.dtype and (exp[..., 0] > 0).double().mean() > 0.02
+    np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    # the wrapper on a CPU tensor is the plain version and launches nothing
+    before = R.rasterize_flat_banded.launches
+    np.testing.assert_array_equal(R.rasterize_flat_banded(*args, chunk).numpy(), exp.numpy())
+    assert R.rasterize_flat_banded.launches == before
+
+
+def test_band_setup_and_face_boxes():
+    """The stable y-centre order, and the boxes the kernel's extents are
+    built from: empty for faces that can cover nothing."""
+    vpx, faces, _ = _soup(3, 2, 30, 50, 0.2, 56, n_invalid=4)
+    v, f = _t(vpx), _t(faces).long()
+    order = R.band_setup(v, f, 56, 56.0)
+    yc = (v[:, f, 1]).mean(-1)
+    assert bool((yc.gather(1, order).diff(dim=1) >= 0).all())
+    tie = torch.zeros(1, 6, 3)                                  # every face on one row: the identity
+    np.testing.assert_array_equal(R.band_setup(tie, torch.arange(6).reshape(2, 3).repeat(2, 1), 8, 8.0)[0],
+                                  np.arange(4))
+    tri = v[:, f]
+    box = R.face_boxes(tri[..., :2], tri[..., 2])
+    assert box.dtype == torch.float32
+    np.testing.assert_array_equal(box[:, :4].numpy(), np.broadcast_to(np.float32([1e30, -1e30, 1e30, -1e30]), (2, 4, 4)))
+    shown = box[..., 0] < 1e30
+    assert shown[:, 4:].float().mean() > 0.9
+    np.testing.assert_allclose(box[shown][:, 0], tri[shown][:, :, 0].min(-1).values - 1, rtol=1e-6)
+    np.testing.assert_allclose(box[shown][:, 3], tri[shown][:, :, 1].max(-1).values + 1, rtol=1e-6)
+
+
+def test_rasterize_flat_banded_exact_against_jax_rasterize_flat():
+    """0 pixels of difference from the JAX `rasterize_flat` on the closed
+    test mesh at 224 x 224 and at S=100."""
+    _, _, faces, tex, vpx = _closed_fixture(900, seed=0, b=2)
+    for s in (224, 100):
+        exp = np.asarray(jr.rasterize_flat(jnp.asarray(vpx), jnp.asarray(faces), jnp.asarray(tex), s, 224.0, 512))
+        got = R.rasterize_flat_banded(_t(vpx), _t(faces).long(), _t(tex), s, 224.0, 256)
+        assert (exp[..., 0] > 0).mean() > 0.02
+        np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def test_rasterize_flat_banded_agrees_with_jax_k3_interpret():
+    """Above 99.9% of pixels against K3 itself in interpret mode, the JAX
+    package's own bar (tests/test_rasterizer.py:139-140): K3 evaluates
+    affine edge coefficients and keeps the first face in sorted order on a
+    tie, where the port keeps K5's formulas and the least face id."""
+    vb, cam, faces, tex, vpx = _closed_fixture(900, seed=0, b=2, rng_seed=2)
+    exp = np.asarray(rasterize_flat_pallas_banded(jnp.asarray(vpx), jnp.asarray(faces), jnp.asarray(tex), 56,
+                                                  interpret=True))
+    got = R.rasterize_flat_banded(_t(vpx), _t(faces).long(), _t(tex), 56)
+    assert (exp[..., 0] > 0).mean() > 0.02
+    assert np.isclose(got.numpy(), exp, atol=1e-5).all(-1).mean() > 0.999
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "pallas_banded"])
+def test_part_renderer_matches_jax(backend):
+    """PartRenderer on a 300-vertex synthetic body at 64 px against the JAX
+    renderer's XLA form (its 'pallas_banded' runs only as a TPU kernel), and
+    mask / parts of the contract."""
+    jsmpl = jax_synthetic_smpl(num_verts=300, seed=0)
+    smpl = synthetic_smpl_model(num_verts=300, seed=0)
+    rng = np.random.RandomState(6)
+    betas, pose = rng.randn(2, 10) * 0.3, rng.randn(2, 72) * 0.2
+    verts = np.asarray(jax_smpl_forward_aa(jsmpl, jnp.asarray(betas, jnp.float32),
+                                           jnp.asarray(pose, jnp.float32)).vertices)
+    cam = np.array([[0.9, 0.0, 0.0], [0.8, 0.05, -0.05]], np.float32)
+    jmask, jparts = (np.asarray(a) for a in JPartRenderer(jsmpl, img_size=64, chunk=256)(
+        jnp.asarray(verts), jnp.asarray(cam)))
+    mask, parts = PartRenderer(smpl, img_size=64, chunk=256, backend=backend)(_t(verts), _t(cam))
+    assert mask.dtype == torch.bool and parts.dtype == torch.int32 and mask.shape == (2, 64, 64)
+    assert 0.01 < jmask.mean() < 0.9
+    np.testing.assert_array_equal(mask.numpy(), jmask)
+    np.testing.assert_array_equal(parts.numpy(), jparts)
+    np.testing.assert_array_equal(parts.numpy() > 0, mask.numpy())
+    with pytest.raises(ValueError, match="backend"):
+        PartRenderer(smpl, backend="banded")
+
+
+# --------------------------------------------------------------------------
 # dispatch and the card
 # --------------------------------------------------------------------------
 
@@ -300,6 +411,26 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
     for got, exp in cases:
         assert _agree(got.cpu(), exp.cpu()) >= 1 - 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_banded_kernel_matches_plain(cuda_device, dtype):
+    """K3's kernel against its plain version and the rasterize_flat kernel:
+    bit-equal, at S=224 and at S=40 (not a multiple of 16) with invalid
+    faces."""
+    _, _, faces, tex, vpx = _closed_fixture(2500, seed=0, b=3)
+    cases = [(_t(vpx), _t(faces).long(), _t(tex), 224, 224.0)]
+    v, f, t = _soup(40, 2, 60, 700, 0.3, 40, n_invalid=9)
+    cases.append((_t(v), _t(f).long(), _t(t), 40, 224.0))
+    for v, f, t, s, orig in cases:
+        v, f, t = v.to(cuda_device, dtype), f.to(cuda_device), t.to(cuda_device)
+        got = R.rasterize_flat_banded(v, f, t, s, orig)
+        flat = R.rasterize_flat(v, f, t, s, orig)
+        torch.cuda.synchronize()
+        plain = R.rasterize_flat_banded_plain(v, f, t, s, orig, 256)
+        np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+        np.testing.assert_array_equal(got.cpu().numpy(), flat.cpu().numpy())
 
 
 @pytest.mark.cuda

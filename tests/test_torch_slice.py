@@ -3,6 +3,7 @@ HRNet-W48 DaNet + SMPL at 64 px (heatmap 16), B=2, in float64, loaded from
 the same randomized flax variables; the weight bridge round trip through the
 JAX package's `port.apply_rules`; import and dispatch guards."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -14,7 +15,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from danet_densepose2smpl_tpu.core.config import DaNetConfig
 from danet_densepose2smpl_tpu.models.danet import DaNet as JDaNet
 from danet_densepose2smpl_tpu.port import apply_rules
 from danet_densepose2smpl_tpu.port.danet_map import danet_rules as jax_danet_rules
@@ -22,6 +22,7 @@ from danet_densepose2smpl_tpu.port.convert import _flatten
 from danet_densepose2smpl_tpu.smpl.loader import synthetic_smpl_model
 from danet_densepose2smpl_tpu.smpl.model import smpl_forward as jax_smpl_forward
 
+from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import fused_part_predict
 from danet_densepose2smpl_tpu_torch.models.danet import DaNet
 from danet_densepose2smpl_tpu_torch.port import state_dict_from_flax
@@ -29,6 +30,7 @@ from danet_densepose2smpl_tpu_torch.serve import Predictor
 from danet_densepose2smpl_tpu_torch.smpl.loader import to_torch
 from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward
 
+from test_torch_config import jax_cfg
 from test_torch_nn import randomize
 
 torch.set_num_threads(1)
@@ -40,7 +42,7 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.fixture(scope="module")
 def flax_variables():
     """Randomized (f32) variables of the full-width JAX DaNet at 64 px."""
-    return randomize(JDaNet(CFG, train=False), jnp.zeros((1, SIZE, SIZE, 3), jnp.float32), seed=7)
+    return randomize(JDaNet(jax_cfg(CFG), train=False), jnp.zeros((1, SIZE, SIZE, 3), jnp.float32), seed=7)
 
 
 @pytest.fixture
@@ -61,7 +63,7 @@ def test_slice_matches_jax_f64(flax_variables, x64_mode):
     x = np.random.RandomState(11).rand(BATCH, SIZE, SIZE, 3)
     smpl = synthetic_smpl_model()
 
-    jmodel = JDaNet(CFG, train=False)
+    jmodel = JDaNet(jax_cfg(CFG), train=False)
     jvars = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), flax_variables)
     jout = jax.jit(jmodel.apply)(jvars, jnp.asarray(x))
     jsmpl = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64)
@@ -87,7 +89,7 @@ def test_weight_bridge_round_trip(flax_variables):
     it came from, exactly: every name and layout of the port is the
     reference checkpoint's."""
     sd = {k: v.numpy() for k, v in _port_model(flax_variables).state_dict().items()}
-    back, report = apply_rules(sd, flax_variables, jax_danet_rules(CFG), strict=True)
+    back, report = apply_rules(sd, flax_variables, jax_danet_rules(jax_cfg(CFG)), strict=True)
     assert report["unconsumed_torch_keys"] == []
     assert report["unfilled_params"] == []
     for col in ("params", "batch_stats"):
@@ -122,9 +124,11 @@ def test_unported_configs_raise():
     assert DaNet(DaNetConfig()).train().training
 
 
-def test_port_imports_no_jax():
-    """Importing every module of the port (serve, train, data and the
-    rasterizer included) leaves jax and flax out of sys.modules."""
+def test_port_imports_no_jax(tmp_path):
+    """Importing every module of the port (serve, train, data, eval and the
+    kernels included) from a directory that holds the port alone works, and
+    leaves jax, flax and the JAX package out of sys.modules."""
+    (tmp_path / "danet_densepose2smpl_tpu_torch").symlink_to(REPO / "danet_densepose2smpl_tpu_torch")
     code = (
         "import importlib, pkgutil, sys\n"
         "import danet_densepose2smpl_tpu_torch as p\n"
@@ -133,9 +137,11 @@ def test_port_imports_no_jax():
         "import danet_densepose2smpl_tpu_torch.kernels.rasterizer\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'danet_densepose2smpl_tpu'))\n"
         "assert not bad, bad\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-                          timeout=120)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -13,7 +13,6 @@ import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 
-from danet_densepose2smpl_tpu.core.config import Config, DaNetConfig, SolverConfig
 from danet_densepose2smpl_tpu.data.synthetic import synthetic_raw_batch as jax_raw_batch
 from danet_densepose2smpl_tpu.kernels.rasterizer import IUVRenderer as JIUVRenderer
 from danet_densepose2smpl_tpu.models import danet as jdanet
@@ -25,6 +24,7 @@ from danet_densepose2smpl_tpu.train.prepare import prepare_targets as jax_prepar
 from danet_densepose2smpl_tpu.train.step import make_loss_fn, make_lr_schedule as jax_schedule
 
 from danet_densepose2smpl_tpu_torch import port
+from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig, SolverConfig
 from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
 from danet_densepose2smpl_tpu_torch.kernels.rasterizer import IUVRenderer
 from danet_densepose2smpl_tpu_torch.models import danet as tdanet
@@ -41,6 +41,7 @@ from danet_densepose2smpl_tpu_torch.train.step import (
     make_train_step,
 )
 
+from test_torch_config import jax_cfg
 from test_torch_nn import randomize
 
 torch.set_num_threads(1)
@@ -64,7 +65,7 @@ def x64_mode():
 
 def test_lr_schedule_matches_optax():
     cfg = Config()
-    ours, theirs = make_lr_schedule(cfg), jax_schedule(cfg)
+    ours, theirs = make_lr_schedule(cfg), jax_schedule(jax_cfg(cfg))
     for step in (0, 1, 29_999, 30_000, 30_001, 59_999, 60_000, 60_001, 500_000):
         assert ours(step) == pytest.approx(float(theirs(step)), rel=1e-6), step
 
@@ -78,7 +79,7 @@ def test_optimizer_steps_match_optax(name, x64_mode):
     p0 = {"w": rng.randn(4, 5), "b": rng.randn(5) * 1e-3}
     grads = [{k: rng.randn(*v.shape) * 10.0 ** rng.randint(-9, 1) for k, v in p0.items()} for _ in range(3)]
 
-    tx = (optax.adam if name == "adam" else lambda s: optax.sgd(s, momentum=0.9))(jax_schedule(cfg))
+    tx = (optax.adam if name == "adam" else lambda s: optax.sgd(s, momentum=0.9))(jax_schedule(jax_cfg(cfg)))
     jp = {k: jnp.asarray(v) for k, v in p0.items()}
     st = tx.init(jp)
     for g in grads:
@@ -188,7 +189,7 @@ def test_train_forward_with_injected_noise_matches_jax(x64_mode, monkeypatch):
     `jax.random.uniform` hands them out, and the port takes them injected.
     Outputs and the updated BatchNorm statistics at f64 noise."""
     cfg = DaNetConfig(img_size=SIZE, heatmap_size=SIZE // 4)
-    variables = randomize(JDaNet(cfg, train=False), jnp.zeros((1, SIZE, SIZE, 3), jnp.float32), seed=9)
+    variables = randomize(JDaNet(jax_cfg(cfg), train=False), jnp.zeros((1, SIZE, SIZE, 3), jnp.float32), seed=9)
     v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
     x = np.random.RandomState(12).rand(BATCH, SIZE, SIZE, 3)
     drawn, uniform = [], jax.random.uniform
@@ -198,7 +199,7 @@ def test_train_forward_with_injected_noise_matches_jax(x64_mode, monkeypatch):
         return drawn[-1]
 
     monkeypatch.setattr(jax.random, "uniform", recording_uniform)
-    jmodel = JDaNet(cfg, train=True)
+    jmodel = JDaNet(jax_cfg(cfg), train=True)
 
     def forward(v, img, key):
         drawn.clear()
@@ -240,7 +241,7 @@ def test_train_forward_with_injected_noise_matches_jax(x64_mode, monkeypatch):
 
 def test_synthetic_raw_batch_equal():
     cfg = Config(danet=DaNetConfig(img_size=SIZE, heatmap_size=SIZE // 4))
-    ours, theirs = synthetic_raw_batch(cfg, 3, seed=4, num_dp_points=20), jax_raw_batch(cfg, 3, seed=4, num_dp_points=20)
+    ours, theirs = synthetic_raw_batch(cfg, 3, seed=4, num_dp_points=20), jax_raw_batch(jax_cfg(cfg), 3, seed=4, num_dp_points=20)
 
     def flat(d, pre=""):
         return {pre + k: v for k, v in d.items() if not isinstance(v, dict)} | {
@@ -272,20 +273,20 @@ def test_train_step_matches_jax_f64(x64_mode):
     ~0.01)."""
     cfg = Config(danet=DaNetConfig(img_size=SIZE, heatmap_size=SIZE // 4, partdrop_rate=0.0,
                                    stn_center_jitter=0.0, stn_scale_jitter=0.0))
-    variables = randomize(JDaNet(cfg.danet, train=False), jnp.zeros((1, SIZE, SIZE, 3), jnp.float32), seed=9)
+    variables = randomize(JDaNet(jax_cfg(cfg.danet), train=False), jnp.zeros((1, SIZE, SIZE, 3), jnp.float32), seed=9)
     raw = synthetic_raw_batch(cfg, BATCH, seed=6, num_dp_points=32)
     raw["has_dp"] = np.array([0.0, 1.0, 0.0, 1.0], np.float32)   # DensePose samples: sparse losses live
 
     # --- JAX ---
     jsmpl = jax_synthetic_smpl()
     jbatch = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64) if a.dtype == np.float32 else jnp.asarray(a), raw)
-    prep = jax_prepare_targets(cfg, jsmpl, jbatch, renderer=JIUVRenderer(jax_atlas(jsmpl), 64, 16))
+    prep = jax_prepare_targets(jax_cfg(cfg), jsmpl, jbatch, renderer=JIUVRenderer(jax_atlas(jsmpl), 64, 16))
     v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
-    loss_fn = make_loss_fn(JDaNet(cfg.danet, train=True), jsmpl, cfg)
+    loss_fn = make_loss_fn(JDaNet(jax_cfg(cfg.danet), train=True), jsmpl, jax_cfg(cfg))
     keys = jax.random.split(jax.random.PRNGKey(0))
     (total, (jlosses, jstats)), jgrads = jax.jit(jax.value_and_grad(
         lambda p: loss_fn(p, v64["batch_stats"], prep, keys[0], keys[1]), has_aux=True))(v64["params"])
-    tx = optax.adam(jax_schedule(cfg))
+    tx = optax.adam(jax_schedule(jax_cfg(cfg)))
     upd, _ = tx.update(jgrads, tx.init(v64["params"]), v64["params"])
     jparams = optax.apply_updates(v64["params"], upd)
 
