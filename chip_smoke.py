@@ -11,19 +11,31 @@ body-sized silhouettes. In phases:
 
   0. environment: a CUDA card of capability 9.0, versions, the card's name
      and power limit; build both kernels (one nvcc each, started together)
-     and print the compilers' `-Xptxas -v` reports;
+     and print the compilers' `-Xptxas -v` reports; for each K1 kernel its
+     registers, spill stores and the count of tensor-core instructions
+     (HMMA/HGMMA) in the built library's SASS (`cuobjdump --dump-sass`):
+     the bf16 kernel must have some and spill nothing, the fp32/f64 kernel
+     none;
   1. the kernel against its plain PyTorch version at the production shape
      (B=8, 56x56x48, S=56, 24 parts, 21 outputs), fed by bilinear
      `_axis_weights` matrices and by random dense ones: fp32 (TF32 off)
      max abs error <= 1e-4, bf16 <= 2e-2 * max|ref|, f64 (small shape)
-     <= 1e-10;
+     <= 1e-10; and bf16 where nothing is a multiple of the tensor-core
+     kernel's tiles (B=1, S=57, C=8 and 20, 5 outputs);
   2. the whole slice in f64 on the card against the same model on the CPU
      (B=2, 224 px): para and vertices within atol 1e-6 / rtol 1e-9;
-  3. serving: `Predictor` in bf16 answers requests of B=64; the outputs are
-     finite and shaped right, and every request launched the kernel;
-  4. the kernel's time against the plain version's at B=64 bf16 (CUDA
-     events, after warm-up, in turns plain, kernel, kernel, plain), and
-     the phase-1 check once more at that batch;
+  3. serving: `Predictor` in bf16 answers requests of B=64 (the main
+     path); the outputs are finite and shaped right, and every request
+     launched the kernel; then 3 timed requests of B=256 after a warm-up
+     (the size of `bench.py::bench_inference`); one request of each batch
+     under `torch.profiler`: kernel time, the card's idle share, the
+     serve.model and serve.smpl ranges, and K1's device time inside it;
+  4. at B=64 bf16, by CUDA events in turns: the kernel, its plain version,
+     and the unfused route the port has (`separable_crop_concat`, then
+     `PartialIUVHead.forward`: cuDNN's grouped conv, channels_last; a
+     yardstick only, never called on the path) with its conv alone; the
+     profiler's device time of the kernel alone (without the wrapper's
+     weight packing); the phase-1 check once more at that batch;
   5. the rasterizer kernel against its plain version at the training shape
      (B=128, 56x56, 13,776 faces; vertices from `smpl_forward_aa` of
      synthetic poses, cameras from `prepare_targets`): (a) the soup atlas
@@ -73,6 +85,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -91,6 +104,7 @@ RASTER_REPLACES = {   # entry point -> the TPU kernel it replaces
     "rasterize_flat_masked": "danet_densepose2smpl_tpu/kernels/rasterizer_pallas.py:446",
 }
 SERVE_BATCH, SERVE_REQUESTS = 64, 8
+SERVE_BIG_BATCH, SERVE_BIG_REQUESTS = 256, 3
 RASTER_BATCH, TRAIN_BATCH, TRAIN_STEPS = 128, 64, 5
 EVAL_BATCH, EVAL_BATCHES = 16, 4
 PIXELS_OFF_MAX = 1e-5     # fraction of raster pixels allowed to differ from the plain version
@@ -116,12 +130,13 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def k1_inputs(b, h, w, c, s, dtype, device, seed, dense=False):
-    """Inputs of the scale of tests/test_part_crop_head.py."""
+def k1_inputs(b, h, w, c, s, dtype, device, seed, dense=False, o=21, boxes=False):
+    """Inputs of the scale of tests/test_part_crop_head.py; with `boxes`
+    (bilinear only), also the part centres and scales of the matrices."""
     from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights
 
     rng = np.random.RandomState(seed)
-    k, o = 24, 21
+    k = 24
     feats = torch.from_numpy(rng.rand(b, h, w, c))
     if dense:
         wy = torch.from_numpy(rng.rand(b, k, s, h) / h)
@@ -133,7 +148,8 @@ def k1_inputs(b, h, w, c, s, dtype, device, seed, dense=False):
         wx = _axis_weights(centers[..., 0], scales, w, s, torch.float64)
     kernel = torch.from_numpy(rng.randn(3, 3, c, k * o) * 0.1)
     bias = torch.from_numpy(rng.randn(k * o) * 0.1)
-    return [t.to(device=device, dtype=dtype).contiguous() for t in (feats, wy, wx, kernel, bias)]
+    args = [t.to(device=device, dtype=dtype).contiguous() for t in (feats, wy, wx, kernel, bias)]
+    return (args, centers.to(device), scales.to(device)) if boxes else args
 
 
 def posed_keypoints(cfg, smpl, raw: dict, seed: int, scale: float = 0.9) -> dict:
@@ -175,6 +191,50 @@ def phase0_environment():
         print(f"phase 0: ptxas report of {source}:")
         for line in log.strip().splitlines():
             print(f"    {line}")
+    reports = kernel_reports(part_crop_head.load_library()[0]._name, logs[0])
+    for name, r in reports.items():
+        print(f"phase 0: K1 {name}: {r['registers']} registers, {r['spill_stores']} bytes of spill stores, "
+              f"{r['mma']} tensor-core instructions (HMMA/HGMMA) in the SASS")
+    tc = reports.get("part_crop_head_bf16_kernel")
+    check(tc is not None and tc["mma"] > 0 and tc["spill_stores"] == 0,
+          f"the bf16 K1 kernel runs on the tensor cores and spills nothing: {tc}")
+    check(all(r["mma"] == 0 for n, r in reports.items() if n != "part_crop_head_bf16_kernel"),
+          "the fp32/f64 K1 kernel is the scalar one")
+    return tc
+
+
+def kernel_reports(lib_path: str, log: str) -> dict:
+    """{K1 kernel: {registers, spill_stores, mma}} from the ptxas report and
+    the count of HMMA/HGMMA instructions in cuobjdump's SASS of the library."""
+    from danet_densepose2smpl_tpu_torch.kernels.build import find_nvcc
+
+    def short(mangled):
+        if "bf16_kernel" in mangled:
+            return "part_crop_head_bf16_kernel"
+        m = re.search(r"part_crop_head_kernelI([fd])E", mangled)
+        return f"part_crop_head_kernel<{'float' if m.group(1) == 'f' else 'double'}>" if m else mangled
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = short(m.group(1))
+            out[name] = {"registers": None, "spill_stores": None, "mma": 0}
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out[name]["spill_stores"] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = short(m.group(1))
+        elif fn in out and re.search(r"\bH(G)?MMA\b", line):
+            out[fn]["mma"] += 1
+    return out
 
 
 def phase1_kernel_vs_plain(dev):
@@ -184,11 +244,13 @@ def phase1_kernel_vs_plain(dev):
     )
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    cases = [("float32", torch.float32, 8, 56, 48), ("bfloat16", torch.bfloat16, 8, 56, 48),
-             ("float64", torch.float64, 2, 16, 8)]
-    for name, dt, b, hw, c in cases:
+    cases = [("float32", torch.float32, 8, 56, 48, 21), ("bfloat16", torch.bfloat16, 8, 56, 48, 21),
+             ("float64", torch.float64, 2, 16, 8, 21),
+             # nothing a multiple of the tensor-core kernel's tiles
+             ("bfloat16", torch.bfloat16, 1, 57, 8, 5), ("bfloat16", torch.bfloat16, 1, 57, 20, 5)]
+    for name, dt, b, hw, c, o in cases:
         for dense in (False, True):
-            feats, wy, wx, kernel, bias = k1_inputs(b, hw, hw, c, hw, dt, dev, seed=1, dense=dense)
+            feats, wy, wx, kernel, bias = k1_inputs(b, hw, hw, c, hw, dt, dev, seed=1, dense=dense, o=o)
             got = fused_part_predict(feats, wy, wx, kernel, bias, hw)
             torch.cuda.synchronize()
             ref = part_crop_head_plain(feats, wy, wx, kernel, bias, hw)
@@ -196,9 +258,9 @@ def phase1_kernel_vs_plain(dev):
             ref_max = ref.double().abs().max().item()
             tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 1e-10}[name]
             weights = "dense" if dense else "bilinear"
-            print(f"phase 1: K1 {name} B={b} {hw}x{hw}x{c} {weights} weights: max abs err {err!r} "
-                  f"(max|ref| {ref_max!r}, tolerance {tol!r})")
-            check(got.shape == (b, 24, hw, hw, 21) and bool(torch.isfinite(got).all()),
+            print(f"phase 1: K1 {name} B={b} {hw}x{hw}x{c} S={hw} O={o} {weights} weights: max abs err "
+                  f"{err!r} (max|ref| {ref_max!r}, tolerance {tol!r})")
+            check(got.shape == (b, 24, hw, hw, o) and bool(torch.isfinite(got).all()),
                   f"K1 {name} output shape/finite")
             check(err <= tol, f"K1 {name} {weights}: {err} > {tol}")
 
@@ -266,44 +328,87 @@ def phase3_serving(dev, card) -> int:
           f"{SERVE_BATCH * SERVE_REQUESTS / dt!r} imgs/s (host clock, ends in synchronize); "
           f"K1 launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; card {card}")
+    profile_request(lambda: predictor.predict(images), SERVE_BATCH, card)
+
+    big = torch.from_numpy(
+        np.random.RandomState(6).rand(SERVE_BIG_BATCH, 224, 224, 3).astype(np.float32)
+    ).to(dev, torch.bfloat16)
+    predictor.predict(big)  # warm-up at this batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [predictor.predict(big) for _ in range(SERVE_BIG_REQUESTS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for out in outs:
+        for key, shape in shapes.items():
+            shape = (SERVE_BIG_BATCH, *shape[1:])
+            check(tuple(out[key].shape) == shape and bool(torch.isfinite(out[key]).all()),
+                  f"serving B={SERVE_BIG_BATCH} {key}")
+    print(f"phase 3: served {SERVE_BIG_REQUESTS} requests of B={SERVE_BIG_BATCH} bf16 in {dt!r} s: "
+          f"{dt / SERVE_BIG_REQUESTS * 1e3!r} ms a request, {SERVE_BIG_BATCH * SERVE_BIG_REQUESTS / dt!r} imgs/s "
+          f"(host clock, ends in synchronize; after one warm-up request); card {card}")
+    profile_request(lambda: predictor.predict(big), SERVE_BIG_BATCH, card)
     return launches
 
 
-def phase4_timing(dev, card):
+def profile_request(fn, batch: int, card) -> None:
+    """One serving request under torch.profiler: host time, kernel time and
+    the card's idle share, by range (serve.model, serve.smpl), and K1's
+    device time inside it."""
+    events = profile_ranges(fn, "serve.", f"one bf16 request of B={batch}", card)
+    k1_ms = sum(e.self_device_time_total for e in events if "part_crop_head_bf16_kernel" in e.key) / 1e3
+    print(f"profile: K1 (part_crop_head_bf16_kernel) inside it: {k1_ms!r} ms on the card")
+
+
+def phase4_timing(dev, card) -> dict:
     from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
         fused_part_predict,
         part_crop_head_plain,
     )
+    from danet_densepose2smpl_tpu_torch.nn.iuv_head import PartialIUVHead
+    from danet_densepose2smpl_tpu_torch.ops.imwarp import separable_crop_concat
 
-    args = k1_inputs(SERVE_BATCH, 56, 56, 48, 56, torch.bfloat16, dev, seed=2)
-
-    def run(fn, n=20):
-        for _ in range(3):
-            fn(*args, 56)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn(*args, 56)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
-    times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        times[name].append(run(part_crop_head_plain if name == "plain" else fused_part_predict))
-    ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    print(f"phase 4: K1 B={SERVE_BATCH} bf16: kernel {times['kernel']} ms, plain {times['plain']} ms "
-          f"(CUDA events, mean of 20 after 3 warm-up, turns plain/kernel/kernel/plain; TF32 off); card {card}")
-    # the same check as phase 1, at the batch and dtype the serving path uses
-    got, ref = fused_part_predict(*args, 56).double(), part_crop_head_plain(*args, 56).double()
+    args, centers, scales = k1_inputs(SERVE_BATCH, 56, 56, 48, 56, torch.bfloat16, dev, seed=2, boxes=True)
+    feats, _, _, kernel, bias = args
+    # the unfused route the port has (the training path's): the crops in
+    # device memory, then cuDNN's grouped conv, with K1's weights
+    head = PartialIUVHead(48).to(dev, torch.bfloat16, memory_format=torch.channels_last)
+    head.weight.data.copy_(kernel.permute(3, 2, 0, 1))
+    head.bias.data.copy_(bias)
+    crops = separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)
+    calls = {
+        "kernel": lambda: fused_part_predict(*args, 56),
+        "plain": lambda: part_crop_head_plain(*args, 56),
+        "unfused": lambda: head(separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)),
+        "unfused conv": lambda: head(crops),
+    }
+    times = {name: [] for name in calls}
+    with torch.no_grad():
+        for name in ("plain", "kernel", "unfused", "unfused conv", "unfused conv", "unfused", "kernel", "plain"):
+            times[name].append(cuda_ms(calls[name], 5 if name == "plain" else 20))
+        by_kernel = device_ms_by_kernel(calls["kernel"], 10)
+        alone = [v for key, v in by_kernel.items() if "part_crop_head_bf16_kernel" in key]
+        check(len(alone) == 1, f"the profiler sees the bf16 kernel: {by_kernel}")
+        ms = {name: min(t) for name, t in times.items()}
+        print(f"phase 4: K1 B={SERVE_BATCH} bf16 (CUDA events, mean of 20 calls, plain 5, after a warm-up, in turns; "
+              f"TF32 off): kernel {times['kernel']} ms, plain {times['plain']} ms, unfused route "
+              f"{times['unfused']} ms, its conv alone {times['unfused conv']} ms; the kernel alone on the card "
+              f"(torch.profiler, 10 calls) {alone[0]!r} ms; card {card}")
+        # the same check as phase 1, at the batch and dtype the serving path uses
+        got, ref = calls["kernel"]().double(), calls["plain"]().double()
+        unfused = calls["unfused"]().reshape(got.shape).double()
     err, ref_max = (got - ref).abs().max().item(), ref.abs().max().item()
+    err_u = (unfused - ref).abs().max().item()
     print(f"phase 4: K1 vs plain at B={SERVE_BATCH} bf16: max abs err {err!r} (max|ref| {ref_max!r}, "
-          f"tolerance {2e-2 * ref_max!r})")
+          f"tolerance {2e-2 * ref_max!r}); the unfused route vs plain {err_u!r}")
     check(err <= 2e-2 * ref_max, f"K1 bf16 B={SERVE_BATCH}: {err} > {2e-2 * ref_max}")
+    check(err_u <= 2e-2 * ref_max, f"the unfused route computes K1's function: {err_u}")
     bound_ms, bound_by = k1_bound(args, 56)
     print(f"phase 4: K1 bound {bound_ms!r} ms ({bound_by}); library call: none (no one PyTorch call "
           f"computes the crop and the grouped conv)")
-    return ms, plain_ms, err, bound_ms, bound_by
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "unfused_ms": ms["unfused"], "unfused_conv_ms": ms["unfused conv"],
+            "device_ms": alone[0]}
 
 
 def cuda_ms(fn, n):
@@ -552,11 +657,12 @@ def profile_steps(step, state, batch, gen, card, n=2):
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
 
 
-def profile_ranges(fn, prefix: str, what: str, card) -> None:
+def profile_ranges(fn, prefix: str, what: str, card):
     """Run `fn()` once under torch.profiler; print its host-clock time, the
     kernel time inside it and the card's idle share, and for each
     `record_function` range whose name starts with `prefix`, the host time
-    spent in it and the device time of the kernels launched inside it."""
+    spent in it and the device time of the kernels launched inside it.
+    Returns the profiler's `key_averages()`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -576,6 +682,7 @@ def profile_ranges(fn, prefix: str, what: str, card) -> None:
         if e.key.startswith(prefix) and e.device_type == DeviceType.CPU:
             print(f"profile: {e.key}: host {e.cpu_time_total / 1e3!r} ms, kernels launched inside "
                   f"{e.device_time_total / 1e3!r} ms, {e.count} calls")
+    return events
 
 
 def device_ms_by_kernel(fn, n) -> dict:
@@ -925,7 +1032,7 @@ def phase8_eval(dev, card) -> dict:
 
 
 def main():
-    phase0_environment()
+    k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
     card = card_line()
     timings = {}
@@ -939,15 +1046,17 @@ def main():
     timed(1, lambda: phase1_kernel_vs_plain(dev))
     timed(2, lambda: phase2_slice_f64(dev))
     k1_launches = timed(3, lambda: phase3_serving(dev, card))
-    ms, plain_ms, err, bound_ms, bound_by = timed(4, lambda: phase4_timing(dev, card))
+    k1 = timed(4, lambda: phase4_timing(dev, card))
     raster = timed(5, lambda: phase5_raster(dev, card))
     timed(6, lambda: phase6_step_f64(dev))
     paths = timed(7, lambda: phase7_train_bf16(dev, card))
     k3 = timed(8, lambda: phase8_eval(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
-                f"{SERVE_REQUESTS} requests", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+                f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+                "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+                "library_ms": None, "unfused_ms": k1["unfused_ms"], "unfused_conv_ms": k1["unfused_conv_ms"],
+                "device_ms": k1["device_ms"], "mma_instructions": k1_report["mma"]}]
     raster_paths = {  # entry -> (the phase-7 path its launches are read from, its label)
         "rasterize_flat": ("pallas", "training step, IUVRenderer backend 'pallas', bf16, B=64, 1 step"),
         "rasterize_flat_masked": ("main", f"training step (the main path: closed atlas, culled), bf16, "

@@ -6,10 +6,13 @@ Replaces the TPU kernel `danet_densepose2smpl_tpu/kernels/part_crop_head.py
 H100 and how its design answers is set out at the top of the CUDA source.
 
 `fused_part_predict` dispatches on the device of `feats`: a CPU tensor goes
-to the plain version, a CUDA tensor to the kernel, which launches or raises.
-`fused_part_predict.launches` counts kernel launches. The kernel has no
-backward (nor had the TPU kernel), so on every device the result carries a
-`grad_fn` whose backward raises: a gradient is never dropped silently.
+to the plain version, a CUDA tensor to a kernel, which launches or raises.
+On the card the dtype alone picks the kernel: bf16 runs the conv on the
+tensor cores, from the weights `pack_head_weights` lays out; fp32 and f64
+run the scalar kernel. `fused_part_predict.launches` counts kernel
+launches. The kernels have no backward (nor had the TPU kernel), so on
+every device the result carries a `grad_fn` whose backward raises: a
+gradient is never dropped silently.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import torch.nn.functional as F
 
 from danet_densepose2smpl_tpu_torch.kernels.build import build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_SCALAR_DTYPE_CODE = {torch.float32: 0, torch.float64: 2}   # the scalar kernel's dtypes
+MMA_DEPTH = 16   # the bf16 kernel pads C to this (mma.sync m16n8k16)
+MMA_WIDTH = 24   # and O to a multiple of this (three n8 tiles a GEMM pass)
 
 
 def part_crop_head_plain(feats, wy, wx, kernel, bias, out_size: int) -> torch.Tensor:
@@ -45,20 +50,34 @@ def part_crop_head_plain(feats, wy, wx, kernel, bias, out_size: int) -> torch.Te
     return out.reshape(b, k, o, s, s).permute(0, 1, 3, 4, 2).to(dt)
 
 
+def pack_head_weights(kernel: torch.Tensor, num_parts: int) -> torch.Tensor:
+    """The bf16 kernel's B operand: (3, 3, C, K*O) HWIO grouped-conv weights
+    -> (K, Npad, 9 * Cpad), for each part the (dy, dx, c)-ordered GEMM depth
+    of each output channel, contiguous. C is padded to a multiple of
+    MMA_DEPTH and O to a multiple of MMA_WIDTH, with zeros."""
+    c, ko = kernel.shape[2], kernel.shape[3]
+    k, o = num_parts, ko // num_parts
+    cpad = -(-c // MMA_DEPTH) * MMA_DEPTH
+    npad = -(-o // MMA_WIDTH) * MMA_WIDTH
+    w = kernel.reshape(3, 3, c, k, o).permute(3, 4, 0, 1, 2)          # (K, O, 3, 3, C)
+    w = F.pad(w, (0, cpad - c)).reshape(k, o, 9 * cpad)
+    return F.pad(w, (0, 0, 0, npad - o)).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library():
     """Build (at first use) and load the kernel library. Returns
     (library, compiler report)."""
     lib, log = build("part_crop_head.cu")
-    fn = lib.part_crop_head
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.part_crop_head.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.part_crop_head.restype = lib.part_crop_head_bf16.restype = ctypes.c_int
     return lib, log
 
 
 def _check(feats, wy, wx, kernel, bias, out_size):
     dt = feats.dtype
-    if dt not in _DTYPE_CODE:
+    if dt not in (torch.bfloat16, *_SCALAR_DTYPE_CODE):
         raise TypeError(f"fused_part_predict: unsupported dtype {dt}")
     for name, t in (("wy", wy), ("wx", wx), ("kernel", kernel), ("bias", bias)):
         if t.device != feats.device:
@@ -119,14 +138,21 @@ def _fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Ten
     b, h, w, c, k, o = _check(feats, wy, wx, kernel, bias, out_size)
     s = out_size
     lib, _ = load_library()
-    kern = kernel.reshape(3, 3, c, k, o).permute(3, 0, 1, 2, 4).contiguous()  # (K,3,3,C,O)
     out = torch.empty((b, k, s, s, o), dtype=feats.dtype, device=feats.device)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.part_crop_head(
-            _DTYPE_CODE[feats.dtype], feats.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-            kern.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, stream,
-        )
+        if feats.dtype == torch.bfloat16:
+            wpack = pack_head_weights(kernel, k)
+            err = lib.part_crop_head_bf16(
+                feats.data_ptr(), wy.data_ptr(), wx.data_ptr(), wpack.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), b, h, w, c, s, k, o, stream,
+            )
+        else:
+            kern = kernel.reshape(3, 3, c, k, o).permute(3, 0, 1, 2, 4).contiguous()  # (K,3,3,C,O)
+            err = lib.part_crop_head(
+                _SCALAR_DTYPE_CODE[feats.dtype], feats.data_ptr(), wy.data_ptr(), wx.data_ptr(),
+                kern.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, stream,
+            )
     if err != 0:
         raise RuntimeError(f"part_crop_head kernel launch failed: cudaError {err}")
     fused_part_predict.launches += 1

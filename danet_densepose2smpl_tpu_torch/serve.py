@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.models.danet import DaNet
@@ -93,8 +94,10 @@ class Predictor:
         if isinstance(images_nhwc, np.ndarray):
             images_nhwc = torch.from_numpy(images_nhwc)
         x = images_nhwc.to(device=self.device, dtype=self.dtype)
-        out = self.model(x)
-        body = smpl_forward(self.smpl, out["pred_shape"].float(), out["pred_rotmat"].float())
+        with record_function("serve.model"):
+            out = self.model(x)
+        with record_function("serve.smpl"):
+            body = smpl_forward(self.smpl, out["pred_shape"].float(), out["pred_rotmat"].float())
         return {
             "para": out["para"],
             "pred_cam": out["pred_cam"],

@@ -1,10 +1,12 @@
 """The port's fused crop + partial-head (K1): its plain version against the
-JAX kernel and the JAX separable path on the CPU, its device dispatch, and
-(on a card only) the CUDA kernel against the plain version."""
+JAX kernel and the JAX separable path on the CPU, the bf16 kernel's packed
+weight operand, its device dispatch, and (on a card only) the CUDA kernels
+against the plain version."""
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -12,6 +14,7 @@ from danet_densepose2smpl_tpu.kernels.part_crop_head import fused_part_predict a
 
 from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
     fused_part_predict,
+    pack_head_weights,
     part_crop_head_plain,
 )
 from danet_densepose2smpl_tpu_torch.nn.iuv_head import PartialIUVHead
@@ -152,3 +155,79 @@ def test_backward_refuses_on_cpu(rng, requires):
         out.sum().backward()
     with torch.no_grad():
         assert not fused_part_predict(f, wy, wx, k, torch.from_numpy(bias), s).requires_grad
+
+
+@pytest.mark.parametrize("c,o", [(48, 21), (8, 21), (20, 5)])
+def test_packed_weights_im2col_gemm_matches_plain_f64(rng, c, o):
+    """The bf16 kernel's GEMM, written out: the crop zero-padded in x, y and
+    C, its nine taps side by side in (dy, dx, c) order, times the packed B
+    operand, plus the bias, is the plain version's grouped conv. C not a
+    multiple of 16 and O not a multiple of 8 are padded with zeros."""
+    feats, centers, scales, kernel, bias, s = _inputs(rng, h=12, w=12, c=c, o=o, s=9)
+    h, w = feats.shape[1:3]
+    wy, wx = _weights(centers, scales, h, w, s, torch.float64)
+    f, kern, bi = (torch.from_numpy(a).double() for a in (feats, kernel, bias))
+    k = wy.shape[1]
+    packed = pack_head_weights(kern, k)
+    npad, cpad = packed.shape[1], packed.shape[2] // 9
+    assert packed.shape == (k, npad, 9 * cpad) and packed.is_contiguous()
+    assert cpad % 16 == 0 and c <= cpad < c + 16 and npad % 24 == 0 and o <= npad < o + 24
+    assert not packed[:, o:].any() and not packed.reshape(k, npad, 9, cpad)[..., c:].any()
+
+    crop = torch.einsum("bkpw,bkowc->bkopc", wx, torch.einsum("bkoh,bhwc->bkowc", wy, f))
+    padded = F.pad(crop, (0, cpad - c, 1, 1, 1, 1))               # C, then x, then y
+    cols = torch.cat([padded[:, :, dy:dy + s, dx:dx + s] for dy in range(3) for dx in range(3)], -1)
+    gemm = torch.einsum("bkyxq,knq->bkyxn", cols, packed)
+    assert not gemm[..., o:].any()
+    got = gemm[..., :o] + bi.reshape(k, o)[None, :, None, None, :]
+    ref = part_crop_head_plain(f, wy, wx, kern, bi, s)
+    assert got.shape == ref.shape == (2, k, s, s, o)
+    assert (got - ref).abs().max().item() <= 1e-12
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["bilinear", "dense"])
+def test_plain_bf16_matches_jax_kernel_interpret(rng, dense):
+    """The rounding points the bf16 kernel keeps: the port's plain version in
+    bf16 against the JAX kernel in bf16 (interpret mode), on the same bf16
+    inputs, within 2e-2 of max|ref|."""
+    feats, centers, scales, kernel, bias, s = _inputs(rng)
+    b, h, w, _ = feats.shape
+    if dense:
+        wy, wx = torch.from_numpy(rng.rand(b, 24, s, h) / h), torch.from_numpy(rng.rand(b, 24, s, w) / w)
+    else:
+        wy, wx = _weights(centers, scales, h, w, s)
+    args = [t.to(torch.bfloat16) for t in (torch.from_numpy(feats), wy, wx, torch.from_numpy(kernel),
+                                           torch.from_numpy(bias))]
+    got = part_crop_head_plain(*args, s)
+    assert got.dtype == torch.bfloat16
+    exp = jax_fused(*(jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in args), s, interpret=True)
+    assert exp.dtype == jnp.bfloat16
+    exp = np.asarray(exp.astype(jnp.float32)).astype(np.float64)
+    err = np.abs(got.double().numpy() - exp).max()
+    assert got.shape == exp.shape == (b, 24, s, s, 21)
+    assert err <= 2e-2 * np.abs(exp).max(), (err, np.abs(exp).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 20])
+def test_cuda_bf16_kernel_odd_shapes(rng, cuda_device, c):
+    """The tensor-core kernel where nothing is a multiple of its tiles: S=57
+    (a ragged pixel tile, unaligned output spans), C=8 and 20 (padded to
+    the MMA depth; 20 is not whole 16-byte chunks), O=5, B=1; bilinear and
+    dense weights, against the plain version at 2e-2 of max|ref|."""
+    feats, centers, scales, kernel, bias, s = _inputs(rng, b=1, h=57, w=57, c=c, o=5, s=57)
+    b, h, w, _ = feats.shape
+    dt = torch.bfloat16
+    wy, wx = _weights(centers, scales, h, w, s, dt)
+    dense = (torch.from_numpy(rng.rand(b, 24, s, h) / h), torch.from_numpy(rng.rand(b, 24, s, w) / w))
+    f, kern, bi = (torch.from_numpy(a).to(cuda_device, dt) for a in (feats, kernel, bias))
+    for wy_, wx_ in ((wy, wx), dense):
+        wy_, wx_ = wy_.to(cuda_device, dt), wx_.to(cuda_device, dt)
+        before = fused_part_predict.launches
+        got = fused_part_predict(f, wy_, wx_, kern, bi, s)
+        torch.cuda.synchronize()
+        assert fused_part_predict.launches == before + 1
+        ref = part_crop_head_plain(f, wy_, wx_, kern, bi, s)
+        err = (got.double() - ref.double()).abs().max().item()
+        assert got.shape == (b, 24, s, s, 5)
+        assert err <= 2e-2 * ref.double().abs().max().item(), (c, err)
