@@ -39,13 +39,21 @@ body-sized silhouettes. In phases:
   5. the rasterizer kernel against its plain version at the training shape
      (B=128, 56x56, 13,776 faces; vertices from `smpl_forward_aa` of
      synthetic poses, cameras from `prepare_targets`): (a) the soup atlas
-     through `rasterize_flat`, (b) the closed atlas with culling through
-     `rasterize_flat_culled`, (c) the closed atlas through
-     `rasterize_flat_masked` with `backface_mask`, (d) f64 at B=2, and
-     (t) an exact depth tie between a live and a dead filler face through
-     `rasterize_flat_culled`. At most 1e-5 of the pixels may differ,
-     foreground must cover > 2%; then the kernel's and the plain version's
-     times at B=128 for (a)-(c) (CUDA events, turns);
+     through `rasterize_flat`, (a64) the closed atlas through
+     `rasterize_flat` at B=64 (the call of phase 7's 'pallas' backend), (b)
+     the closed atlas with culling through `rasterize_flat_culled`, (c) the
+     closed atlas through `rasterize_flat_masked` with `backface_mask`,
+     (b64) and (c64) the same at the main path's B=64, (d) f64 at B=2, (e)
+     the closed test mesh (local faces, the real mesh's kind) through
+     `rasterize_flat`, and (t) an exact depth tie between a live and a dead
+     filler face through `rasterize_flat_culled`. At most 1e-5 of the pixels
+     may differ, foreground must cover > 2%; then, for (a)-(c), (a64),
+     (b64), (c64) and (e),
+     the fp32 pair kernel must equal the tile kernel bit for bit, and the
+     times of the entry, the tile kernel (fp64's route, the yardstick) and
+     the plain version (CUDA events, turns); the pairs the kernel
+     enumerated must equal `pixel_spans`' count and be at least
+     `raster_bound`'s exact-box count, with how they spread over the faces;
   6. one training step in f64, card against CPU: full W48 at 64 px, B=4,
      soup atlas, PartDrop and jitter off, the same seeded weights and batch;
      every loss term, every gradient and the parameters after one Adam
@@ -62,10 +70,11 @@ body-sized silhouettes. In phases:
      plain version and bit-equal to the `rasterize_flat` kernel at 224x224,
      B=16 fp32 and B=2 f64, with `PartRenderer`'s 2-channel texture on two
      meshes of the real counts (the synthetic SMPL body under posed
-     cameras, and the closed test mesh), with the chunks each tile visits;
-     (b) the times of K3, its sort alone, its kernel alone and the
-     `rasterize_flat` kernel (CUDA events, turns) and of the plain version;
-     (c) `run_lsp_eval` through `Predictor` in bf16 over 4 batches of B=16
+     cameras, and the closed test mesh), with the pairs the kernel
+     enumerated against `pixel_spans` and the exact boxes; (b) the times of
+     K3, of `rasterize_flat`, of the tile kernel and of the plain version
+     (CUDA events, turns); (c) the same on the eval's own render, then
+     `run_lsp_eval` through `Predictor` in bf16 over 4 batches of B=16
      with `PartRenderer('pallas_banded')` and with 'auto': the same printed
      metrics, and K1 and the raster launched once per batch for the
      prediction and once for the rendered-GT fallback; (d) `run_pose_eval`
@@ -445,6 +454,7 @@ def phase5_raster(dev, card) -> dict:
     from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
     from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import (
         closed_synthetic_atlas,
+        closed_test_mesh,
         synthetic_densepose_atlas,
     )
     from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model, to_torch
@@ -466,32 +476,62 @@ def phase5_raster(dev, card) -> dict:
     mask = R.backface_mask(dp_c, cam, fc)
     live = closed.live_fraction(verts, cam)
     budget = R.cull_budget(fc.shape[0], 1024, 0.55)
+    culled_skip, filler = R.culled_face_sets(vpx_c, fc, budget)
+    # the closed test mesh (local faces, the real SMPL mesh's kind) at the training shape
+    mesh_v, mesh_f = closed_test_mesh(smpl.num_verts)
+    rng = np.random.RandomState(33)
+    mesh_b = np.stack([mesh_v * (1 + 0.1 * rng.randn()) + rng.randn(3) * 0.05 for _ in range(RASTER_BATCH)])
+    vpx_m = R.project_weak_perspective(torch.as_tensor(mesh_b, dtype=torch.float32, device=dev),
+                                       torch.tensor([[0.9, 0.02, -0.03]], device=dev).expand(RASTER_BATCH, 3))
+    fm = torch.as_tensor(mesh_f.astype(np.int64), device=dev)
+    texm = torch.as_tensor(rng.rand(len(mesh_f), 3).astype(np.float32) * 0.9 + 0.1, device=dev)
     print(f"phase 5: B={RASTER_BATCH} S=56 F={fs.shape[0]}; fitted camera scale min {cam[:, 0].min().item()!r} "
           f"max {cam[:, 0].max().item()!r}; closed atlas live_fraction min {live.min().item()!r} mean "
           f"{live.mean().item()!r} max {live.max().item()!r} (budget {budget} faces = "
           f"{budget / fc.shape[0]!r}); backface_mask culls {mask.float().mean().item()!r} of the faces")
     chunk = 128   # the plain version's (B, S*S, chunk) temporaries
     tv, tf, tt = tie_scene(dev)
+    half = TRAIN_BATCH
 
+    # key: (what, kernel, plain, the kernel's inputs as R._launch takes them, or None: not timed)
     runs = {
         "a": ("soup atlas, rasterize_flat",
               lambda: R.rasterize_flat(vpx_s, fs, texs, 56),
-              lambda: R.rasterize_flat_plain(vpx_s, fs, texs, 56, chunk=chunk)),
+              lambda: R.rasterize_flat_plain(vpx_s, fs, texs, 56, chunk=chunk),
+              (vpx_s, fs, texs, {})),
+        "a64": (f"closed atlas, rasterize_flat (the 'pallas' backend's call), B={half}",
+                lambda: R.rasterize_flat(vpx_c[:half], fc, texc, 56),
+                lambda: R.rasterize_flat_plain(vpx_c[:half], fc, texc, 56, chunk=chunk),
+                (vpx_c[:half], fc, texc, {})),
         "b": ("closed atlas, rasterize_flat_culled",
               lambda: R.rasterize_flat_culled(vpx_c, fc, texc, 56, 224.0, 1024, 0.55),
-              lambda: R.rasterize_flat_culled_plain(vpx_c, fc, texc, 56, 224.0, chunk, 0.55)),
+              lambda: R.rasterize_flat_culled_plain(vpx_c, fc, texc, 56, 224.0, chunk, 0.55),
+              (vpx_c, fc, texc, {"skip": culled_skip, "ties_last": filler})),
+        "b64": (f"closed atlas, rasterize_flat_culled, B={half}",
+                lambda: R.rasterize_flat_culled(vpx_c[:half], fc, texc, 56, 224.0, 1024, 0.55),
+                lambda: R.rasterize_flat_culled_plain(vpx_c[:half], fc, texc, 56, 224.0, chunk, 0.55),
+                (vpx_c[:half], fc, texc, {"skip": culled_skip[:half], "ties_last": filler[:half]})),
         "c": ("closed atlas, rasterize_flat_masked with backface_mask",
               lambda: R.rasterize_flat_masked(vpx_c, fc, texc, 56, cull_mask=mask),
-              lambda: R.rasterize_flat_plain(vpx_c, fc, texc, 56, chunk=chunk, skip=mask)),
+              lambda: R.rasterize_flat_plain(vpx_c, fc, texc, 56, chunk=chunk, skip=mask),
+              (vpx_c, fc, texc, {"skip": mask})),
+        "c64": (f"closed atlas, rasterize_flat_masked with backface_mask, B={half} (the main path's batch)",
+                lambda: R.rasterize_flat_masked(vpx_c[:half], fc, texc, 56, cull_mask=mask[:half]),
+                lambda: R.rasterize_flat_plain(vpx_c[:half], fc, texc, 56, chunk=chunk, skip=mask[:half]),
+                (vpx_c[:half], fc, texc, {"skip": mask[:half]})),
         "d": ("soup atlas, rasterize_flat, f64, B=2",
               lambda: R.rasterize_flat(vpx_s[:2].double(), fs, texs, 56),
-              lambda: R.rasterize_flat_plain(vpx_s[:2].double(), fs, texs, 56, chunk=chunk)),
+              lambda: R.rasterize_flat_plain(vpx_s[:2].double(), fs, texs, 56, chunk=chunk), None),
+        "e": ("closed test mesh, rasterize_flat",
+              lambda: R.rasterize_flat(vpx_m, fm, texm, 56),
+              lambda: R.rasterize_flat_plain(vpx_m, fm, texm, 56, chunk=chunk),
+              (vpx_m, fm, texm, {})),
         "t": ("exact depth tie, live vs filler face, rasterize_flat_culled",
               lambda: R.rasterize_flat_culled(tv, tf, tt, 16, 16.0, 1024, 0.55),
-              lambda: R.rasterize_flat_culled_plain(tv, tf, tt, 16, 16.0, 1024, 0.55)),
+              lambda: R.rasterize_flat_culled_plain(tv, tf, tt, 16, 16.0, 1024, 0.55), None),
     }
     errs = {}
-    for key, (what, kernel, plain) in runs.items():
+    for key, (what, kernel, plain, _) in runs.items():
         got = kernel()
         torch.cuda.synchronize()
         exp = plain()
@@ -509,20 +549,34 @@ def phase5_raster(dev, card) -> dict:
     tie = runs["t"][1]()[0][runs["t"][2]()[0, ..., 0] > 0]
     check(bool((tie == tt[1]).all()), "the exact tie goes to the live face")
 
+    # times, in turns: the entry (the pair kernel), its plain version, and the
+    # tile kernel that fp64 runs (the yardstick of the pair kernel)
     times = {}
-    for key in ("a", "c", "b"):   # the three entries on the training path's inputs
-        what, kernel, plain = runs[key]
-        t = {"plain": [], "kernel": []}
-        for turn in ("plain", "kernel", "kernel", "plain"):
-            t[turn].append(cuda_ms(plain, 1) if turn == "plain" else cuda_ms(kernel, 20))
-        times[key] = (min(t["kernel"]), min(t["plain"]))
-        print(f"phase 5: ({key}) B={RASTER_BATCH} fp32 {what}: kernel {t['kernel']} ms, "
+    for key, (what, kernel, plain, spec) in runs.items():
+        if spec is None:
+            continue
+        v, f, tex, kw = spec
+        tiles = lambda: R._launch(v, f, tex, 56, 224.0, route="tiles", **kw)   # noqa: E731
+        check(torch.equal(kernel(), tiles()), f"raster ({key}): the pair kernel and the tile kernel differ")
+        t = {"plain": [], "kernel": [], "tiles": []}
+        for turn in ("plain", "kernel", "tiles", "tiles", "kernel", "plain"):
+            t[turn].append(cuda_ms(plain, 1) if turn == "plain" else cuda_ms(kernel if turn == "kernel" else tiles, 20))
+        _, pairs = R._launch(v, f, tex, 56, 224.0, with_pairs=True, **kw)
+        pairs = int(pairs.item())
+        mirror, stats = pair_stats(v, f, 56, kw.get("skip"))
+        exact = exact_box_pairs(v, f, 56, skip=kw.get("skip"))
+        bnd = raster_bound(v, f, tex, 56, skip=kw.get("skip"))
+        times[key] = (min(t["kernel"]), min(t["plain"]), bnd)
+        print(f"phase 5: ({key}) B={v.shape[0]} fp32 {what}: kernel {t['kernel']} ms, tile kernel {t['tiles']} ms, "
               f"plain {t['plain']} ms (CUDA events, mean of 20 / 1 call after a warm-up, turns "
-              f"plain/kernel/kernel/plain, plain chunk {chunk}); card {card}")
-    bounds = {"a": raster_bound(vpx_s, fs, texs, 56), "c": raster_bound(vpx_c, fc, texc, 56, skip=mask)}
-    print(f"phase 5: bounds (ms, by) of (a) {bounds['a']!r}, (c) {bounds['c']!r}; library call: none")
-    return {"rasterize_flat": (*times["a"], errs["a"], *bounds["a"]),
-            "rasterize_flat_masked": (*times["c"], errs["c"], *bounds["c"])}
+              f"plain/kernel/tiles/tiles/kernel/plain, plain chunk {chunk}); bound {bnd!r} (ms, by); "
+              f"library call: none; card {card}")
+        print(f"phase 5: ({key}) pairs the kernel enumerated {pairs} (pixel_spans: {mirror}), in the exact boxes "
+              f"(raster_bound) {exact}: {pairs / max(exact, 1)!r}x; {stats}")
+        check(pairs == mirror, f"raster ({key}): the kernel's pairs {pairs} != pixel_spans' {mirror}")
+        check(pairs >= exact, f"raster ({key}): {pairs} pairs enumerated < {exact} in the exact boxes")
+    return {"rasterize_flat": (*times["a64"][:2], errs["a64"], *times["a64"][2]),
+            "rasterize_flat_masked": (*times["c64"][:2], errs["c64"], *times["c64"][2])}
 
 
 def nbytes(*tensors) -> int:
@@ -550,24 +604,44 @@ def k1_bound(args, s) -> tuple[float, str]:
     return bound(nbytes(*args) + out_bytes, crop + conv, "bf16")
 
 
-def raster_bound(verts_px, faces, face_tex, s, orig_size=224.0, skip=None) -> tuple[float, str]:
-    """A raster's inputs and output once, and RASTER_OPS_PER_CANDIDATE fp32
-    operations for each (pixel centre, face) pair whose pixel centre lies
-    in the face's bounding box, over the faces that can cover a pixel."""
+def exact_box_pairs(verts_px, faces, s, orig_size=224.0, skip=None) -> int:
+    """(pixel centre, face) pairs whose centre lies in the face's exact
+    bounding box, over the faces that can cover a pixel (not skipped)."""
     from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
 
     tri = verts_px[:, faces, :]
-    xy = tri[..., :2].float() * (s / orig_size)
-    box = R.face_boxes(xy, tri[..., 2])
+    box = R.face_boxes(tri[..., :2].float() * (s / orig_size), tri[..., 2])
     shown = box[..., 0] < 1e30
     if skip is not None:
         shown &= ~skip
     # pixel centres j + 0.5 inside [box min + 1, box max - 1] (face_boxes widens by a pixel)
     lo, hi = (box[..., 0::2] + 0.5).ceil().clamp(0, s), (box[..., 1::2] - 1.5).floor().add(1).clamp(0, s)
-    pairs = ((hi - lo).clamp_min(0).prod(-1) * shown).sum().item()
+    return int(((hi - lo).clamp_min(0).prod(-1) * shown).sum().item())
+
+
+def raster_bound(verts_px, faces, face_tex, s, orig_size=224.0, skip=None) -> tuple[float, str]:
+    """A raster's inputs and output once, and RASTER_OPS_PER_CANDIDATE fp32
+    operations for each (pixel centre, face) pair whose pixel centre lies
+    in the face's bounding box, over the faces that can cover a pixel."""
+    pairs = exact_box_pairs(verts_px, faces, s, orig_size, skip)
     out_bytes = verts_px.shape[0] * s * s * face_tex.shape[-1] * face_tex.element_size()
     inputs = nbytes(verts_px, faces, face_tex) + (nbytes(skip) if skip is not None else 0)
     return bound(inputs + out_bytes, pairs * RASTER_OPS_PER_CANDIDATE, "fp32")
+
+
+def pair_stats(verts_px, faces, s, skip=None, orig_size=224.0) -> tuple[int, str]:
+    """(the pairs the pair kernel enumerates, by `pixel_spans`; a line on
+    how they spread over the faces)."""
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+
+    tri = verts_px[:, faces, :]
+    _, count = R.pixel_spans(tri[..., :2].float() * (s / orig_size), tri[..., 2], s, skip)
+    busy = count[count > 0].double()
+    q = torch.quantile(busy[:: max(1, busy.numel() // 1_000_000)], torch.tensor([0.5, 0.99], device=busy.device,
+                                                                                dtype=torch.float64)).tolist()
+    return int(count.sum()), (f"pairs per face with any: median {q[0]!r}, p99 {q[1]!r}, largest "
+                              f"{int(busy.max())}, mean {busy.mean().item()!r}; faces with none "
+                              f"{(count == 0).double().mean().item()!r}")
 
 
 def phase6_step_f64(dev):
@@ -812,29 +886,6 @@ def eval_batches(seed: int, n: int, b: int, res: int = 224) -> list:
     return out
 
 
-def tile_loads(verts_px, faces, s: int):
-    """What each 16x16 tile of an S x S raster meets, recomputed from
-    `band_setup` and `face_boxes`: ((B, tiles) faces whose box meets the
-    tile, the work of its block in either entry; (B, tiles) the banded
-    kernel's 256-face chunks whose extent meets it; the number of chunks)."""
-    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
-
-    b, n_faces = verts_px.shape[0], faces.shape[0]
-    order = R.band_setup(verts_px, faces, s, 224.0)
-    tri = torch.gather(verts_px[:, faces, :], 1, order[:, :, None, None].expand(b, n_faces, 3, 3))
-    box = R.face_boxes(tri[..., :2] * (s / 224.0), tri[..., 2])
-    t0 = torch.arange(0, s, 16, device=verts_px.device, dtype=torch.float32)
-    x0, y0 = t0[None, None, :, None], t0[None, :, None, None]
-
-    def meet(e):                                                      # (B, N, 4) -> (B, tiles)
-        e = e[:, None, None]
-        hit = (e[..., 1] >= x0) & (e[..., 0] <= x0 + 16) & (e[..., 3] >= y0) & (e[..., 2] <= y0 + 16)
-        return hit.sum(-1).reshape(b, -1)
-
-    ext = R.chunk_extents(box, 256)
-    return meet(box), meet(ext), ext.shape[1]
-
-
 def phase8_eval(dev, card) -> dict:
     from danet_densepose2smpl_tpu_torch.config import Config
     from danet_densepose2smpl_tpu_torch.constants import H36M_TO_J14, J24_TO_J14
@@ -897,28 +948,26 @@ def phase8_eval(dev, card) -> dict:
             check(frac <= PIXELS_OFF_MAX, f"K3 {mesh} {what}: {frac} of the pixels differ from the plain version")
             check(torch.equal(got, flat), f"K3 {mesh} {what}: not bit-equal to the rasterize_flat kernel")
             check(cover > 0.02 and empty == 0, f"K3 {mesh} {what}: foreground {cover}, {empty} empty images")
-        loads, visits, n_chunks = tile_loads(vpx, faces, s)
-        busy = loads[loads > 0].float()
-        q = torch.quantile(busy, torch.tensor([0.5, 0.99], device=busy.device)).tolist()
-        print(f"phase 8: (a) {mesh}: faces whose box meets a 16x16 tile, over the {busy.numel()} of {loads.numel()} "
-              f"tiles that meet any: median {q[0]!r}, p99 {q[1]!r}, max {int(loads.max())}, mean "
-              f"{busy.mean().item()!r}; (pixel, face) candidates {int(loads.sum()) * 256}; chunks of 256 faces "
-              f"a tile visits in the banded kernel, of {n_chunks}: mean {visits.float().mean().item()!r} "
-              f"({visits[visits > 0].float().mean().item()!r} over the tiles that visit any), max "
-              f"{int(visits.max())}; tiles that visit none {(visits == 0).float().mean().item()!r}")
+        _, pairs = R._launch(vpx, faces, tex, s, 224.0, with_pairs=True)
+        pairs = int(pairs.item())
+        mirror, stats = pair_stats(vpx, faces, s)
+        exact = exact_box_pairs(vpx, faces, s)
+        print(f"phase 8: (a) {mesh}, B={EVAL_BATCH}: pairs the kernel enumerated {pairs} (pixel_spans: {mirror}), "
+              f"in the exact boxes (raster_bound) {exact}: {pairs / max(exact, 1)!r}x; {stats}")
+        check(pairs == mirror, f"K3 {mesh}: the kernel's pairs {pairs} != pixel_spans' {mirror}")
+        check(pairs >= exact, f"K3 {mesh}: {pairs} pairs enumerated < {exact} in the exact boxes")
 
-        # (b) times at B=16 fp32, in turns; K3's entry split into its sort
-        # (`band_setup`) and its two kernels on that order
-        order = R.band_setup(vpx, faces, s)
+        # (b) times at B=16 fp32, in turns: the entry (the pair kernel), the
+        # rasterize_flat entry, and the tile kernel (fp64's route, the pair
+        # kernel's yardstick)
         calls = {
             "K3": lambda: R.rasterize_flat_banded(vpx, faces, tex, s),
             "rasterize_flat": lambda: R.rasterize_flat(vpx, faces, tex, s),
-            "K3 sort": lambda: R.band_setup(vpx, faces, s),
-            "K3 kernels": lambda: R._launch(vpx, faces, tex, s, 224.0, order=order),
+            "tiles": lambda: R._launch(vpx, faces, tex, s, 224.0, route="tiles"),
         }
+        check(torch.equal(calls["tiles"](), calls["K3"]()), f"K3 {mesh}: the tile kernel differs from the entry")
         t = {k: [] for k in (*calls, "plain")}
-        for turn in ("K3", "rasterize_flat", "K3 sort", "K3 kernels", "K3", "plain", "rasterize_flat",
-                     "K3 kernels", "K3 sort", "plain"):
+        for turn in ("K3", "rasterize_flat", "tiles", "plain", "K3", "rasterize_flat", "tiles", "plain"):
             if turn == "plain":
                 t[turn].append(cuda_ms(lambda: R.rasterize_flat_banded_plain(vpx, faces, tex, s, 224.0, 256), 1))
             else:
@@ -928,10 +977,10 @@ def phase8_eval(dev, card) -> dict:
             print(f"phase 8: (b) {mesh}, {name}: device time per call by kernel (torch.profiler, 10 calls): "
                   f"{device_ms_by_kernel(calls[name], 10)}")
         bnd = raster_bound(vpx, faces, tex, s)
-        print(f"phase 8: (b) {mesh}, B={EVAL_BATCH} S={s} fp32: K3 {t['K3']} ms (its sort {t['K3 sort']}, its "
-              f"kernels {t['K3 kernels']}), rasterize_flat kernel {t['rasterize_flat']} ms, plain (chunk 256) "
-              f"{t['plain']} ms (CUDA events, mean of 20 / 1 after a warm-up, in turns); bound {bnd!r} (ms, by); "
-              f"library call: none; card {card}")
+        print(f"phase 8: (b) {mesh}, B={EVAL_BATCH} S={s} fp32: K3 {t['K3']} ms; "
+              f"rasterize_flat {t['rasterize_flat']} ms; "
+              f"tile kernel {t['tiles']} ms; plain (chunk 256) {t['plain']} ms (CUDA events, mean of 20 / 1 after a "
+              f"warm-up, in turns); bound {bnd!r} (ms, by); library call: none; card {card}")
     vpx, faces, tex = meshes["synthetic SMPL"]
     bound_ms, bound_by = raster_bound(vpx, faces, tex, s)
     t = times["synthetic SMPL"]
@@ -957,16 +1006,21 @@ def phase8_eval(dev, card) -> dict:
     img0 = R.rasterize_flat_banded(vpx0, faces_s, tex_s, s)
     check(torch.equal(img0, R.rasterize_flat(vpx0, faces_s, tex_s, s)),
           "K3 on the eval's predicted bodies: not bit-equal to the rasterize_flat kernel")
-    own = {"K3": [], "rasterize_flat": []}
-    for name in ("K3", "rasterize_flat", "rasterize_flat", "K3"):
-        entry = R.rasterize_flat_banded if name == "K3" else R.rasterize_flat
-        own[name].append(cuda_ms(lambda: entry(vpx0, faces_s, tex_s, s), 20))
-    loads, visits, _ = tile_loads(vpx0, faces_s, s)
+    check(torch.equal(img0, R._launch(vpx0, faces_s, tex_s, s, 224.0, route="tiles")),
+          "K3 on the eval's predicted bodies: the pair kernel and the tile kernel differ")
+    own_calls = {"K3": lambda: R.rasterize_flat_banded(vpx0, faces_s, tex_s, s),
+                 "rasterize_flat": lambda: R.rasterize_flat(vpx0, faces_s, tex_s, s),
+                 "tiles": lambda: R._launch(vpx0, faces_s, tex_s, s, 224.0, route="tiles")}
+    own = {name: [] for name in own_calls}
+    for name in ("K3", "rasterize_flat", "tiles", "tiles", "rasterize_flat", "K3"):
+        own[name].append(cuda_ms(own_calls[name], 20))
+    _, pairs = R._launch(vpx0, faces_s, tex_s, s, 224.0, with_pairs=True)
+    _, stats = pair_stats(vpx0, faces_s, s)
     print(f"phase 8: (c) the eval's render of batch 0's predicted bodies, B={EVAL_BATCH} S={s}: K3 {own['K3']} ms, "
-          f"rasterize_flat kernel {own['rasterize_flat']} ms (CUDA events, mean of 20, in turns); foreground "
-          f"{(img0[..., 0] > 0).float().mean().item()!r}; tiles that meet a face {(loads > 0).float().mean().item()!r}, "
-          f"faces a non-empty tile meets: median {loads[loads > 0].float().median().item()!r}, max "
-          f"{int(loads.max())}; chunks it visits: mean {visits[visits > 0].float().mean().item()!r}; card {card}")
+          f"rasterize_flat {own['rasterize_flat']} ms, tile kernel {own['tiles']} ms (CUDA events, mean of 20, in "
+          f"turns); bound {raster_bound(vpx0, faces_s, tex_s, s)!r} (ms, by); foreground "
+          f"{(img0[..., 0] > 0).float().mean().item()!r}; pairs enumerated {int(pairs.item())}, in the exact boxes "
+          f"{exact_box_pairs(vpx0, faces_s, s)}; {stats}; card {card}")
     expected = {  # one K1 launch a batch; one raster launch for the prediction and one for the GT fallback
         "pallas_banded": {"part_crop_head": EVAL_BATCHES, "rasterize_flat_banded": 2 * EVAL_BATCHES,
                           "rasterize_flat": 0},

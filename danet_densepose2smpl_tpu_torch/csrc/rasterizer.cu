@@ -2,7 +2,7 @@
 // Hopper (sm_90a). Built by kernels/build.py with nvcc into a shared library
 // with a plain C interface; the wrapper is kernels/rasterizer.py.
 //
-// Replaces, with one pair of kernels, four functions of the JAX package:
+// Replaces, with one set of kernels, four functions of the JAX package:
 //   kernels/rasterizer_pallas.py::rasterize_flat_pallas            (K2, TPU)
 //   kernels/rasterizer_pallas.py::rasterize_flat_pallas_banded     (K3, TPU;
 //                                       the entry rasterize_flat_banded)
@@ -17,66 +17,80 @@
 // fma(b2, z2, fma(b0, z0, b1 * z1))); fp64 leaves them unfused, as the
 // plain version must.
 //
-// What bounds it on the H100. The TPU kernels hold one image's whole face
-// table in VMEM and test every pixel against every face with matmuls. Here
-// that would be B * S^2 * F = 128 * 3136 * 13776 = 5.5e9 edge-function
-// triples per training batch, all on CUDA cores: instruction issue, not
-// memory, is the bound (the face table is 0.9 MB per image and the output
-// 38 KB). The design cuts the work instead of feeding it faster:
-//   1. face_setup, one thread per (image, face): gathers the three corners,
-//      scales them to out-map units, computes the edge vectors and signed
-//      area once, and writes a 16-value record plus a float4 bounding box
-//      (widened by a pixel; an empty box for an invalid or skipped face).
-//   2. raster, one block per (16x16-pixel tile, image), one pixel a thread,
-//      (zbest, rank) in registers. Faces stream through shared memory
-//      in chunks of 256 in ascending face id; each thread tests one face's
-//      box against the tile, and a warp ballot plus a block prefix sum
-//      compacts the survivors in order. Only those reach the per-pixel edge
-//      functions: at 56x56 a tile sees about a tenth of the mesh.
-//   3. The update keeps the least (z, rank): rank is the face id, plus F for
-//      faces whose code has bit 1 set, so an equal z keeps the lower id
-//      (rasterize_flat's first-index argmin within a chunk plus strict-less
-//      across chunks), and a marked face loses every tie to an unmarked one
-//      (the order of rasterize_flat_culled's compacted prefix, where the
-//      dead filler faces follow the live ones). One texture fetch at the end.
-// Nothing carries between blocks; a block re-reads the face records of its
-// image from L2. Tensor-core edge functions are later work.
+// What bounds it on the H100. The TPU kernels test every pixel against every
+// face with matmuls. The work that is needed is smaller: a (pixel centre,
+// face) pair can only pass the inside test when the centre lies in the
+// face's bounding box, and those pairs are what chip_smoke.py::raster_bound
+// counts (26 fp32 operations each). At 224 px a body-sized soup has ~4e7 of
+// them per image, a closed mesh ~1e5; the bytes (vertices in, the image
+// out) take microseconds. So the bound is instruction issue on those pairs,
+// and the design makes them the unit of work, spread evenly over the SMs
+// whatever the faces' sizes (fp32, the route of every entry):
+//   1. face_setup, one thread per (image, face slot): gathers the corners,
+//      scales them to out-map units, and writes the face's pixel-centre span
+//      (the columns and rows j with j + 0.5 inside its box, widened by a
+//      pixel and clamped to the image; empty for an invalid or skipped
+//      face), its rank and its pair count.
+//   2. scan_counts, over each image's counts and then over the image
+//      totals, gives every slot its int64 offset and the number of pairs,
+//      on the card: the wrapper never reads a size back.
+//   3. raster_pairs, a persistent grid of a few blocks per SM: each block
+//      takes `budget` consecutive pairs at a time (grid stride, the total
+//      read on the card), finds the slots of its first and last pair with a
+//      32-way search of one warp, and stages their offsets in shared
+//      memory. Each warp walks a contiguous share, its lanes on neighbouring
+//      pairs, so they mostly shade neighbouring pixels of one face and agree
+//      on the inside test. Pair q of a face is pixel (x0 + q mod w, y0 + q
+//      div w); a lane rebuilds the face's edge vectors, depths and signed
+//      area from the vertices once per face, steps its pixel 32 pairs at a
+//      time, evaluates the inside test and the depth, and for 1e-6 < z < 1e9
+//      sends key = (bits of z) << 32 | rank to a 64-bit atomicMin (a
+//      fire-and-forget RED). Positive finite floats order as their bits, so
+//      the least key is the least (z, rank). Reading the pixel's key first,
+//      to skip atomics that cannot win, measured slower: the read waits on
+//      L2, the RED does not.
+//   4. resolve, one thread per pixel: the background for the empty key, else
+//      the texture of the face the rank names.
+// rank is the face id, plus F for faces whose code has bit 1 set, so an
+// equal z keeps the lower id (rasterize_flat's first-index argmin within a
+// chunk plus strict-less across chunks), and a marked face loses every tie
+// to an unmarked one (the order of rasterize_flat_culled's compacted prefix,
+// where the dead filler faces follow the live ones). The order in which the
+// faces are walked changes no output, so K3's entry walks them in id order
+// too (with K3's y-order it measured no faster). The span keeps the box's
+// one-pixel margin, so it holds every pixel the fp32 inside test can
+// accept; the kernel therefore
+// enumerates somewhat more pairs than raster_bound's exact boxes
+// (chip_smoke.py prints both). Per pair the kernel issues ~70 instructions
+// (three IEEE divisions are ~30 of them), not the bound's 26 operations, so
+// on large faces it is bound by instruction issue at a few times the bound.
 //
-// The banded entry (K3's design, for the 224x224 LSP render). Its bound is
-// instruction issue too: a B=16 batch reads ~1.6 MB of inputs and writes
-// 6.4 MB, microseconds at 3.35 TB/s. At S=224 an image has 196 tiles, and
-// streaming every face's box through every tile is 196 * 13,776 = 2.7M box
-// tests per image, in 54 rounds of loads, ballots and barriers per tile,
-// for the few faces that meet the tile. K3 sorts the faces by the y of their centre so that
-// each chunk of faces lies in a narrow band of rows, and skips the (band,
-// chunk) pairs that do not touch. Here the wrapper sorts (a stable argsort,
-// as K3 sorts in XLA before its pallas_call) and hands the order in:
-//   1. face_setup writes face order[b, i] into slot i, and each of its
-//      256-thread blocks, one per 256-face chunk, reduces the chunk's boxes
-//      into one extent (empty boxes of invalid faces do not widen it; a
-//      chunk with no valid face keeps the empty extent);
-//   2. raster<T, true> reads the chunk's extent before anything else and
-//      skips the chunk, in every thread at once, when it misses the tile;
-//      the chunks it keeps run as above, ranked by the original face id, so
-//      the visiting order cannot change the least (z, id) and the output
-//      is rasterize_flat's bit for bit. K3's one-hot texture matmul and its
-//      sequential (band, chunk) grid were for the TPU and are not carried.
-// Measured on the H100 (PERF.md, chip_smoke.py phase 8), the skipped rounds
-// were not where the time went: a 224x224 tile that meets a few hundred to
-// ~2,000 faces tests each at all 256 of its pixels, one block in series, and
-// the banded raster takes the time of the unbanded one. Spreading a heavy
-// tile's faces over more threads is the next step.
+// fp64 (the tests and the f64 training step) runs the tile kernel,
+// raster_tiles: one block per (16x16 tile, image) streams the face records
+// through shared memory in id order, compacts those whose box meets the
+// tile, and keeps (z, rank) per pixel in registers. A 64-bit key cannot hold
+// an fp64 depth and a rank, and a two-pass atomic (depth bits, then rank)
+// would add a second pass for a dtype that no timed path uses. The tile
+// kernel also stays callable in fp32 (route 1), as the yardstick of the pair
+// kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kSetupThreads = 256;
 constexpr int kTile = 16;
-constexpr int kThreads = kTile * kTile;   // one pixel a thread
-constexpr int kChunk = kThreads;          // faces staged per round, one a thread
-constexpr int kWarps = kThreads / 32;
-constexpr float kEmpty = 1e30f;           // the empty box is (kEmpty, -kEmpty, kEmpty, -kEmpty)
+constexpr int kTileThreads = kTile * kTile;   // one pixel a thread
+constexpr int kChunk = kTileThreads;          // faces staged per round, one a thread
+constexpr int kWarps = kTileThreads / 32;
+constexpr int kScanThreads = 1024;
+constexpr int kPairThreads = 256;
+constexpr int kMinBudget = 4096;              // the fewest consecutive pairs a block takes at a time
+constexpr int kRoundsPerBlock = 16;           // the pairs are cut into about this many budgets per block
+constexpr int kWindow = 2048;                 // face offsets staged in shared memory at a time
+constexpr float kEmpty = 1e30f;               // the empty box is (kEmpty, -kEmpty, kEmpty, -kEmpty)
+constexpr unsigned long long kEmptyKey = ~0ull;
 
 // Corner k's edge function is w_k = ex[k] * (py - ay[k]) - ey[k] * (px - ax[k])
 // with a = v[(k+1)%3], e = v[(k+2)%3] - a: w0 = edge(v1, v2), w1 = edge(v2, v0),
@@ -97,84 +111,291 @@ __device__ __forceinline__ double madd(double a, double b, double c) {
   return __dadd_rn(__dmul_rn(a, b), c);
 }
 
-// One block per (chunk of kChunk slots, image), one slot a thread. Slot i of
-// image b holds face order[b, i], or face i when order is null. With a
-// non-null `extent` the block also writes the union of its boxes.
+// The least depth of the face at pixel centre (px, py), or 0 when the centre
+// is outside the face (0 fails the caller's z > 1e-6 test).
 template <typename T>
-__global__ void __launch_bounds__(kChunk)
-face_setup(const T* __restrict__ verts, const int* __restrict__ faces, const int* __restrict__ order,
-           const uint8_t* __restrict__ skip, int V, int F, T scale, FaceRecord<T>* __restrict__ rec,
-           float4* __restrict__ box, float4* __restrict__ extent) {
-  const int b = blockIdx.y;
-  const int slot = blockIdx.x * kChunk + threadIdx.x;
-  const long long i = (long long)b * F + slot;
-  float4 bx = make_float4(kEmpty, -kEmpty, kEmpty, -kEmpty);   // (xmin, xmax, ymin, ymax)
-  if (slot < F) {
-    const int f = order != nullptr ? order[i] : slot;
-    const T* vb = verts + (long long)b * V * 3;
-    T x[3], y[3], z[3];
+__device__ __forceinline__ T face_depth(const FaceRecord<T>& r, T px, T py) {
+  const T w0 = madd(r.ex[0], py - r.ay[0], -(r.ey[0] * (px - r.ax[0])));
+  const T w1 = madd(r.ex[1], py - r.ay[1], -(r.ey[1] * (px - r.ax[1])));
+  const T w2 = madd(r.ex[2], py - r.ay[2], -(r.ey[2] * (px - r.ax[2])));
+  const T sgn = r.area > T(0) ? T(1) : (r.area < T(0) ? T(-1) : T(0));
+  if (!(w0 * sgn >= T(0) && w1 * sgn >= T(0) && w2 * sgn >= T(0))) return T(0);
+  const T b0 = w0 / r.area, b1 = w1 / r.area, b2 = w2 / r.area;
+  return madd(b2, r.z[2], madd(b0, r.z[0], b1 * r.z[1]));
+}
+
+// fp32 records are 64 bytes: four 16-byte stores (the struct's alignment
+// alone would give sixteen 4-byte ones)
+__device__ __forceinline__ void store_record(FaceRecord<float>* p, const FaceRecord<float>& r) {
+  float4* q = reinterpret_cast<float4*>(p);
+  q[0] = make_float4(r.ax[0], r.ax[1], r.ax[2], r.ay[0]);
+  q[1] = make_float4(r.ay[1], r.ay[2], r.ex[0], r.ex[1]);
+  q[2] = make_float4(r.ex[2], r.ey[0], r.ey[1], r.ey[2]);
+  q[3] = make_float4(r.z[0], r.z[1], r.z[2], r.area);
+}
+__device__ __forceinline__ void store_record(FaceRecord<double>* p, const FaceRecord<double>& r) { *p = r; }
+
+// Face f's corners in image b, in out-map units (x, y) and depth (z).
+template <typename T>
+__device__ __forceinline__ void gather_face(const T* __restrict__ verts, const int* __restrict__ faces, int V, int b,
+                                            int f, T scale, T* x, T* y, T* z) {
+  const T* vb = verts + (long long)b * V * 3;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const int vi = faces[f * 3 + k];
-      x[k] = vb[vi * 3 + 0] * scale;
-      y[k] = vb[vi * 3 + 1] * scale;
-      z[k] = vb[vi * 3 + 2];
-    }
-    const T area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0]);
-    const bool valid = absval(area) > T(1e-12) && z[0] > T(0) && z[1] > T(0) && z[2] > T(0) &&
-                       !(skip != nullptr && (skip[(long long)b * F + f] & 1));
-    FaceRecord<T> r;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const int a = (k + 1) % 3, c = (k + 2) % 3;
-      r.ax[k] = x[a];
-      r.ay[k] = y[a];
-      r.ex[k] = x[c] - x[a];
-      r.ey[k] = y[c] - y[a];
-      r.z[k] = z[k];
-    }
-    r.area = area;
-    rec[i] = r;
-    if (valid) {
-      bx.x = (float)fmin(fmin((double)x[0], (double)x[1]), (double)x[2]) - 1.0f;
-      bx.y = (float)fmax(fmax((double)x[0], (double)x[1]), (double)x[2]) + 1.0f;
-      bx.z = (float)fmin(fmin((double)y[0], (double)y[1]), (double)y[2]) - 1.0f;
-      bx.w = (float)fmax(fmax((double)y[0], (double)y[1]), (double)y[2]) + 1.0f;
-    }
-    box[i] = bx;
+  for (int k = 0; k < 3; ++k) {
+    const int vi = faces[f * 3 + k];
+    x[k] = vb[vi * 3 + 0] * scale;
+    y[k] = vb[vi * 3 + 1] * scale;
+    z[k] = vb[vi * 3 + 2];
   }
-  if (extent != nullptr) {   // the same branch in every thread of the grid
-    __shared__ float4 wbox[kWarps];
+}
+
+template <typename T>
+__device__ __forceinline__ FaceRecord<T> make_record(const T* x, const T* y, const T* z) {
+  FaceRecord<T> r;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      bx.x = fminf(bx.x, __shfl_xor_sync(0xffffffffu, bx.x, o));
-      bx.y = fmaxf(bx.y, __shfl_xor_sync(0xffffffffu, bx.y, o));
-      bx.z = fminf(bx.z, __shfl_xor_sync(0xffffffffu, bx.z, o));
-      bx.w = fmaxf(bx.w, __shfl_xor_sync(0xffffffffu, bx.w, o));
+  for (int k = 0; k < 3; ++k) {
+    const int a = (k + 1) % 3, c = (k + 2) % 3;
+    r.ax[k] = x[a];
+    r.ay[k] = y[a];
+    r.ex[k] = x[c] - x[a];
+    r.ey[k] = y[c] - y[a];
+    r.z[k] = z[k];
+  }
+  r.area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0]);
+  return r;
+}
+
+// One block per (kSetupThreads faces, image), one face a thread. The tile
+// route gets the record and the float4 box; the pair route the span, rank
+// and pair count (its kernel rebuilds a record from the vertices, which
+// costs less than writing 64 bytes a face and reading them back).
+template <typename T>
+__global__ void __launch_bounds__(kSetupThreads)
+face_setup(const T* __restrict__ verts, const int* __restrict__ faces, const uint8_t* __restrict__ skip, int V,
+           int F, int S, T scale, FaceRecord<T>* __restrict__ rec, float4* __restrict__ box,
+           int4* __restrict__ span, long long* __restrict__ count) {
+  const int b = blockIdx.y;
+  const int f = blockIdx.x * kSetupThreads + threadIdx.x;
+  if (f >= F) return;
+  const long long i = (long long)b * F + f;
+  T x[3], y[3], z[3];
+  gather_face(verts, faces, V, b, f, scale, x, y, z);
+  const FaceRecord<T> r = make_record(x, y, z);
+  const T area = r.area;
+  const int code = skip != nullptr ? skip[i] : 0;
+  const bool valid = absval(area) > T(1e-12) && z[0] > T(0) && z[1] > T(0) && z[2] > T(0) && !(code & 1);
+  if (rec != nullptr) store_record(rec + i, r);
+  float4 bx = make_float4(kEmpty, -kEmpty, kEmpty, -kEmpty);   // (xmin, xmax, ymin, ymax)
+  if (valid) {
+    bx.x = (float)fmin(fmin((double)x[0], (double)x[1]), (double)x[2]) - 1.0f;
+    bx.y = (float)fmax(fmax((double)x[0], (double)x[1]), (double)x[2]) + 1.0f;
+    bx.z = (float)fmin(fmin((double)y[0], (double)y[1]), (double)y[2]) - 1.0f;
+    bx.w = (float)fmax(fmax((double)y[0], (double)y[1]), (double)y[2]) + 1.0f;
+  }
+  if (box != nullptr) box[i] = bx;
+  if (span != nullptr) {
+    // centres j + 0.5 in [lo, hi]: j from ceil(lo - 0.5) to floor(hi - 0.5),
+    // clamped to [0, S) (kernels/rasterizer.py::pixel_spans mirrors this)
+    const float fs = (float)S;
+    const int x0 = (int)fminf(fmaxf(ceilf(bx.x - 0.5f), 0.0f), fs);
+    const int x1 = (int)fminf(fmaxf(floorf(bx.y - 0.5f) + 1.0f, 0.0f), fs);
+    const int y0 = (int)fminf(fmaxf(ceilf(bx.z - 0.5f), 0.0f), fs);
+    const int y1 = (int)fminf(fmaxf(floorf(bx.w - 0.5f) + 1.0f, 0.0f), fs);
+    const int w = max(x1 - x0, 0), h = max(y1 - y0, 0);
+    const int dr = w > 0 ? 32 / w : 0, dc = w > 0 ? 32 % w : 0;
+    const int rank = (code & 2) ? f + F : f;
+    // (x0 | y0 << 16, w | (32 / w) << 16 | (32 % w) << 24, rank, the z-buffer
+    // index of pixel (y0, x0)); S < 2^15 and (B+1)*S*S < 2^31
+    span[i] = make_int4(x0 | y0 << 16, w | dr << 16 | dc << 24, rank, (b * S + y0) * S + x0);
+    count[i] = (long long)w * h;
+  }
+}
+
+// One block per row of `off` (F values each): the row becomes its exclusive
+// prefix sum, in place, in rounds of kScanThreads, and its sum goes to
+// totals[row]. Run over the (B, F) pair counts, then over the B image
+// totals (with totals + B): the offset of slot k is then
+// totals[k / F] + off[k], and totals[B] the number of pairs.
+__global__ void __launch_bounds__(kScanThreads)
+scan_counts(long long* __restrict__ off, int F, long long* __restrict__ totals) {
+  __shared__ long long wsum[kScanThreads / 32];
+  long long* o = off + (long long)blockIdx.x * F;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  long long carry = 0;
+  for (int base = 0; base < F; base += kScanThreads) {
+    const int i = base + threadIdx.x;
+    const long long v = i < F ? o[i] : 0;
+    long long x = v;   // inclusive scan within the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
     }
-    if (threadIdx.x % 32 == 0) wbox[threadIdx.x / 32] = bx;
+    if (lane == 31) wsum[warp] = x;
     __syncthreads();
-    if (threadIdx.x == 0) {
-      float4 u = wbox[0];
-      for (int w = 1; w < kWarps; ++w) {
-        u.x = fminf(u.x, wbox[w].x);
-        u.y = fmaxf(u.y, wbox[w].y);
-        u.z = fminf(u.z, wbox[w].z);
-        u.w = fmaxf(u.w, wbox[w].w);
+    long long before = carry, round = 0;
+#pragma unroll 4
+    for (int w = 0; w < kScanThreads / 32; ++w) {
+      const long long s = wsum[w];
+      before += w < warp ? s : 0;
+      round += s;
+    }
+    if (i < F) o[i] = before + x - v;
+    __syncthreads();   // wsum is rewritten by the next round
+    carry += round;
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+}
+
+// The pairs p, p + 32, ... below `end` of one lane (the lanes of a warp
+// take neighbouring pairs, so they shade neighbouring pixels of one face and
+// mostly agree on the inside test). The slots k + j of the window have their
+// offsets staged in soff[0..n] (soff[n] lies past `end`). A lane loads a
+// face's record and span, and divides its pair index by the span's width,
+// once per face; within the face it steps its pixel by 32 pairs (pixel
+// centres stay exact: integers plus 0.5 below 2^23).
+__device__ __forceinline__ void walk_pairs(const float* __restrict__ verts, const int* __restrict__ faces, int V,
+                                           float scale, const int4* __restrict__ span, const long long* soff, int k,
+                                           int n, long long p, long long end, int F, int S,
+                                           unsigned long long* __restrict__ zbuf) {
+  if (p >= end) return;
+  int j = 0, hi = n - 1;   // the last staged slot whose offset is <= p
+  while (j < hi) {
+    const int mid = (j + hi + 1) / 2;
+    if (soff[mid] <= p) j = mid; else hi = mid - 1;
+  }
+  while (true) {
+    const int slot = k + j;
+    const int4 sp = __ldg(span + slot);   // see face_setup for the packing
+    float x[3], y[3], z[3];
+    gather_face(verts, faces, V, slot / F, sp.z >= F ? sp.z - F : sp.z, scale, x, y, z);
+    const FaceRecord<float> r = make_record(x, y, z);
+    const int x0 = sp.x & 0xffff, y0 = sp.x >> 16, w = sp.y & 0xffff;
+    const int dr = (sp.y >> 16) & 0xff, dc = sp.y >> 24;   // the step of 32 pairs: dr rows, dc columns
+    const int q = (int)(p - soff[j]);
+    int dy = __float2int_rz(__fdividef((float)q, (float)w));   // q / w, off by at most one
+    if (dy * w > q) --dy; else if ((dy + 1) * w <= q) ++dy;
+    const int dx = q - dy * w, x_end = x0 + w, step = dr * S + dc;
+    int col = x0 + dx, pix = sp.w + dy * S + dx;
+    float px = float(col) + 0.5f, py = float(y0 + dy) + 0.5f;
+    const int n_mine = (int)((min(soff[j + 1], end) - p + 31) / 32);   // this lane's pairs of the face
+    p += 32LL * n_mine;
+    for (int i = 0; i < n_mine; ++i) {
+      const float zpix = face_depth(r, px, py);
+      if (zpix > 1e-6f && zpix < 1e9f)
+        atomicMin(zbuf + pix, ((unsigned long long)__float_as_uint(zpix) << 32) | (unsigned)sp.z);
+      col += dc;
+      px += float(dc);
+      py += float(dr);
+      pix += step;
+      if (col >= x_end) {
+        col -= w;
+        px -= float(w);
+        py += 1.0f;
+        pix += S - w;
       }
-      extent[(long long)b * gridDim.x + blockIdx.x] = u;
+    }
+    if (p >= end) return;
+    do ++j; while (soff[j + 1] <= p);   // the face of pair p
+  }
+}
+
+// One step of a 32-way search of a warp for the last slot whose offset is
+// <= p, kept in [lo, hi): off[lo] <= p, and off[hi] > p where hi < n_slots.
+__device__ __forceinline__ long long slot_offset(const long long* __restrict__ off,
+                                                 const long long* __restrict__ totals, int F, int k) {
+  return totals[k / F] + off[k];
+}
+
+__device__ __forceinline__ void search_step(const long long* __restrict__ off, const long long* __restrict__ totals,
+                                            int F, long long p, int lane, int& lo, int& hi) {
+  if (hi - lo <= 1) return;   // warp-uniform
+  const int stride = (hi - lo + 31) / 32;
+  const int idx = lo + lane * stride;
+  const unsigned le = __ballot_sync(0xffffffffu, idx < hi && slot_offset(off, totals, F, idx) <= p);
+  lo += (31 - __clz(le)) * stride;   // lane 0 probes lo itself
+  hi = min(hi, lo + stride);
+}
+
+// The persistent grid over all pairs (slot offsets as scan_counts leaves
+// them). A block takes `budget` consecutive
+// pairs at a time: warp 0 finds the slots of its first and last pair, the
+// block stages their offsets in shared memory (in windows of kWindow
+// slots), and each warp walks a contiguous share of the pairs.
+__global__ void __launch_bounds__(kPairThreads)
+raster_pairs(const float* __restrict__ verts, const int* __restrict__ faces, int V, float scale,
+             const int4* __restrict__ span, const long long* __restrict__ off, const long long* __restrict__ totals,
+             int B, int F, int S, unsigned long long* __restrict__ zbuf) {
+  __shared__ long long soff[kWindow + 1];
+  __shared__ int sfirst, slast;
+  const int n_slots = B * F;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long total = totals[B];
+  // about kRoundsPerBlock budgets a block: more keep the blocks equally busy,
+  // fewer wait less on the searches
+  const long long budget = max((long long)kMinBudget, (total + (long long)gridDim.x * kRoundsPerBlock - 1) /
+                                                          ((long long)gridDim.x * kRoundsPerBlock));
+  for (long long p0 = blockIdx.x * budget; p0 < total; p0 += gridDim.x * budget) {
+    const long long p1 = min(p0 + budget, total);
+    if (warp == 0) {
+      int lo0 = 0, hi0 = n_slots, lo1 = 0, hi1 = n_slots;
+      while (hi0 - lo0 > 1 || hi1 - lo1 > 1) {   // both searches in step
+        search_step(off, totals, F, p0, lane, lo0, hi0);
+        search_step(off, totals, F, p1 - 1, lane, lo1, hi1);
+      }
+      if (lane == 0) {
+        sfirst = lo0;
+        slast = lo1;
+      }
+    }
+    __syncthreads();
+    const int last = slast;
+    int k = sfirst;
+    long long q0 = p0;
+    while (q0 < p1) {   // a face with no pairs costs a staged offset
+      const int n = min(kWindow, last + 1 - k);
+      for (int i = threadIdx.x; i <= n; i += kPairThreads)
+        soff[i] = k + i < n_slots ? slot_offset(off, totals, F, k + i) : total;
+      __syncthreads();
+      const long long q1 = min(p1, soff[n]);
+      const long long share = (q1 - q0 + kPairThreads / 32 - 1) / (kPairThreads / 32);
+      const long long start = q0 + warp * share;
+      walk_pairs(verts, faces, V, scale, span, soff, k, n, start + lane, min(start + share, q1), F, S, zbuf);
+      __syncthreads();   // soff, sfirst and slast are rewritten next
+      q0 = q1;
+      k += n;
     }
   }
 }
 
-// kBanded: slots hold faces in `order`, and chunks whose `extent` misses the
-// tile are skipped; otherwise slot f is face f, ranked by its `skip` code.
-template <typename T, bool kBanded>
-__global__ void __launch_bounds__(kThreads)
-raster(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
-       const uint8_t* __restrict__ skip, const int* __restrict__ order,
-       const float4* __restrict__ extent, const T* __restrict__ tex, int F, int S, int C,
-       T* __restrict__ out) {
+// One thread per pixel: the texture of the face its key names, or 0.
+__global__ void __launch_bounds__(256)
+resolve(const unsigned long long* __restrict__ zbuf, const float* __restrict__ tex, int n_pix, int F, int C,
+        float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pix) return;
+  const unsigned long long key = zbuf[i];
+  float* o = out + (long long)i * C;
+  if (key == kEmptyKey) {
+    for (int c = 0; c < C; ++c) o[c] = 0.0f;
+    return;
+  }
+  int rank = (int)(unsigned)key;
+  if (rank >= F) rank -= F;
+  for (int c = 0; c < C; ++c) o[c] = tex[(long long)rank * C + c];
+}
+
+// The tile kernel (fp64's route, and fp32's yardstick): one block per
+// (16x16-pixel tile, image), one pixel a thread, (zbest, rank) in registers.
+// Faces stream through shared memory in chunks of 256 slots; each thread
+// tests one face's box against the tile, and a warp ballot plus a block
+// prefix sum compacts the survivors in order. Face f is ranked by its `skip`
+// code.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+raster_tiles(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
+             const uint8_t* __restrict__ skip, const T* __restrict__ tex, int F, int S, int C,
+             T* __restrict__ out) {
   __shared__ FaceRecord<T> srec[kChunk];
   __shared__ int sid[kChunk];
   __shared__ int wcount[kWarps];
@@ -193,12 +414,7 @@ raster(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
 
   T zbest = T(1e9);
   int best = -1;   // rank of the nearest face so far
-  const long long cbase = (long long)b * ((F + kChunk - 1) / kChunk);
-  for (int base = 0, chunk = 0; base < F; base += kChunk, ++chunk) {
-    if (kBanded) {   // one value for the whole block: every thread skips alike
-      const float4 e = extent[cbase + chunk];
-      if (!(e.y >= xlo && e.x <= xhi && e.w >= ylo && e.z <= yhi)) continue;
-    }
+  for (int base = 0; base < F; base += kChunk) {
     const int f = base + threadIdx.x;
     bool hit = false;
     if (f < F) {
@@ -218,18 +434,11 @@ raster(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
     if (hit) {
       const int pos = off + __popc(m & ((1u << lane) - 1u));
       srec[pos] = rec[fbase + f];
-      sid[pos] = kBanded ? order[fbase + f] : (skip != nullptr && (skip[fbase + f] & 2)) ? f + F : f;
+      sid[pos] = (skip != nullptr && (skip[fbase + f] & 2)) ? f + F : f;
     }
     __syncthreads();
     for (int i = 0; i < total; ++i) {
-      const FaceRecord<T>& r = srec[i];
-      const T w0 = madd(r.ex[0], py - r.ay[0], -(r.ey[0] * (px - r.ax[0])));
-      const T w1 = madd(r.ex[1], py - r.ay[1], -(r.ey[1] * (px - r.ax[1])));
-      const T w2 = madd(r.ex[2], py - r.ay[2], -(r.ey[2] * (px - r.ax[2])));
-      const T sgn = r.area > T(0) ? T(1) : (r.area < T(0) ? T(-1) : T(0));
-      if (!(w0 * sgn >= T(0) && w1 * sgn >= T(0) && w2 * sgn >= T(0))) continue;
-      const T b0 = w0 / r.area, b1 = w1 / r.area, b2 = w2 / r.area;
-      const T zpix = madd(b2, r.z[2], madd(b0, r.z[0], b1 * r.z[1]));
+      const T zpix = face_depth(srec[i], px, py);
       const int rank = sid[i];
       if (zpix > T(1e-6) && (zpix < zbest || (zpix == zbest && best >= 0 && rank < best))) {
         zbest = zpix;
@@ -245,65 +454,82 @@ raster(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
   }
 }
 
+#define RETURN_IF_FAILED()                          \
+  do {                                              \
+    const cudaError_t e = cudaGetLastError();       \
+    if (e != cudaSuccess) return (int)e;            \
+  } while (0)
+
 template <typename T>
-int launch(const void* verts, const int* faces, const void* tex, const uint8_t* skip, const int* order,
-           int B, int V, int F, int S, int C, double scale, void* rec, void* box, void* extent, void* out,
-           cudaStream_t stream) {
-  const dim3 setup_grid((F + kChunk - 1) / kChunk, B);
-  face_setup<T><<<setup_grid, kChunk, 0, stream>>>(
-      static_cast<const T*>(verts), faces, order, skip, V, F, (T)scale,
-      static_cast<FaceRecord<T>*>(rec), static_cast<float4*>(box), static_cast<float4*>(extent));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+int launch_tiles(const T* verts, const int* faces, const T* tex, const uint8_t* skip, int B, int V, int F, int S,
+                 int C, T scale, FaceRecord<T>* rec, float4* box, T* out, cudaStream_t st) {
+  face_setup<T><<<dim3((F + kSetupThreads - 1) / kSetupThreads, B), kSetupThreads, 0, st>>>(
+      verts, faces, skip, V, F, S, scale, rec, box, nullptr, nullptr);
+  RETURN_IF_FAILED();
   const int tiles = ((S + kTile - 1) / kTile) * ((S + kTile - 1) / kTile);
-  const auto* r = static_cast<const FaceRecord<T>*>(rec);
-  const auto* bx = static_cast<const float4*>(box);
-  if (order != nullptr) {
-    raster<T, true><<<dim3(tiles, B), kThreads, 0, stream>>>(
-        r, bx, nullptr, order, static_cast<const float4*>(extent), static_cast<const T*>(tex), F, S, C,
-        static_cast<T*>(out));
-  } else {
-    raster<T, false><<<dim3(tiles, B), kThreads, 0, stream>>>(
-        r, bx, skip, nullptr, nullptr, static_cast<const T*>(tex), F, S, C, static_cast<T*>(out));
-  }
-  return (int)cudaGetLastError();
+  raster_tiles<T><<<dim3(tiles, B), kTileThreads, 0, st>>>(rec, box, skip, tex, F, S, C, out);
+  RETURN_IF_FAILED();
+  return 0;
+}
+
+int launch_pairs(const float* verts, const int* faces, const float* tex, const uint8_t* skip, int B, int V, int F,
+                 int S, int C, float scale, int4* span, long long* off, long long* totals, unsigned long long* zbuf,
+                 float* out, cudaStream_t st) {
+  const int n_pix = B * S * S;
+  cudaError_t e = cudaMemsetAsync(zbuf, 0xff, (size_t)n_pix * sizeof(unsigned long long), st);   // kEmptyKey
+  if (e != cudaSuccess) return (int)e;
+  const dim3 per_face((F + kSetupThreads - 1) / kSetupThreads, B);
+  face_setup<float><<<per_face, kSetupThreads, 0, st>>>(verts, faces, skip, V, F, S, scale, nullptr, nullptr, span,
+                                                        off);
+  RETURN_IF_FAILED();
+  scan_counts<<<B, kScanThreads, 0, st>>>(off, F, totals);
+  RETURN_IF_FAILED();
+  scan_counts<<<1, kScanThreads, 0, st>>>(totals, B, totals + B);
+  RETURN_IF_FAILED();
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_pairs, kPairThreads, 0)) != cudaSuccess)
+    return (int)e;
+  raster_pairs<<<sms * max(per_sm, 1), kPairThreads, 0, st>>>(verts, faces, V, scale, span, off, totals, B, F, S,
+                                                                 zbuf);
+  RETURN_IF_FAILED();
+  resolve<<<(n_pix + 255) / 256, 256, 0, st>>>(zbuf, tex, n_pix, F, C, out);
+  RETURN_IF_FAILED();
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64. verts (B, V, 3); faces (F, 3) int32;
-// tex (F, C); skip (B, F) uint8 codes or null (bit 0: the face takes no part;
-// bit 1: it loses exact-z ties to every face without bit 1; 2F < 2^31);
-// scale = S / orig_size; rec and box
-// are scratch of B*F*16*sizeof(T) and B*F*16 bytes; out (B, S, S, C).
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
-extern "C" int rasterize_flat(int dtype, const void* verts, const void* faces, const void* tex,
-                              const void* skip, int B, int V, int F, int S, int C, double scale,
-                              void* rec, void* box, void* out, void* stream) {
+// dtype: 0 = float32, 1 = float64. route: 0 = the pair kernel (float32
+// only), 1 = the tile kernel. verts (B, V, 3); faces (F, 3) int32; tex
+// (F, C); skip (B, F) uint8 codes or null (bit 0: the face takes no part;
+// bit 1: it loses exact-z ties to every face without bit 1);
+// scale = S / orig_size; 2F, B*F and (B+1)*S*S < 2^31, S < 2^15. Scratch:
+// slot B*F*16 bytes (a box or a span per face); for route 1 rec, B*F*16
+// values of the dtype; for route 0 off B*F int64, totals B+1 int64
+// (totals[B] = the pairs enumerated) and zbuf B*S*S uint64. out (B, S, S, C). Launches on
+// `stream`, allocates nothing, never synchronizes; returns the first CUDA
+// error, or 0.
+extern "C" int rasterize_flat(int dtype, int route, const void* verts, const void* faces, const void* tex,
+                              const void* skip, int B, int V, int F, int S, int C, double scale, void* rec,
+                              void* slot, void* off, void* totals, void* zbuf, void* out, void* stream) {
   const int* f = static_cast<const int*>(faces);
   const uint8_t* m = static_cast<const uint8_t*>(skip);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || F <= 0 || S <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch<float>(verts, f, tex, m, nullptr, B, V, F, S, C, scale, rec, box, nullptr, out, st);
-    case 1: return launch<double>(verts, f, tex, m, nullptr, B, V, F, S, C, scale, rec, box, nullptr, out, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The banded raster (K3): as rasterize_flat without skip codes, plus
-// order (B, F) int32, a permutation of 0..F-1 per image (the wrapper's
-// y-centre sort), and extent, scratch of B*ceil(F/256)*16 bytes.
-extern "C" int rasterize_flat_banded(int dtype, const void* verts, const void* faces, const void* tex,
-                                     const void* order, int B, int V, int F, int S, int C, double scale,
-                                     void* rec, void* box, void* extent, void* out, void* stream) {
-  const int* f = static_cast<const int*>(faces);
-  const int* o = static_cast<const int*>(order);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || F <= 0 || S <= 0 || C <= 0 || o == nullptr) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch<float>(verts, f, tex, nullptr, o, B, V, F, S, C, scale, rec, box, extent, out, st);
-    case 1: return launch<double>(verts, f, tex, nullptr, o, B, V, F, S, C, scale, rec, box, extent, out, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0 && route == 0)
+    return launch_pairs(static_cast<const float*>(verts), f, static_cast<const float*>(tex), m, B, V, F, S, C,
+                        (float)scale, static_cast<int4*>(slot),
+                        static_cast<long long*>(off), static_cast<long long*>(totals),
+                        static_cast<unsigned long long*>(zbuf), static_cast<float*>(out), st);
+  if (dtype == 0 && route == 1)
+    return launch_tiles<float>(static_cast<const float*>(verts), f, static_cast<const float*>(tex), m, B, V, F, S,
+                               C, (float)scale, static_cast<FaceRecord<float>*>(rec),
+                               static_cast<float4*>(slot), static_cast<float*>(out), st);
+  if (dtype == 1 && route == 1)
+    return launch_tiles<double>(static_cast<const double*>(verts), f, static_cast<const double*>(tex), m, B, V, F,
+                                S, C, scale, static_cast<FaceRecord<double>*>(rec), static_cast<float4*>(slot),
+                                static_cast<double*>(out), st);
+  return (int)cudaErrorInvalidValue;
 }

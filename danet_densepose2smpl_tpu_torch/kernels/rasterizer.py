@@ -13,12 +13,15 @@ One hand-written kernel file serves four entry points, one per JAX function:
                          masked raster with the face set and tie order of
                          the compacted prefix (see `culled_face_sets`)
   rasterize_flat_banded  K3 `rasterize_flat_pallas_banded`: the contract of
-                         `rasterize_flat`, with faces sorted by y
-                         (`band_setup`) and each 16x16 tile skipping the
-                         256-face chunks whose extent misses it
+                         `rasterize_flat`; its plain version sorts faces by
+                         y (`band_setup`) and skips chunks per tile
 
 Each dispatches on the device of `verts_px`: a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel, which launches or raises. The port
+version, a CUDA tensor to the kernel, which launches or raises. In fp32 the
+kernel's unit of work is the (pixel centre, face) pair inside the face's
+`pixel_spans`, spread evenly over the card, and the nearest face wins a
+64-bit `atomicMin` of `depth_key`; fp64 runs the tile kernel (see the
+header of `csrc/rasterizer.cu`). The port
 holds every entry to K5's formulas (`rasterize_flat`, `rasterizer.py:82-151`):
 K2/K4 evaluate affine edge coefficients and z = za * inv_area, which round
 differently on a few pixels in 10^4. Ties in z resolve to the lowest face
@@ -55,11 +58,12 @@ from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import DensePoseAtlas, 
 
 _BIG = 1e9
 _EMPTY = 1e30                     # the empty box's sentinel extent
-_TILE = 16                        # kTile in csrc/rasterizer.cu
-_KERNEL_CHUNK = 256               # kChunk: faces per chunk extent in the banded kernel
+_EMPTY_KEY = 2 ** 63 - 1          # the emulation's empty key, above every depth_key (the kernel's is all ones, unsigned)
+_TILE = 16                        # the banded plain version's tile (kTile in csrc/rasterizer.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_ROUTE_CODE = {"pairs": 0, "tiles": 1}
 _FACE_RECORD_VALUES = 16          # FaceRecord<T> in csrc/rasterizer.cu
-_BOX_BYTES = 16                   # one float4 per face
+_SLOT_BYTES = 16                  # a float4 box (tile route) or an int4 span (pair route) per face
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +277,36 @@ def face_boxes(xy, z):
     return torch.where(valid[..., None], box, empty)
 
 
+def pixel_spans(xy, z, s: int, skip=None):
+    """((..., 4) int64 (x0, y0, w, h), (...) int64 pair count w * h): the
+    pixel centres (j + 0.5, i + 0.5), j in [x0, x0 + w) and i in [y0, y0 +
+    h), that lie in each face's `face_boxes` box (one pixel wider than the
+    face), clamped to the S x S image, as the kernel's face_setup computes
+    them in fp32; an empty span for a face that can cover no pixel or is
+    marked in `skip` (..., bool). The pair kernel enumerates exactly these
+    pairs. A plain mirror of face_setup, which the wrapper does not call:
+    the tests and chip_smoke.py hold the kernel's pair count against it."""
+    box = face_boxes(xy, z)
+    if skip is not None:
+        box = torch.where(skip[..., None], box.new_tensor([_EMPTY, -_EMPTY, _EMPTY, -_EMPTY]), box)
+    lo = (box[..., 0::2] - 0.5).ceil().clamp(0, s)                # (x0, y0)
+    hi = ((box[..., 1::2] - 0.5).floor() + 1.0).clamp(0, s)        # exclusive ends
+    size = (hi - lo).clamp_min(0)
+    span = torch.cat([lo, size], dim=-1).to(torch.int64)
+    return span, span[..., 2] * span[..., 3]
+
+
+def depth_key(z, rank):
+    """int64 key (bits of fp32 `z`) << 32 | `rank` of the kernel's z-buffer:
+    for positive finite z and 0 <= rank < 2^31 the least key is the least
+    (z, rank), as positive floats order as their bits. A plain mirror of the
+    key raster_pairs forms, which the wrapper does not call: the tests pin
+    its order and emulate the kernel with it (empty pixels hold
+    `_EMPTY_KEY` there, as int64 has no all-ones maximum)."""
+    bits = z.to(torch.float32).view(torch.int32).to(torch.int64)
+    return (bits << 32) | rank.to(torch.int64)
+
+
 def chunk_extents(box, chunk: int):
     """(B, ceil(F / chunk), 4) union of each run of `chunk` consecutive face
     boxes (B, F, 4): the extent the banded raster tests a tile against
@@ -343,11 +377,9 @@ def load_library():
     # no contracted products (and IEEE division, nvcc's default): every
     # rounding where the plain version has it
     lib, log = build("rasterizer.cu", ("-fmad=false",))
-    lib.rasterize_flat.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                                   + [ctypes.c_double] + [ctypes.c_void_p] * 4)
-    lib.rasterize_flat_banded.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                                          + [ctypes.c_double] + [ctypes.c_void_p] * 5)
-    lib.rasterize_flat.restype = lib.rasterize_flat_banded.restype = ctypes.c_int
+    lib.rasterize_flat.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                                   + [ctypes.c_double] + [ctypes.c_void_p] * 7)
+    lib.rasterize_flat.restype = ctypes.c_int
     return lib, log
 
 
@@ -358,13 +390,21 @@ def _check_device(name, verts_px):
 
 
 def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=None, ties_last=None,
-            order=None):
-    """Run csrc/rasterizer.cu on CUDA tensors: the banded kernel when
-    `order` ((B, F) face order of `band_setup`) is given. Returns
-    (B, S, S, C) in face_tex's dtype."""
+            route=None, with_pairs=False):
+    """Run csrc/rasterizer.cu on CUDA tensors. `route` is 'pairs' (fp32)
+    or 'tiles'; None takes the dtype's route ('pairs' for fp32, 'tiles' for
+    fp64), as every entry does: 'tiles' in fp32 is a yardstick for
+    measurements. Returns (B, S, S, C) in face_tex's dtype, and with
+    `with_pairs` also a (1,) int64 device tensor, the pairs the pair route
+    enumerated (read it after the call: nothing here synchronizes)."""
     dt = verts_px.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"rasterizer kernel: unsupported dtype {dt}")
+    route = route or ("pairs" if dt == torch.float32 else "tiles")
+    if route not in _ROUTE_CODE or (route == "pairs" and dt != torch.float32):
+        raise ValueError(f"rasterizer kernel: no route '{route}' for {dt}")
+    if with_pairs and route != "pairs":
+        raise ValueError("rasterizer kernel: only the pair route counts pairs")
     if verts_px.dim() != 3 or verts_px.shape[-1] != 3:
         raise ValueError(f"rasterizer kernel: verts_px must be (B, V, 3), got {tuple(verts_px.shape)}")
     if faces.dim() != 2 or faces.shape[1] != 3 or face_tex.dim() != 2 \
@@ -375,15 +415,15 @@ def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=Non
     n_faces, c = face_tex.shape
     dev = verts_px.device
     masks = {k: m for k, m in (("skip", skip), ("ties_last", ties_last)) if m is not None}
-    per_face = masks | ({"order": order} if order is not None else {})
-    for name, t in (("faces", faces), ("face_tex", face_tex), *per_face.items()):
+    for name, t in (("faces", faces), ("face_tex", face_tex), *masks.items()):
         if t.device != dev:
             raise ValueError(f"rasterizer kernel: {name} on {t.device}, verts_px on {dev}")
-    for name, m in per_face.items():
+    for name, m in masks.items():
         if tuple(m.shape) != (b, n_faces):
             raise ValueError(f"rasterizer kernel: {name} {tuple(m.shape)} is not (B, F) = {(b, n_faces)}")
-    if b * n_faces >= 2 ** 31 or 2 * n_faces >= 2 ** 31 or out_size <= 0:
-        raise ValueError("rasterizer kernel: B*F and 2F must fit an int32 and out_size be positive")
+    if b * n_faces >= 2 ** 31 or 2 * n_faces >= 2 ** 31 or (b + 1) * out_size ** 2 >= 2 ** 31 \
+            or not 0 < out_size < 2 ** 15:
+        raise ValueError("rasterizer kernel: B*F, 2F and (B+1)*S*S must fit an int32, and 0 < out_size < 2^15")
     verts_px = verts_px.contiguous()
     faces32 = faces.to(torch.int32).contiguous()
     tex = face_tex.to(dt).contiguous()
@@ -394,31 +434,31 @@ def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=Non
             codes |= skip.to(torch.uint8)
         if ties_last is not None:
             codes |= ties_last.to(torch.uint8) << 1
+    # scratch: a box and a record (tile route) or a span (pair route) per
+    # (image, face); for the pair route also the offsets, the totals and the
+    # z-buffer
     itemsize = verts_px.element_size()
-    records = torch.empty(b * n_faces * _FACE_RECORD_VALUES * itemsize, dtype=torch.uint8, device=dev)
-    boxes = torch.empty(b * n_faces * _BOX_BYTES, dtype=torch.uint8, device=dev)
+    records = (torch.empty(b * n_faces * _FACE_RECORD_VALUES * itemsize, dtype=torch.uint8, device=dev)
+               if route == "tiles" else None)
+    slots = torch.empty(b * n_faces * _SLOT_BYTES, dtype=torch.uint8, device=dev)
+    pairs_scratch = (torch.empty(b * n_faces, dtype=torch.int64, device=dev),
+                     torch.empty(b + 1, dtype=torch.int64, device=dev),
+                     torch.empty(b * out_size * out_size, dtype=torch.int64, device=dev)) if route == "pairs" else ()
+    offsets, totals, zbuf = (t.data_ptr() for t in pairs_scratch) if pairs_scratch else (None,) * 3
     out = torch.empty((b, out_size, out_size, c), dtype=dt, device=dev)
     lib, _ = load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if order is None:
-            err = lib.rasterize_flat(
-                _DTYPE_CODE[dt], verts_px.data_ptr(), faces32.data_ptr(), tex.data_ptr(),
-                codes.data_ptr() if codes is not None else None,
-                b, v, n_faces, out_size, c, out_size / orig_size,
-                records.data_ptr(), boxes.data_ptr(), out.data_ptr(), stream,
-            )
-        else:
-            order32 = order.to(torch.int32).contiguous()
-            n_chunks = -(-n_faces // _KERNEL_CHUNK)
-            extents = torch.empty(b * n_chunks * _BOX_BYTES, dtype=torch.uint8, device=dev)
-            err = lib.rasterize_flat_banded(
-                _DTYPE_CODE[dt], verts_px.data_ptr(), faces32.data_ptr(), tex.data_ptr(), order32.data_ptr(),
-                b, v, n_faces, out_size, c, out_size / orig_size,
-                records.data_ptr(), boxes.data_ptr(), extents.data_ptr(), out.data_ptr(), stream,
-            )
+        err = lib.rasterize_flat(
+            _DTYPE_CODE[dt], _ROUTE_CODE[route], verts_px.data_ptr(), faces32.data_ptr(), tex.data_ptr(),
+            codes.data_ptr() if codes is not None else None, b, v, n_faces, out_size, c, out_size / orig_size,
+            records.data_ptr() if records is not None else None, slots.data_ptr(), offsets, totals, zbuf,
+            out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"rasterizer kernel launch failed: cudaError {err}")
+    if with_pairs:
+        return out.to(face_tex.dtype), pairs_scratch[1][b:]
     return out.to(face_tex.dtype)
 
 
@@ -475,13 +515,15 @@ def rasterize_flat_banded(verts_px, faces, face_tex, out_size: int, orig_size: f
                           chunk: int = 1024):
     """`rasterize_flat` through K3's design: faces in `band_setup` order,
     and each tile of pixels skips every chunk of faces whose extent misses
-    it. The same output as `rasterize_flat`, bit for bit. `chunk` is the
-    plain version's chunk of faces (the kernel's is 256). Replaces K3
-    `rasterize_flat_pallas_banded`."""
+    it (the plain version; on the card, the pair kernel enumerates only the
+    pixels in each face's box, in any face order). The same output as
+    `rasterize_flat`, bit for bit. `chunk` is the plain
+    version's chunk of faces. Replaces K3 `rasterize_flat_pallas_banded`."""
     if not _check_device("rasterize_flat_banded", verts_px):
         return rasterize_flat_banded_plain(verts_px, faces, face_tex, out_size, orig_size, chunk)
-    order = band_setup(verts_px, faces, out_size, orig_size)
-    out = _launch(verts_px, faces, face_tex, out_size, orig_size, order=order)
+    # the pair kernel's work does not depend on the order of the faces, and
+    # on K3's y-order it measured no faster, before the sort's own time
+    out = _launch(verts_px, faces, face_tex, out_size, orig_size)
     rasterize_flat_banded.launches += 1
     return out
 

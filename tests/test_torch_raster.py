@@ -372,6 +372,165 @@ def test_part_renderer_matches_jax(backend):
 
 
 # --------------------------------------------------------------------------
+# the pair kernel's algorithm (csrc/rasterizer.cu, fp32), emulated on the CPU
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("regime", ["working range", "positive subnormals and normals"])
+def test_depth_key_orders_like_z_then_rank(regime):
+    """The least `depth_key` is the least (z, rank): z in the kernel's range
+    (1e-6, 1e9) with equal values, adjacent ulps and both ends' neighbours;
+    and, since positive floats order as their bits, down through the
+    subnormals. Ranks span [0, 2F) of the 13,776-face mesh."""
+    rng = np.random.RandomState(7 if regime == "working range" else 8)
+    n = 4000
+    if regime == "working range":
+        z = np.exp(rng.uniform(np.log(1e-6), np.log(1e9), n)).astype(np.float32)
+        edges = np.float32([np.nextafter(np.float32(1e-6), np.float32(1)), np.nextafter(np.float32(1e9), np.float32(0)),
+                            1.0, np.nextafter(np.float32(1), np.float32(2)),
+                            np.nextafter(np.float32(1), np.float32(0))])
+    else:
+        z = rng.randint(1, 2 ** 24, n).astype(np.int32).view(np.float32)        # subnormals and tiny normals
+        edges = np.array([1, 2, 2 ** 23 - 1, 2 ** 23, 2 ** 23 + 1], np.int32).view(np.float32)
+    z[: len(edges)] = edges
+    z[len(edges): 2 * len(edges)] = edges                                        # exact ties in z
+    z[2 * len(edges):] = np.where(rng.rand(n - 2 * len(edges)) < 0.2,           # ulp neighbours
+                                  np.nextafter(z[2 * len(edges):], np.float32(np.inf)), z[2 * len(edges):])
+    rank = rng.randint(0, 2 * 13776, n)
+    rank[:2] = [0, 2 * 13776 - 1]
+    key = R.depth_key(torch.from_numpy(z), torch.from_numpy(rank)).numpy()
+    assert key.dtype == np.int64 and (key >= 0).all() and (key < R._EMPTY_KEY).all()
+    i, j = rng.randint(0, n, (2, 200000))
+    i[:n], j[:n] = np.arange(n), np.roll(np.arange(n), 1)
+    lex = (z[i] < z[j]) | ((z[i] == z[j]) & (rank[i] < rank[j]))
+    np.testing.assert_array_equal(key[i] < key[j], lex)
+    np.testing.assert_array_equal(key[i] == key[j], (z[i] == z[j]) & (rank[i] == rank[j]))
+
+
+def _span_scene(name):
+    """(verts_px (B, V, 3) fp32 in the 224 px frame, faces (F, 3), S) of
+    one kind of face."""
+    rng = np.random.RandomState(11)
+    if name == "random soup":
+        vpx, faces, _ = _soup(12, 2, 60, 400, 0.4, 48, n_invalid=9)
+        return vpx.astype(np.float32), faces, 48
+    if name == "closed test mesh":
+        _, _, faces, _, vpx = _closed_fixture(900, seed=0, b=2)
+        return vpx.astype(np.float32), faces, 56
+    n = 300
+    a = rng.uniform(-40 if name == "off-image" else 20, 264 if name == "off-image" else 204, (2, n, 2))
+    d = rng.randn(2, n, 2) * (60 if name == "off-image" else 30)
+    if name == "thin and near-degenerate":
+        perp = np.stack([-d[..., 1], d[..., 0]], -1) / np.linalg.norm(d, axis=-1, keepdims=True)
+        width = 10.0 ** rng.uniform(-7, 0.5, (2, n, 1))                            # 1e-7 to 3 px across
+        c = a + d * rng.rand(2, n, 1) + perp * width
+    else:                                                                          # off-image: far and huge faces too
+        c = a + rng.randn(2, n, 2) * 300
+    xy = np.stack([a, a + d, c], 2)                                                 # (2, n, 3, 2)
+    z = rng.uniform(0.5, 3.0, (2, n, 3))
+    z[:, :5, 0] = -1.0                                                               # behind the camera: invalid
+    vpx = np.concatenate([xy, z[..., None]], -1).reshape(2, 3 * n, 3).astype(np.float32)
+    return vpx, np.arange(3 * n).reshape(n, 3), 56
+
+
+@pytest.mark.parametrize("name", ["random soup", "thin and near-degenerate", "off-image", "closed test mesh"])
+def test_pixel_spans_cover_every_inside_pair(name):
+    """Every (pixel, face) pair that K5's formulas (`_chunk_depths`) find
+    inside lies in the face's `pixel_spans` span, so the pair kernel misses
+    none; faces that can cover no pixel, and skipped faces, have none."""
+    vpx, faces, s = _span_scene(name)
+    tri = _t(vpx)[:, _t(faces).long()]
+    xy, z = tri[..., :2] * (s / 224.0), tri[..., 2]
+    span, count = R.pixel_spans(xy, z, s)
+    centres = R._pixel_centers(s, torch.float32, "cpu")
+    rows, cols = torch.arange(s * s) // s, torch.arange(s * s) % s
+    n_inside = 0
+    for f0 in range(0, faces.shape[0], 256):
+        sl = slice(f0, f0 + 256)
+        inside = R._chunk_depths(xy[:, sl], z[:, sl], centres[..., 0], centres[..., 1]) < R._BIG   # (B, P, K)
+        bi, pi, ki = torch.nonzero(inside, as_tuple=True)
+        sp = span[:, sl][bi, ki]
+        assert bool(((cols[pi] >= sp[:, 0]) & (cols[pi] < sp[:, 0] + sp[:, 2])
+                     & (rows[pi] >= sp[:, 1]) & (rows[pi] < sp[:, 1] + sp[:, 3])).all())
+        n_inside += len(pi)
+    assert n_inside > 50 and int(count.sum()) >= n_inside
+    x, y = xy[..., 0], xy[..., 1]
+    area = (x[..., 1] - x[..., 0]) * (y[..., 2] - y[..., 0]) - (y[..., 1] - y[..., 0]) * (x[..., 2] - x[..., 0])
+    invalid = (area.abs() <= 1e-12) | (z <= 0).any(-1)
+    assert int(count[invalid].sum()) == 0 and (invalid.any() or name == "closed test mesh")
+    skip = torch.from_numpy(np.random.RandomState(1).rand(*count.shape) < 0.5)
+    _, skipped = R.pixel_spans(xy, z, s, skip)
+    assert int(skipped[skip].sum()) == 0 and torch.equal(skipped[~skip], count[~skip])
+
+
+def _emulate_pair_kernel(vpx, faces, tex, s, orig=224.0, skip=None, ties_last=None):
+    """The pair kernel's algorithm on the CPU: the pairs of face f of image
+    b are its `pixel_spans`, pair q being pixel (x0 + q mod w, y0 + q div
+    w); each pair's depth comes from K5's formulas, and the z-buffer keeps
+    the least `depth_key` of (z, rank) by scatter_reduce('amin'); rank is
+    the face id, plus F for `ties_last` faces; the resolve pass decodes
+    it."""
+    b, n_faces = vpx.shape[0], faces.shape[0]
+    tri = vpx[:, faces]
+    xy, z = tri[..., :2] * (s / orig), tri[..., 2]
+    span, count = R.pixel_spans(xy, z, s, skip)
+    rank = torch.arange(n_faces).expand(b, n_faces) + (n_faces * ties_last.long() if ties_last is not None else 0)
+    count = count.reshape(-1)
+    slot = torch.repeat_interleave(torch.arange(b * n_faces), count)
+    q = torch.arange(len(slot)) - (torch.cumsum(count, 0) - count)[slot]
+    sp = span.reshape(-1, 4)[slot]
+    col, row = sp[:, 0] + q % sp[:, 2], sp[:, 1] + q // sp[:, 2]
+    px = (col.to(vpx.dtype) + 0.5).reshape(1, 1, -1)
+    py = (row.to(vpx.dtype) + 0.5).reshape(1, 1, -1)
+    depth = R._chunk_depths(xy.reshape(1, -1, 3, 2)[:, slot], z.reshape(1, -1, 3)[:, slot], px, py)[0, 0]
+    ok = depth < R._BIG
+    pix = ((slot // n_faces) * s + row) * s + col
+    zbuf = torch.full((b * s * s,), R._EMPTY_KEY, dtype=torch.int64).scatter_reduce(
+        0, pix[ok], R.depth_key(depth[ok], rank.reshape(-1)[slot][ok]), "amin")
+    won = zbuf & 0xFFFFFFFF
+    won = torch.where(zbuf == R._EMPTY_KEY, n_faces, torch.where(won >= n_faces, won - n_faces, won))
+    table = torch.cat([tex, tex.new_zeros(1, tex.shape[1])], dim=0)
+    return table[won].reshape(b, s, s, -1), int(count.sum())
+
+
+@pytest.mark.parametrize("case", ["random soup", "closed test mesh", "backface mask", "culled face sets",
+                                  "exact tie", "banded entry"])
+def test_pair_kernel_algorithm_equals_plain(case):
+    """The emulated pair kernel equals `rasterize_flat_plain` bit for bit:
+    plain, with a skip mask, with `culled_face_sets` (skip and ties_last),
+    on the exact-tie scene of `test_culled_exact_tie_goes_to_the_live_face`;
+    and `rasterize_flat_banded_plain` (K3's y-order and chunk skipping),
+    whose entry runs the same kernel on the card."""
+    kw, orig = {}, 224.0
+    if case == "random soup":
+        vpx, faces, tex = (_t(a) for a in _soup(13, 2, 60, 400, 0.5, 48, n_invalid=7))
+        s = 48
+    elif case == "exact tie":
+        vpx, faces, tex = (_t(a) for a in _tie_scene())
+        s, orig = 16, 16.0
+    else:
+        vb, cam, faces, tex, vpx = _closed_fixture(900, seed=0, b=2, rng_seed=3)
+        vpx, faces, tex, s = _t(vpx), _t(faces), _t(tex), 56
+        if case == "backface mask":
+            kw["skip"] = R.backface_mask(_t(vb), _t(cam), faces.long())
+    faces = faces.long()
+    if case in ("culled face sets", "exact tie"):
+        budget = R.cull_budget(len(faces), 256 if case == "culled face sets" else 1024,
+                               0.2 if case == "culled face sets" else 0.55)
+        kw["skip"], kw["ties_last"] = R.culled_face_sets(vpx, faces, budget)
+        assert bool(kw["ties_last"].any())
+    if case == "banded entry":
+        exp = R.rasterize_flat_banded_plain(vpx, faces, tex, s, orig, 256)
+    else:
+        exp = R.rasterize_flat_plain(vpx, faces, tex, s, orig, 256, kw.get("skip"), kw.get("ties_last"))
+    got, n_pairs = _emulate_pair_kernel(vpx, faces, tex, s, orig, **kw)
+    assert (exp[..., 0] > 0).double().mean() > 0.02 and n_pairs > 0
+    np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    if case == "exact tie":   # the live face wins the tie, as in K5's compacted order
+        covered = exp[0, ..., 0] > 0
+        np.testing.assert_array_equal(got[0][covered].numpy(), np.broadcast_to(tex[1].numpy(), got[0][covered].shape))
+
+
+# --------------------------------------------------------------------------
 # dispatch and the card
 # --------------------------------------------------------------------------
 
@@ -411,6 +570,34 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
     for got, exp in cases:
         assert _agree(got.cpu(), exp.cpu()) >= 1 - 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["closed test mesh", "backface mask", "culled face sets", "random soup, S=40"])
+def test_cuda_pair_kernel_equals_tile_kernel(cuda_device, case):
+    """The fp32 pair kernel against the tile kernel (fp64's route) and the
+    plain version, bit for bit, and the pairs it enumerates against
+    `pixel_spans`."""
+    vb, cam, faces, tex, vpx = _closed_fixture(2500, seed=0, b=3)
+    v, f, t, s, kw = _t(vpx), _t(faces).long(), _t(tex), 56, {}
+    if case == "backface mask":
+        kw["skip"] = R.backface_mask(_t(vb), _t(cam), f)
+    elif case == "culled face sets":
+        kw["skip"], kw["ties_last"] = R.culled_face_sets(v, f, R.cull_budget(len(faces), 256, 0.2))
+    elif case == "random soup, S=40":
+        v, f, t = (_t(a) for a in _soup(40, 2, 60, 700, 0.3, 40, n_invalid=9))
+        v, f, s = v.float(), f.long(), 40
+    v, f, t = v.to(cuda_device), f.to(cuda_device), t.to(cuda_device)
+    kw = {k: m.to(cuda_device) for k, m in kw.items()}
+    got, pairs = R._launch(v, f, t, s, 224.0, with_pairs=True, **kw)
+    tiles = R._launch(v, f, t, s, 224.0, route="tiles", **kw)
+    torch.cuda.synchronize()
+    plain = R.rasterize_flat_plain(v, f, t, s, 224.0, 256, kw.get("skip"), kw.get("ties_last"))
+    np.testing.assert_array_equal(got.cpu().numpy(), tiles.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+    tri = v[:, f]
+    _, count = R.pixel_spans(tri[..., :2] * (s / 224.0), tri[..., 2], s, kw.get("skip"))
+    assert int(pairs.item()) == int(count.sum())
 
 
 @pytest.mark.cuda
