@@ -4,13 +4,14 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout and drives the serving slice (full HRNet-W48 DaNet
-+ SMPL, seeded random weights) and the training slice (the full DaNet
-training step) on the card. The synthetic raw batches get 2D keypoints
++ SMPL, seeded random weights), the training slice (the full DaNet
+training step), the eval path and the training CLI on the card. The synthetic raw batches get 2D keypoints
 that their poses explain (`posed_keypoints`), so the fitted cameras frame
 body-sized silhouettes. In phases:
 
   0. environment: a CUDA card of capability 9.0, versions, the card's name
-     and power limit; build both kernels (one nvcc each, started together)
+     and power limit, whether yaml, PIL (and its JPEG decoder), matplotlib
+     and torchvision import; build both kernels (one nvcc each, started together)
      and print the compilers' `-Xptxas -v` reports; for each K1 kernel its
      registers, spill stores and the count of tensor-core instructions
      (HMMA/HGMMA) in the built library's SASS (`cuobjdump --dump-sass`):
@@ -23,7 +24,10 @@ body-sized silhouettes. In phases:
      <= 1e-10; and bf16 where nothing is a multiple of the tensor-core
      kernel's tiles (B=1, S=57, C=8 and 20, 5 outputs);
   2. the whole slice in f64 on the card against the same model on the CPU
-     (B=2, 224 px): para and vertices within atol 1e-6 / rtol 1e-9;
+     (B=2, 224 px): para and vertices within atol 1e-6 / rtol 1e-9; then
+     fp32 `Predictor` on the card against that f64 result, para within the
+     weight bridge's fp32 bar (atol 0.05, rtol 1e-3), and, for the record,
+     the model under PyTorch's TF32 defaults;
   3. serving: `Predictor` in bf16 answers requests of B=64 (the main
      path); the outputs are finite and shaped right, and every request
      launched the kernel; then 3 timed requests of B=256 after a warm-up
@@ -81,11 +85,34 @@ body-sized silhouettes. In phases:
      on h36m-p2 (finite MPJPE / PA-MPJPE, the per-action table) and the
      harness in f64, card against CPU, within 1e-9 relative. One more pass
      of each eval runs under `torch.profiler`: host and kernel time by
-     stage range, and the card's idle share.
+     stage range, and the card's idle share;
+  9. the training CLI: (a) `cli.train.main` in-process with
+     `--synthetic-data --num_samples 256 --batch_size 64 --bf16
+     --pretr_step 1 --num_epochs 1 --summary_steps 1 --vis_interval 0` and
+     the default config (224 px, W48): it writes its SPIN-format dataset
+     (PNG) and trains 4 steps (1 pretrain, 3 full) through the resumable
+     loader, the prefetcher and the Trainer, the raster counts zeroed just
+     before and read just after; losses finite, 4 metrics rows (the first
+     without `smpl_pose`), `rasterize_flat` launched each step, a
+     checkpoint and config.json written; imgs/s by summary window; (b) the
+     same run through a `Trainer` whose loader is watched: host ms waiting
+     for each batch against each step's window, the third step (with the
+     wait for the next batch) under `torch.profiler` (kernel time and the
+     card's idle share), and one batch assembled by the host alone, on one
+     thread and on the prefetcher's decode threads (in 4 steps the first
+     step's warm-up hides ingest; this is its steady pace); (c) a Trainer
+     cut after step 2 (its time
+     budget, checkpoints every 2 steps) and a fresh one on the same
+     directory: it resumes at (epoch 0, batch 2, step 2), steps 3-4 get
+     (b)'s batches bit for bit, and the parameters end within 2 lr a step
+     of (b)'s (Adam moves a parameter by at most ~lr a step, so runs whose
+     nondeterministic cuDNN backward disagree on a gradient's sign part by
+     at most that).
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
-describing each kernel (with the path its launch count was read from), and
+describing each kernel (with the path its launch count was read from;
+`rasterize_flat` also has `cli_launches`, its count in phase 9 (a)), and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -192,6 +219,8 @@ def phase0_environment():
     print(f"phase 0: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, capability {cap}")
     print(f"phase 0: nvidia-smi: {card_line()}")
+    for name, version in import_probe().items():
+        print(f"phase 0: import {name}: {version}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:   # one nvcc per source, both at once
         logs = list(pool.map(lambda mod: mod.load_library()[1], (part_crop_head, rasterizer)))
@@ -210,6 +239,26 @@ def phase0_environment():
     check(all(r["mma"] == 0 for n, r in reports.items() if n != "part_crop_head_bf16_kernel"),
           "the fp32/f64 K1 kernel is the scalar one")
     return tc
+
+
+def import_probe() -> dict:
+    """{module: version, or why it does not import} for the optional modules
+    the port's host code may use: yaml (`config.load_config`), PIL (JPEG
+    images), matplotlib (training visualization, not ported) and
+    torchvision (unused)."""
+    import importlib
+
+    out = {}
+    for name in ("yaml", "PIL", "matplotlib", "torchvision"):
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__", "imports (no __version__)")
+        except ImportError as e:
+            out[name] = f"does not import ({e})"
+    if not out["PIL"].startswith("does not"):
+        from PIL import features
+
+        out["PIL"] += f", JPEG decoder {features.check('jpg')}"
+    return out
 
 
 def kernel_reports(lib_path: str, log: str) -> dict:
@@ -305,6 +354,29 @@ def phase2_slice_f64(dev):
         print(f"phase 2: {name} {tuple(a.shape)} card vs CPU max abs err {err!r} "
               f"(max|cpu| {b.abs().max().item()!r})")
         check(torch.allclose(a, b, atol=1e-6, rtol=1e-9), f"f64 {name} card vs CPU")
+
+    # fp32 serving on the card against the f64 CPU result, at the weight
+    # bridge's fp32 bar (tests/test_port_e2e.py::test_e2e_port_resnet_f32:
+    # atol 0.05, rtol 1e-3): the model alone under PyTorch's TF32 defaults
+    # (cuDNN convolutions may use TF32, matmuls not), for the record, then
+    # `Predictor`, which turns TF32 off for fp32
+    from danet_densepose2smpl_tpu_torch.serve import Predictor
+
+    predictor = Predictor(dev, torch.float32, seed=0)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        with torch.inference_mode():
+            tf32 = predictor.model(x.to(dev, torch.float32))["para"].double().cpu()
+        para32 = predictor.predict(x.float())["para"].double().cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    ref = outs["cpu"][0]
+    print(f"phase 2: fp32 on the card vs f64 on the CPU, para max abs err: the model under PyTorch's TF32 defaults "
+          f"{(tf32 - ref).abs().max().item()!r} (within the bar: {torch.allclose(tf32, ref, atol=0.05, rtol=1e-3)}); "
+          f"Predictor (TF32 off) {(para32 - ref).abs().max().item()!r} (bar: atol 0.05, rtol 1e-3)")
+    check(bool(torch.isfinite(para32).all()) and torch.allclose(para32, ref, atol=0.05, rtol=1e-3),
+          "fp32 serving para card vs f64 CPU")
 
 
 def phase3_serving(dev, card) -> int:
@@ -1085,6 +1157,163 @@ def phase8_eval(dev, card) -> dict:
             "bound_by": bound_by, "launches": counts["pallas_banded"]["rasterize_flat_banded"]}
 
 
+class TimedLoader:
+    """A trainer's loader, watched: the host seconds the consumer waits in
+    the epoch iterator for each batch, the clock when each batch arrives, a
+    copy of the fields of each batch that the resume check compares, and an
+    optional call at each batch (a profiler's `step`)."""
+
+    KEYS = ("sample_index", "rot_angle", "is_flipped", "img")
+
+    def __init__(self, loader, on_batch=None):
+        self.loader, self.on_batch = loader, on_batch
+        self.waits, self.times, self.batches = [], [], []
+
+    def epoch(self, epoch: int, start_batch: int = 0):
+        it = self.loader.epoch(epoch, start_batch)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b, batch = next(it)
+                except StopIteration:
+                    return
+                t1 = time.perf_counter()
+                self.waits.append(t1 - t0)
+                self.times.append(t1)
+                self.batches.append({k: np.array(batch[k]) for k in self.KEYS})
+                if self.on_batch is not None:
+                    self.on_batch()
+                yield b, batch
+        finally:
+            it.close()
+
+
+def phase9_train_cli(dev, card) -> dict:
+    """The training CLI on the card at full size (`DaNetConfig()`, 224 px,
+    W48, bf16, B=64 over 256 synthetic SPIN-format samples: 1 pretrain and 3
+    full steps), then its resume: a Trainer stopped at step 2 and a fresh one
+    on the same workdir against an uninterrupted run."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from danet_densepose2smpl_tpu_torch.cli import train as cli_train
+    from danet_densepose2smpl_tpu_torch.train.trainer import Trainer
+
+    def metric_rows(workdir):
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    root = os.path.join(REPO, "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, root    # the CLI writes its dataset there
+    steps, batch = 4, TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats(dev)
+    argv = ["--synthetic-data", "--num_samples", str(steps * batch), "--batch_size", str(batch), "--bf16",
+            "--pretr_step", "1", "--num_epochs", "1", "--summary_steps", "1", "--vis_interval", "0",
+            "--log_dir", root]
+    try:
+        # (a) the main path: python -m danet_densepose2smpl_tpu_torch.cli.train, in-process
+        t0 = time.perf_counter()
+        trainer, launches = raster_launches(lambda: cli_train.main(argv + ["--name", "cli"]))
+        wall = time.perf_counter() - t0
+        workdir = os.path.join(root, "cli")
+        rows = metric_rows(workdir)
+        check(trainer.state.step == steps, f"the CLI ran {trainer.state.step} steps, not {steps}")
+        check(len(rows) == steps and "smpl_pose" not in rows[0] and all("smpl_pose" in r for r in rows[1:]),
+              f"metrics.jsonl: {len(rows)} rows, pretrain first: {[sorted(r)[:3] for r in rows]}")
+        check(all(np.isfinite(v) for r in rows for v in r.values()), "every logged value is finite")
+        check(launches["rasterize_flat"] >= steps and launches["rasterize_flat_masked"] == 0,
+              f"the CLI's raster launches {launches} in {steps} steps")
+        check(os.path.isfile(os.path.join(workdir, "checkpoints", f"ckpt_{steps:09d}.pt"))
+              and os.path.isfile(os.path.join(workdir, "config.json")), "the CLI wrote its checkpoint and config")
+        rates = [r["imgs_per_sec"] for r in rows]
+        print(f"phase 9: (a) cli.train {' '.join(argv)}: {steps} steps in {wall!r} s of command (dataset, "
+              f"model init and checkpoint included); loss_total {[r['loss_total'] for r in rows]}; raster "
+              f"launches {launches}; imgs/s by summary window {rates} (mean of windows 2-{steps}: "
+              f"{float(np.mean(rates[1:]))!r}); peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+              f"GiB; card {card}")
+
+        # (b) an uninterrupted run, its third step (with the wait for the next
+        # batch) under torch.profiler, and (c) a run stopped at step 2 and
+        # resumed, checkpoints every 2 steps; on the CLI's dataset and config
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        args = cli_train.build_parser().parse_args(argv + ["--name", "unused"])
+        _, cfg, train_ds, smpl, renderer, fits = cli_train.setup(args)
+
+        def trainer_on(name, cfg):
+            t = Trainer(cfg, train_ds, smpl, renderer, fits, os.path.join(root, name), device=dev)
+            t.loader = TimedLoader(t.loader)
+            return t
+
+        whole = trainer_on("whole", cfg)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=2, warmup=1, active=1, repeat=1)) as prof:
+            whole.loader.on_batch = prof.step
+            whole.train()
+        windows = [r["step_time_s"] for r in metric_rows(os.path.join(root, "whole"))]
+        events = prof.key_averages()
+        kernel_ms = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False) and not e.key.startswith("train.")) / 1e3
+        wall_ms = (whole.loader.times[3] - whole.loader.times[2]) * 1e3
+        ranges = {e.key: round(e.cpu_time_total / 1e3, 3) for e in events
+                  if e.key.startswith("train.") and e.device_type == DeviceType.CPU}
+        # the host's own pace: one batch assembled on this thread, and on the
+        # prefetcher's decode pool, with no step beside it
+        prefetch = whole.loader.loader
+        perm = prefetch.loader.permutation(0)
+        t0 = time.perf_counter()
+        prefetch.loader._fetch(0, 0, perm)
+        alone_ms = (time.perf_counter() - t0) * 1e3
+        with ThreadPoolExecutor(prefetch.workers) as pool:
+            t0 = time.perf_counter()
+            prefetch.loader._fetch(0, 1, perm, pool)
+            pool_ms = (time.perf_counter() - t0) * 1e3
+        print(f"phase 9: (b) one batch of B={batch} assembled by the host alone: {alone_ms!r} ms on one thread, "
+              f"{pool_ms!r} ms on the prefetcher's {prefetch.workers} decode threads ({os.cpu_count()} CPUs)")
+        print(f"phase 9: (b) uninterrupted Trainer, {steps} steps: host ms waiting in the loader's epoch iterator "
+              f"{[w * 1e3 for w in whole.loader.waits]}; ms of each summary window (the step, with its wait) "
+              f"{[w * 1e3 for w in windows]}; step 3 under torch.profiler (from its batch to the next): "
+              f"{wall_ms!r} ms on the host clock, {kernel_ms!r} ms of kernel time, device idle "
+              f"{1 - kernel_ms / wall_ms!r}; host ms by range {ranges}; card {card}")
+
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, checkpoint_steps=2))
+        first = trainer_on("resumed", cfg)
+        first._out_of_time = lambda: first.state.step >= 2
+        first.train()
+        second = trainer_on("resumed", cfg)
+        check(tuple(second.resume) == (0, 2, 2), f"resume point {second.resume}, expected (0, 2, 2)")
+        second.train()
+        check(second.state.step == steps, f"the resumed run ended at step {second.state.step}")
+        for i, (got, exp) in enumerate(zip(second.loader.batches, whole.loader.batches[2:])):
+            for k in TimedLoader.KEYS:
+                check(np.array_equal(got[k], exp[k]), f"resumed step {i + 3}: {k} differs from the uninterrupted run")
+        check(len(second.loader.batches) == steps - 2, f"the resumed run took {len(second.loader.batches)} batches")
+        pw = dict(whole.state.model.named_parameters())
+        diffs = {n: (p.detach() - pw[n].detach()).abs().max().item() for n, p in second.state.model.named_parameters()}
+        worst, moved = max(diffs.values()), sum(d > 0 for d in diffs.values())
+        bw = dict(whole.state.model.named_buffers())
+        buf = max(((b.double() - bw[n].double()).abs().max() / bw[n].double().abs().max().clamp_min(1e-30)).item()
+                  for n, b in second.state.model.named_buffers() if b.is_floating_point())
+        lr = cfg.solver.base_lr
+        print(f"phase 9: (c) resumed at {tuple(second.resume)}; steps 3-{steps} fed the uninterrupted run's batches "
+              f"bit for bit ({', '.join(TimedLoader.KEYS)}); parameters after step {steps} vs the uninterrupted "
+              f"run: max abs diff {worst!r} ({moved} of {len(diffs)} tensors differ at all; tolerance 2 lr x "
+              f"{steps} steps = {2 * lr * steps!r}), BatchNorm statistics max rel diff {buf!r}")
+        # Adam moves a parameter by at most ~lr a step, so runs whose
+        # nondeterministic cuDNN backward disagrees on a gradient's sign
+        # part by at most 2 lr a step
+        check(worst <= 2 * lr * steps, f"resumed parameters {worst} from the uninterrupted run's")
+        return {"launches": launches["rasterize_flat"]}
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
@@ -1105,6 +1334,7 @@ def main():
     timed(6, lambda: phase6_step_f64(dev))
     paths = timed(7, lambda: phase7_train_bf16(dev, card))
     k3 = timed(8, lambda: phase8_eval(dev, card))
+    cli = timed(9, lambda: phase9_train_cli(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
                 f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
@@ -1121,6 +1351,9 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": RASTER_SOURCE, "replaces": RASTER_REPLACES[name],
                         "launches": paths[path][name], "path": label, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    for k in kernels:
+        if k["name"] == "rasterize_flat":
+            k["cli_launches"] = cli["launches"]   # in phase 9's training CLI, 4 steps
     kernels.append({"name": "rasterize_flat_banded", "route": "cuda", "source": RASTER_SOURCE,
                     "replaces": RASTER_REPLACES["rasterize_flat_banded"], "launches": k3["launches"],
                     "path": f"eval: run_lsp_eval with PartRenderer('pallas_banded'), Predictor bf16, "

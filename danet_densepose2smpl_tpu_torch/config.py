@@ -1,13 +1,16 @@
-"""The configuration dataclasses of the port.
+"""The configuration dataclasses of the port, and the YAML loader.
 
 A copy of the JAX package's `core/config.py` classes with the same fields
 and defaults (pinned by `tests/test_torch_config.py`), so that code driving
 the port imports only the port. Frozen dataclasses, passed explicitly.
+`load_config` reads the reference's YAML layout (`configs/*.yaml`) with
+`yaml.safe_load` and applies dotted overrides.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import dataclasses
+from dataclasses import dataclass, field, replace
 
 
 @dataclass(frozen=True)
@@ -140,4 +143,64 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
-__all__ = ["Config", "DaNetConfig", "RefinementConfig", "SolverConfig", "TrainConfig"]
+def default_config() -> Config:
+    return Config()
+
+
+def _lower_keys(d: dict) -> dict:
+    return {k.lower(): v for k, v in d.items()}
+
+
+def load_config(yaml_path: str | None = None, overrides: dict | None = None) -> Config:
+    """A Config from the defaults, a reference-layout YAML file and dotted
+    overrides ({'train.batch_size': 64, ...}).
+
+    Read sections: SOLVER, DANET (with REFINEMENT; INIMG_SIZE is img_size),
+    TRAIN's BATCH_SIZE. Other keys (Detectron legacy, the HR_MODEL /
+    MSRES_MODEL architecture blocks whose values are the defaults) are
+    skipped."""
+    cfg = default_config()
+    if yaml_path is not None:
+        import yaml
+
+        with open(yaml_path) as f:
+            raw = yaml.safe_load(f) or {}
+
+        if "SOLVER" in raw:
+            s = _lower_keys(raw["SOLVER"])
+            cfg = replace(cfg, solver=replace(
+                cfg.solver,
+                base_lr=float(s.get("base_lr", cfg.solver.base_lr)),
+                steps=tuple(s.get("steps", cfg.solver.steps)),
+                max_iter=int(s.get("max_iter", cfg.solver.max_iter)),
+                optimizer=str(s.get("type", cfg.solver.optimizer)).lower(),
+            ))
+        if "DANET" in raw:
+            danet_fields = {f.name for f in dataclasses.fields(DaNetConfig)}
+            kw = {}
+            for k, v in _lower_keys(raw["DANET"]).items():
+                k = {"inimg_size": "img_size"}.get(k, k)
+                if k == "refinement":
+                    r = _lower_keys(v)
+                    kw["refinement"] = RefinementConfig(
+                        refine_on=bool(r.get("refine_on", True)),
+                        stack_num=int(r.get("stack_num", 1)),
+                        feat_dim=int(r.get("feat_dim", 128)),
+                        gcn_num_layer=int(r.get("gcn_num_layer", 3)),
+                        pos_intersupv=bool(r.get("pos_intersupv", True)),
+                    )
+                elif k in danet_fields:
+                    kw[k] = v
+            cfg = replace(cfg, danet=replace(cfg.danet, **kw))
+        if "TRAIN" in raw:
+            t = _lower_keys(raw["TRAIN"])
+            if "batch_size" in t:
+                cfg = replace(cfg, train=replace(cfg.train, batch_size=int(t["batch_size"])))
+
+    for dotted, v in (overrides or {}).items():
+        section, name = dotted.split(".", 1)
+        cfg = replace(cfg, **{section: replace(getattr(cfg, section), **{name: v})})
+    return cfg
+
+
+__all__ = ["Config", "DaNetConfig", "RefinementConfig", "SolverConfig", "TrainConfig", "load_config"]

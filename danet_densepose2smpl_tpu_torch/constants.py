@@ -13,6 +13,10 @@ import numpy as np
 FOCAL_LENGTH = 5000.0
 IMG_RES = 224
 
+# ImageNet normalization of the RGB crops.
+IMG_NORM_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMG_NORM_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
 # Row i of the extended (24 native SMPL + 21 surface + 9 regressed) joint
 # set that supplies joint i of the 49-joint convention.
 JOINT_MAP_TO_EXTENDED = np.array(
@@ -37,6 +41,24 @@ H36M_TO_J14 = H36M_TO_J17[:14]
 J24_TO_J17 = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 18, 14, 16, 17], dtype=np.int32)
 J24_TO_J14 = J24_TO_J17[:14]
 J24_TO_J19 = np.concatenate([J24_TO_J14, np.arange(19, 24, dtype=np.int32)])
+
+# Horizontal flip: the left/right swap of the 24 SMPL joints, its expansion
+# to the 72-dim axis-angle pose, and the swaps of the 24 GT, 25 OpenPose
+# and 49 joints.
+SMPL_JOINTS_FLIP_PERM = np.array(
+    [0, 2, 1, 3, 5, 4, 6, 8, 7, 9, 11, 10, 12, 14, 13, 15, 17, 16, 19, 18, 21, 20, 23, 22],
+    dtype=np.int32,
+)
+SMPL_POSE_FLIP_PERM = (3 * SMPL_JOINTS_FLIP_PERM[:, None] + np.arange(3)[None, :]).reshape(-1)
+J24_FLIP_PERM = np.array(
+    [5, 4, 3, 2, 1, 0, 11, 10, 9, 8, 7, 6, 12, 13, 14, 15, 16, 17, 18, 19, 21, 20, 23, 22],
+    dtype=np.int32,
+)
+OP25_FLIP_PERM = np.array(
+    [0, 1, 5, 6, 7, 2, 3, 4, 8, 12, 13, 14, 9, 10, 11, 16, 15, 18, 17, 22, 23, 24, 19, 20, 21],
+    dtype=np.int32,
+)
+J49_FLIP_PERM = np.concatenate([OP25_FLIP_PERM, 25 + J24_FLIP_PERM])
 
 NUM_DP_PATCHES = 24      # DensePose surface patches (I in 1..24; 0 = background)
 NUM_DP_PARTS = 14        # coarse body parts of the AnnIndex head (+1 background)

@@ -19,7 +19,7 @@ from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.constants import H36M_TO_J14, H36M_TO_J17, J24_TO_J14, J24_TO_J17
 from danet_densepose2smpl_tpu_torch.eval.metrics import compute_mpjpe
-from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32_matmul
+from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward, smpl_forward_aa
 
@@ -116,7 +116,7 @@ def make_eval_step(
             return torch.as_tensor(np.asarray(a), device=para.device).to(para.dtype)
 
         pred_verts = smpl_forward(t["neutral"], para[:, 3:13], para[:, 13:].reshape(-1, 24, 3, 3)).vertices
-        with full_fp32_matmul():
+        with full_fp32():
             pred_j = torch.einsum("jv,bvc->bjc", t["jreg"], pred_verts)
             pred_sel = pred_j[:, t["mh"]] - pred_j[:, :1]
             if use_gt_verts:

@@ -56,6 +56,19 @@ def default_mean_params() -> MeanParams:
     )
 
 
+def load_mean_params(path: str | None) -> MeanParams:
+    """SPIN's smpl_mean_params.npz (keys pose (144,), shape, cam), or
+    `default_mean_params()` for None."""
+    if path is None:
+        return default_mean_params()
+    d = np.load(path)
+    return MeanParams(
+        cam=np.asarray(d["cam"], dtype=np.float32).reshape(3),
+        shape=np.asarray(d["shape"], dtype=np.float32).reshape(10),
+        pose6d=np.asarray(d["pose"], dtype=np.float32).reshape(24 * 6),
+    )
+
+
 class Conv1x1BNRelu(BNReLU):
     """1x1 conv -> BN -> ReLU adapter (torch keys `.0`, `.1`)."""
 

@@ -2,8 +2,8 @@
 
 Port of the JAX package's `ops/procrustes.py`: one batched
 `torch.linalg.svd` over the (..., 3, 3) covariances. The contractions are
-an eval metric and run in full precision: `full_fp32_matmul` keeps TF32 off
-on the card whatever the caller set.
+an eval metric and run in full precision: `full_fp32` keeps TF32 off on the
+card whatever the caller set.
 """
 
 from __future__ import annotations
@@ -14,15 +14,16 @@ import torch
 
 
 @contextlib.contextmanager
-def full_fp32_matmul():
-    """fp32 matrix products in full fp32 (no TF32) inside the block; the
-    previous setting comes back after it."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+def full_fp32():
+    """fp32 matrix products and cuDNN convolutions in full fp32 (no TF32;
+    PyTorch lets cuDNN use TF32 by default) inside the block; the previous
+    settings come back after it."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def similarity_align(S1: torch.Tensor, S2: torch.Tensor) -> torch.Tensor:
@@ -31,7 +32,7 @@ def similarity_align(S1: torch.Tensor, S2: torch.Tensor) -> torch.Tensor:
     S1, S2: (..., N, 3) point sets. Returns the aligned S1_hat, shaped as
     S1. A zero-variance S1 (a padded sample) gives scale 0, not NaN.
     """
-    with full_fp32_matmul():
+    with full_fp32():
         mu1 = S1.mean(dim=-2, keepdim=True)
         mu2 = S2.mean(dim=-2, keepdim=True)
         X1 = S1 - mu1

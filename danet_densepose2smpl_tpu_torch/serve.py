@@ -7,10 +7,15 @@ The model lives on one explicit device in float32 or bfloat16; bf16 serving
 casts parameters, BatchNorm statistics and activations to bf16 and keeps
 the regressor's constant tables and SMPL in fp32. As in the JAX package's
 bf16 path, the regressor's graph stages then promote to fp32, so `para`
-comes out fp32.
+comes out fp32. fp32 serving runs without TF32 whatever the caller set:
+under PyTorch's default (cuDNN convolutions in TF32) `para` came 0.088 off
+the f64 result on an H100, outside the weight bridge's fp32 bar (atol 0.05,
+rtol 1e-3); without TF32, 0.006 (`chip_smoke.py` phase 2).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -20,6 +25,7 @@ from torch.profiler import record_function
 from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.models.danet import DaNet
 from danet_densepose2smpl_tpu_torch.nn.gcn import GraphConv
+from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, synthetic_smpl_model, to_torch
 from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward
 
@@ -94,7 +100,8 @@ class Predictor:
         if isinstance(images_nhwc, np.ndarray):
             images_nhwc = torch.from_numpy(images_nhwc)
         x = images_nhwc.to(device=self.device, dtype=self.dtype)
-        with record_function("serve.model"):
+        fp32 = full_fp32() if self.dtype == torch.float32 else contextlib.nullcontext()
+        with record_function("serve.model"), fp32:
             out = self.model(x)
         with record_function("serve.smpl"):
             body = smpl_forward(self.smpl, out["pred_shape"].float(), out["pred_rotmat"].float())

@@ -1,10 +1,10 @@
 """DensePose surface atlas (numpy): the re-indexed SMPL mesh with a patch
 index and UV chart coordinates per face.
 
-Copy of the JAX package's `smpl/densepose_atlas.py` (the `.mat` loader
-aside): `DensePoseAtlas` with its flat per-face texture (I/24, mean U,
-mean V), `orient_faces`, the closed test mesh and the synthetic atlases.
-Tests pin every table equal to the original.
+Copy of the JAX package's `smpl/densepose_atlas.py`: `DensePoseAtlas`
+with its flat per-face texture (I/24, mean U, mean V), the loader of the
+official `UV_Processed.mat`, `orient_faces`, the closed test mesh and the
+synthetic atlases. Tests pin every table equal to the original.
 """
 
 from __future__ import annotations
@@ -111,6 +111,20 @@ def orient_faces(faces: np.ndarray, verts: np.ndarray) -> tuple[np.ndarray, int]
         d1 = (u, v) in directed_edges(faces[inc[1]])
         conflicts += d0 == d1
     return faces.astype(np.int32), int(conflicts)
+
+
+def load_densepose_atlas(mat_path: str) -> DensePoseAtlas:
+    """Load the official UV_Processed.mat (scipy)."""
+    from scipy.io import loadmat
+
+    d = loadmat(mat_path)
+    return DensePoseAtlas(
+        vert_mapping=(d["All_vertices"].reshape(-1).astype(np.int64) - 1).astype(np.int32),
+        faces=d["All_Faces"].astype(np.int32) - 1,
+        face_indices=d["All_FaceIndices"].reshape(-1).astype(np.int32),
+        u_norm=d["U_norm"].reshape(-1).astype(np.float32),
+        v_norm=d["V_norm"].reshape(-1).astype(np.float32),
+    )
 
 
 def closed_test_mesh(num_verts: int = 6890, seed: int = 0):

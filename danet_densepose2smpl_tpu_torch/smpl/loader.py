@@ -1,13 +1,18 @@
-"""SMPL arrays (numpy) and the synthetic body used where no licensed model
-file is present.
+"""SMPL arrays (numpy): model files and the synthetic body used where no
+licensed model file is present.
 
-Copy of the JAX package's `smpl/loader.py::SMPLModel` and
-`synthetic_smpl_model`: the same seed gives the same arrays (pinned by
+Port of the JAX package's `smpl/loader.py`: `load_smpl_model` reads the
+official `SMPL_*.pkl` (which pickles chumpy arrays and scipy sparse
+matrices) without chumpy, or the `.npz` that `save_smpl_npz` writes;
+`synthetic_smpl_model` gives the same arrays for the same seed (pinned by
 tests). `to_torch` moves the arrays onto one device in one dtype.
 """
 
 from __future__ import annotations
 
+import io
+import os
+import pickle
 from typing import NamedTuple
 
 import numpy as np
@@ -21,6 +26,17 @@ NUM_SHAPE_BETAS = 10
 NUM_POSE_BASIS = 9 * (NUM_SMPL_JOINTS - 1)  # 207
 NUM_EXTRA_REGRESSED = 9   # SPIN's J_regressor_extra joints
 NUM_VERTEX_JOINTS = 21    # face(5) + feet(6) + fingertips(10) surface joints
+
+# Surface-vertex joint ids of the real 6890-vertex SMPL mesh, in output
+# order: nose, reye, leye, rear, lear, LBigToe, LSmallToe, LHeel, RBigToe,
+# RSmallToe, RHeel, then left and right fingertips (thumb..pinky).
+SMPL_VERTEX_JOINT_IDS = np.array(
+    [332, 6260, 2800, 4071, 583,
+     3216, 3226, 3387, 6617, 6624, 6787,
+     2746, 2319, 2445, 2556, 2673,
+     6191, 5782, 5905, 6016, 6133],
+    dtype=np.int32,
+)
 
 
 class SMPLModel(NamedTuple):
@@ -45,6 +61,66 @@ class SMPLModel(NamedTuple):
     @property
     def num_verts(self) -> int:
         return self.v_template.shape[0]
+
+
+def _to_dense(obj) -> np.ndarray:
+    """Pickled chumpy arrays / scipy sparse matrices -> ndarray."""
+    if hasattr(obj, "toarray"):  # scipy sparse
+        return np.asarray(obj.toarray())
+    if hasattr(obj, "x") and not isinstance(obj, np.ndarray):  # chumpy Ch
+        return np.asarray(obj.x)
+    return np.asarray(obj)
+
+
+class _ChumpyFreeUnpickler(pickle.Unpickler):
+    """Unpickles SMPL .pkl files without chumpy installed: a missing class
+    becomes a shim that keeps its __dict__, from which `_to_dense` takes
+    the ndarray (chumpy stores it as attribute `x`)."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            return type(name, (), {"__setstate__": lambda self, s: self.__dict__.update(s)})
+
+
+def load_smpl_model(path: str, j_regressor_extra_path: str | None = None,
+                    gender: str | None = None) -> SMPLModel:
+    """Load an SMPL model from a `.pkl` (official release) or `.npz` file.
+    A directory resolves to `SMPL_{GENDER}.pkl` inside it (gender defaults
+    to 'neutral')."""
+    if os.path.isdir(path):
+        path = os.path.join(path, f"SMPL_{(gender or 'neutral').upper()}.pkl")
+
+    if path.endswith(".npz"):
+        data = dict(np.load(path, allow_pickle=False))
+        return SMPLModel(**{k: data[k] for k in SMPLModel._fields})
+
+    with open(path, "rb") as f:
+        raw = _ChumpyFreeUnpickler(io.BytesIO(f.read()), encoding="latin1").load()
+
+    v_template = _to_dense(raw["v_template"]).astype(np.float32)
+    shapedirs = _to_dense(raw["shapedirs"]).astype(np.float32)[..., :NUM_SHAPE_BETAS]
+    posedirs = _to_dense(raw["posedirs"]).astype(np.float32).reshape(v_template.shape[0], 3, -1)
+    if j_regressor_extra_path is not None:
+        j_extra = np.load(j_regressor_extra_path).astype(np.float32)
+    else:
+        j_extra = np.zeros((NUM_EXTRA_REGRESSED, v_template.shape[0]), dtype=np.float32)
+    return SMPLModel(
+        v_template=v_template,
+        shapedirs=shapedirs,
+        posedirs=posedirs,
+        J_regressor=_to_dense(raw["J_regressor"]).astype(np.float32),
+        lbs_weights=_to_dense(raw["weights"]).astype(np.float32),
+        faces=_to_dense(raw["f"]).astype(np.int32),
+        vertex_joint_ids=SMPL_VERTEX_JOINT_IDS.copy(),
+        J_regressor_extra=j_extra,
+        joint_map=JOINT_MAP_TO_EXTENDED.copy(),
+    )
+
+
+def save_smpl_npz(model: SMPLModel, path: str) -> None:
+    np.savez(path, **{k: np.asarray(v) for k, v in model._asdict().items()})
 
 
 def to_torch(model: SMPLModel, device, dtype=torch.float32) -> SMPLModel:

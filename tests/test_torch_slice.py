@@ -125,9 +125,11 @@ def test_unported_configs_raise():
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing every module of the port (serve, train, data, eval and the
-    kernels included) from a directory that holds the port alone works, and
-    leaves jax, flax and the JAX package out of sys.modules."""
+    """Importing every module of the port (serve, train, data, eval, the
+    kernels, and the training entry point with its ingest, loaders,
+    trainer and checkpoints included) from a directory that holds the port
+    alone works, and leaves jax, flax and the JAX package out of
+    sys.modules."""
     (tmp_path / "danet_densepose2smpl_tpu_torch").symlink_to(REPO / "danet_densepose2smpl_tpu_torch")
     code = (
         "import importlib, pkgutil, sys\n"
@@ -135,6 +137,9 @@ def test_port_imports_no_jax(tmp_path):
         "import danet_densepose2smpl_tpu_torch.serve\n"
         "import danet_densepose2smpl_tpu_torch.train.step, danet_densepose2smpl_tpu_torch.data.synthetic\n"
         "import danet_densepose2smpl_tpu_torch.kernels.rasterizer\n"
+        "import danet_densepose2smpl_tpu_torch.cli.train, danet_densepose2smpl_tpu_torch.train.trainer\n"
+        "import danet_densepose2smpl_tpu_torch.data.dataset, danet_densepose2smpl_tpu_torch.data.loader\n"
+        "import danet_densepose2smpl_tpu_torch.core.checkpoint, danet_densepose2smpl_tpu_torch.data.image_io\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
