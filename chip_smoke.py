@@ -5,7 +5,8 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout and drives the serving slice (full HRNet-W48 DaNet
 + SMPL, seeded random weights), the training slice (the full DaNet
-training step), the eval path and the training CLI on the card. The synthetic raw batches get 2D keypoints
+training step), the eval path, the training CLI and the eval CLIs on the
+card. The synthetic raw batches get 2D keypoints
 that their poses explain (`posed_keypoints`), so the fitted cameras frame
 body-sized silhouettes. In phases:
 
@@ -107,12 +108,35 @@ body-sized silhouettes. In phases:
      (b)'s batches bit for bit, and the parameters end within 2 lr a step
      of (b)'s (Adam moves a parameter by at most ~lr a step, so runs whose
      nondeterministic cuDNN backward disagree on a gradient's sign part by
-     at most that).
+     at most that);
+ 10. the eval CLIs and the ingest on the card, in-process, default config,
+     over synthetic datasets written under build/chip_smoke_eval and
+     removed: (a) `cli.eval.main` with `--dataset h36m-p2 --synthetic-data
+     --num_samples 64 --batch_size 16 --bf16`, then the same with
+     `--device_preprocess`: finite MPJPE / PA-MPJPE and the per-action
+     table, K1 launched once a batch, imgs/s of the eval pass (host clock;
+     the summaries are printed, not compared: the random-init network
+     magnifies the two crops' bilinear differences); (b) `--dataset lsp`
+     with its GT PNGs: the four Final Results lines finite and in [0, 1],
+     K1 and the raster launched once a batch; (c) `cli.eval_coco.main`: the
+     AP table finite and in [0, 1] (or -1), K1 once a batch; (d)
+     `device_preprocess` and `device_preprocess_train` at B=64 on 256 px
+     uint8 frames against their CPU runs, within 1e-4 on the normalized
+     scale with PyTorch's TF32 switches on around them, and their times by
+     CUDA events; (e) `cli.train.main` as in phase 9 (a) plus
+     `--device_preprocess` (4 steps: losses finite, 4 metric rows,
+     `rasterize_flat` each step), then the host ms to assemble one raw
+     B=64 batch on one thread and on the prefetcher's decode threads
+     (batches 0-3, in turns), beside phase 9 (b)'s host-crop figure of
+     the same call.
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
 describing each kernel (with the path its launch count was read from;
-`rasterize_flat` also has `cli_launches`, its count in phase 9 (a)), and
+`rasterize_flat` also has `cli_launches` and
+`cli_device_preprocess_launches`, its counts in phase 9 (a) and 10 (e);
+`part_crop_head` has `cli_eval_launches`, its counts in phase 10 (a)-(c);
+the raster entry of the LSP CLI has `cli_eval_lsp_launches`), and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -1308,7 +1332,182 @@ def phase9_train_cli(dev, card) -> dict:
         # nondeterministic cuDNN backward disagrees on a gradient's sign
         # part by at most 2 lr a step
         check(worst <= 2 * lr * steps, f"resumed parameters {worst} from the uninterrupted run's")
-        return {"launches": launches["rasterize_flat"]}
+        return {"launches": launches["rasterize_flat"], "alone_ms": alone_ms, "pool_ms": pool_ms}
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def timed_calls(module, name: str, log: list):
+    """Replace `module.name` with a wrapper that appends the host seconds of
+    each call to `log` (the eval pass inside a CLI, without its set-up);
+    returns a function that puts the original back."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        log.append(time.perf_counter() - t0)       # the pass ends in host reads of its metrics
+        return out
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def phase10_eval_cli(dev, card, host_crop: dict) -> dict:
+    """The eval entry points and the ingest on the card, in-process, at the
+    default config (HRNet-W48, 224 px, seeded random weights) over synthetic
+    SPIN-format datasets written under build/chip_smoke_eval and removed."""
+    import shutil
+    import tempfile
+
+    from danet_densepose2smpl_tpu_torch.cli import eval as cli_eval
+    from danet_densepose2smpl_tpu_torch.cli import eval_coco as cli_eval_coco
+    from danet_densepose2smpl_tpu_torch.cli import train as cli_train
+    from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess, device_preprocess_train
+    from danet_densepose2smpl_tpu_torch.eval import coco_harness, harness, lsp
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import fused_part_predict
+
+    def counted(fn):
+        """fn() with K1's and the rasters' launch counts zeroed just before
+        it; (its result, the counts read just after it)."""
+        fused_part_predict.launches = 0
+        R.rasterize_flat.launches = R.rasterize_flat_banded.launches = R.rasterize_flat_masked.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"part_crop_head": fused_part_predict.launches, "rasterize_flat": R.rasterize_flat.launches,
+                     "rasterize_flat_banded": R.rasterize_flat_banded.launches,
+                     "rasterize_flat_masked": R.rasterize_flat_masked.launches}
+
+    root = os.path.join(REPO, "build", "chip_smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, root     # the CLIs write their datasets there
+    n, b = EVAL_BATCHES * EVAL_BATCH, EVAL_BATCH
+    data = ["--synthetic-data", "--num_samples", str(n), "--batch_size", str(b)]
+    out = {}
+    try:
+        # (a) cli.eval, h36m-p2, bf16: the host crop, then the crop on the card
+        for raw in (False, True):
+            passes = []
+            restore = timed_calls(harness, "run_pose_eval", passes)
+            try:
+                argv = ["--dataset", "h36m-p2", *data, "--bf16", "--log_freq", "0"] + (["--device_preprocess"] if raw else [])
+                res, counts = counted(lambda: cli_eval.main(argv)["pose"])
+            finally:
+                restore()
+            print(res.summary("h36m-p2"))
+            print(f"phase 10: (a) cli.eval {' '.join(argv)}: {n / passes[0]!r} imgs/s over the eval pass (host "
+                  f"clock, {passes[0]!r} s); launches {counts}; card {card}")
+            check(res.mpjpe.shape == (n,) and bool(np.isfinite(res.mpjpe).all() and np.isfinite(res.pa_mpjpe).all()),
+                  f"cli.eval h36m-p2 (device_preprocess {raw}): finite per-sample MPJPE and PA-MPJPE")
+            check(len(res.per_action) > 0 and all(np.isfinite(v).all() for v in res.per_action.values()),
+                  "cli.eval h36m-p2: a finite per-action table")
+            check(counts["part_crop_head"] == EVAL_BATCHES, f"cli.eval h36m-p2: K1 launches {counts}")
+            out["pose_dp" if raw else "pose"] = {"imgs_per_s": n / passes[0], "k1": counts["part_crop_head"]}
+
+        # (b) cli.eval, lsp, bf16, the GT PNGs: one K1 launch and one raster a batch
+        passes = []
+        restore = timed_calls(lsp, "run_lsp_eval", passes)
+        try:
+            argv = ["--dataset", "lsp", *data, "--bf16", "--log_freq", "0"]
+            scores, counts = counted(lambda: cli_eval.main(argv)["lsp"])
+        finally:
+            restore()
+        rasters = counts["rasterize_flat"] + counts["rasterize_flat_banded"]
+        print(f"phase 10: (b) cli.eval {' '.join(argv)}: {scores}; {n / passes[0]!r} imgs/s over the eval pass "
+              f"(host clock); launches {counts}; card {card}")
+        check(len(scores) == 4 and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in scores.values()),
+              f"cli.eval lsp: the four Final Results lines {scores}")
+        check(counts["part_crop_head"] == EVAL_BATCHES and rasters == EVAL_BATCHES,
+              f"cli.eval lsp: launches {counts}, expected {EVAL_BATCHES} of K1 and of the raster")
+        out["lsp"] = {"imgs_per_s": n / passes[0], "k1": counts["part_crop_head"], "raster": rasters,
+                      "raster_entry": max(("rasterize_flat", "rasterize_flat_banded"), key=lambda k: counts[k])}
+
+        # (c) cli.eval_coco (fp32, as the JAX CLI runs it)
+        passes = []
+        restore = timed_calls(coco_harness, "run_coco_eval", passes)
+        try:
+            (ap, preds), counts = counted(lambda: cli_eval_coco.main(data))
+        finally:
+            restore()
+        print(f"phase 10: (c) cli.eval_coco {' '.join(data)}: AP {ap}; {n / passes[0]!r} imgs/s over the eval pass "
+              f"(host clock); launches {counts}; card {card}")
+        check(preds.shape == (n, 17, 3) and bool(np.isfinite(preds).all()), "cli.eval_coco: finite predictions")
+        check(all(np.isfinite(v) and (v == -1.0 or 0.0 <= v <= 1.0) for v in ap.values()),
+              f"cli.eval_coco: the AP table {ap}")
+        check(counts["part_crop_head"] == EVAL_BATCHES, f"cli.eval_coco: K1 launches {counts}")
+        out["coco"] = {"imgs_per_s": n / passes[0], "k1": counts["part_crop_head"]}
+
+        # (d) the crops on the card against their CPU runs, at B=64 on 256 px
+        # frames, with PyTorch's TF32 switches on around them (the functions
+        # must keep their geometry out of TF32 themselves), then their times
+        rng = np.random.RandomState(50)
+        bt = TRAIN_BATCH
+        frames = torch.from_numpy(rng.randint(0, 256, (bt, 256, 256, 3)).astype(np.uint8))
+        centers = torch.from_numpy(rng.uniform(100, 156, (bt, 2)).astype(np.float32))
+        scales = torch.from_numpy(rng.uniform(0.9, 1.3, bt).astype(np.float32))
+        rots = torch.from_numpy(np.where(rng.rand(bt) < 0.6, 0.0, rng.uniform(-60, 60, bt)).astype(np.float32))
+        flips = torch.from_numpy((rng.rand(bt) < 0.5).astype(np.float32))
+        noise = torch.from_numpy(rng.uniform(0.6, 1.4, (bt, 3)).astype(np.float32))
+        calls = {
+            "device_preprocess": lambda x, *a: device_preprocess(x, a[0], a[1]),
+            "device_preprocess_train": lambda x, *a: device_preprocess_train(x, *a, out_size=224),
+        }
+        cpu_args = (centers, scales, rots, flips, noise)
+        gpu_frames, gpu_args = frames.to(dev), tuple(a.to(dev) for a in cpu_args)
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            for name, fn in calls.items():
+                got = fn(gpu_frames, *gpu_args)
+                want = fn(frames, *cpu_args)
+                err = (got.cpu() - want).abs().max().item()
+                ms = [cuda_ms(lambda: fn(gpu_frames, *gpu_args), 20) for _ in range(2)]
+                moved = frames.numel() + got.numel() * got.element_size()
+                print(f"phase 10: (d) {name}, B={bt}, 256 px uint8 -> 224 px fp32: card vs CPU max abs err {err!r} "
+                      f"(tolerance 1e-4, TF32 switches on); {ms} ms a call (CUDA events, mean of 20, twice); "
+                      f"{moved / 2**20:.1f} MiB in and out, {moved / PEAK_BYTES_PER_S * 1e3!r} ms at 3.35 TB/s; "
+                      f"device time by kernel {device_ms_by_kernel(lambda: fn(gpu_frames, *gpu_args), 5)}; "
+                      f"card {card}")
+                check(tuple(got.shape) == (bt, 224, 224, 3) and got.dtype == torch.float32,
+                      f"{name}: shape {tuple(got.shape)} {got.dtype}")
+                check(err <= 1e-4, f"{name}: card vs CPU {err}")
+                out[name] = {"ms": min(ms), "max_abs_err": err}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+        # (e) cli.train as in phase 9 (a), with --device_preprocess, 4 steps;
+        # then the host's own pace on raw batches, beside phase 9 (b)'s
+        steps = 4
+        argv = ["--synthetic-data", "--num_samples", str(steps * bt), "--batch_size", str(bt), "--bf16",
+                "--pretr_step", "1", "--num_epochs", "1", "--summary_steps", "1", "--vis_interval", "0",
+                "--log_dir", root, "--name", "raw", "--device_preprocess"]
+        trainer, counts = counted(lambda: cli_train.main(argv))
+        with open(os.path.join(root, "raw", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        print(f"phase 10: (e) cli.train {' '.join(argv)}: loss_total {[r['loss_total'] for r in rows]}; imgs/s by "
+              f"summary window {[r['imgs_per_sec'] for r in rows]}; launches {counts}; card {card}")
+        check(trainer.state.step == steps and len(rows) == steps, f"cli.train --device_preprocess: {len(rows)} rows")
+        check(all(np.isfinite(v) for r in rows for v in r.values()), "cli.train --device_preprocess: finite values")
+        check(counts["rasterize_flat"] >= steps, f"cli.train --device_preprocess: raster launches {counts}")
+        loader = trainer.loader.loader if hasattr(trainer.loader, "workers") else trainer.loader
+        perm = loader.permutation(0)
+        workers = getattr(trainer.loader, "workers", 1)
+        alone_ms, pool_ms = [], []
+        with ThreadPoolExecutor(workers) as pool:
+            for b_idx, threads in enumerate((1, workers, workers, 1)):      # in turns, batches 0-3
+                t0 = time.perf_counter()
+                batch = loader._fetch(0, b_idx, perm, pool if threads > 1 else None)
+                (pool_ms if threads > 1 else alone_ms).append((time.perf_counter() - t0) * 1e3)
+        check(batch["raw_img"].dtype == np.uint8 and "img" not in batch, "raw batches carry uint8 frames, no crop")
+        print(f"phase 10: (e) one raw batch of B={bt} ({batch['raw_img'].nbytes / 2**20:.1f} MiB of frames) "
+              f"assembled by the host alone: {alone_ms} ms on one thread, {pool_ms} ms on the prefetcher's "
+              f"{workers} decode threads (batches 0-3 in turns; {os.cpu_count()} CPUs); with the host crop "
+              f"(phase 9 (b), this call): {host_crop['alone_ms']!r} ms and {host_crop['pool_ms']!r} ms")
+        out["train"] = {"alone_ms": alone_ms, "pool_ms": pool_ms, "raster": counts["rasterize_flat"]}
+        return out
     finally:
         tempfile.tempdir = saved_tempdir
         shutil.rmtree(root, ignore_errors=True)
@@ -1335,12 +1534,14 @@ def main():
     paths = timed(7, lambda: phase7_train_bf16(dev, card))
     k3 = timed(8, lambda: phase8_eval(dev, card))
     cli = timed(9, lambda: phase9_train_cli(dev, card))
+    evals = timed(10, lambda: phase10_eval_cli(dev, card, cli))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
                 f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
                 "library_ms": None, "unfused_ms": k1["unfused_ms"], "unfused_conv_ms": k1["unfused_conv_ms"],
-                "device_ms": k1["device_ms"], "mma_instructions": k1_report["mma"]}]
+                "device_ms": k1["device_ms"], "mma_instructions": k1_report["mma"],
+                "cli_eval_launches": {k: evals[k]["k1"] for k in ("pose", "pose_dp", "lsp", "coco")}}]
     raster_paths = {  # entry -> (the phase-7 path its launches are read from, its label)
         "rasterize_flat": ("pallas", "training step, IUVRenderer backend 'pallas', bf16, B=64, 1 step"),
         "rasterize_flat_masked": ("main", f"training step (the main path: closed atlas, culled), bf16, "
@@ -1354,12 +1555,16 @@ def main():
     for k in kernels:
         if k["name"] == "rasterize_flat":
             k["cli_launches"] = cli["launches"]   # in phase 9's training CLI, 4 steps
+            k["cli_device_preprocess_launches"] = evals["train"]["raster"]   # phase 10 (e), 4 steps
     kernels.append({"name": "rasterize_flat_banded", "route": "cuda", "source": RASTER_SOURCE,
                     "replaces": RASTER_REPLACES["rasterize_flat_banded"], "launches": k3["launches"],
                     "path": f"eval: run_lsp_eval with PartRenderer('pallas_banded'), Predictor bf16, "
                             f"{EVAL_BATCHES} batches of B={EVAL_BATCH}",
                     "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
                     "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None})
+    for k in kernels:
+        if k["name"] == evals["lsp"]["raster_entry"]:
+            k["cli_eval_lsp_launches"] = evals["lsp"]["raster"]    # phase 10 (b), 4 batches
     print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

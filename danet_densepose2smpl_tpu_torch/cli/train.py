@@ -12,8 +12,11 @@ Fixture run on the CPU:
   python -m danet_densepose2smpl_tpu_torch.cli.train --cpu --synthetic-data \\
       --img_size 64 --batch_size 2 --num_samples 4 --pretr_step 1 --num_epochs 1
 
-Runs on cuda:0 unless --cpu is given. --data_parallel (item 19) and
---device_preprocess (item 16) raise until their ROADMAP items are ported.
+Runs on cuda:0 unless --cpu is given. With --device_preprocess the host
+only decodes the frames (of one size) and augments the labels; the crop,
+rotation, flip, channel noise and normalization run on the card inside the
+step (`data/pipeline.device_preprocess_train`). --data_parallel (item 19)
+raises until its ROADMAP item is ported.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--img_size", type=int, default=None)
     p.add_argument("--data_parallel", action="store_true", help="shard the batch over all devices (not ported)")
     p.add_argument("--device_preprocess", action="store_true",
-                   help="crop, flip, noise and normalize on the card (not ported)")
+                   help="decode-only host path: raw frames go to the card, where crop, rotation, flip, "
+                        "noise and normalization run inside the train step (uniform frame sizes required)")
     # NB: --bf16 comes from add_common_args; for training it means mixed
     # precision (bf16 forward, fp32 master params/BN stats/losses)
     p.add_argument("--remat", action="store_true",
@@ -71,8 +75,6 @@ def setup(args):
     (device, cfg, train dataset, SMPL model, GT IUV renderer, fits)."""
     if args.data_parallel:
         raise NotImplementedError("--data_parallel is not ported to PyTorch yet (ROADMAP.md queue 1, item 19)")
-    if args.device_preprocess:
-        raise NotImplementedError("--device_preprocess is not ported to PyTorch yet (ROADMAP.md queue 1, item 16)")
     device = resolve_device(args)
 
     from danet_densepose2smpl_tpu_torch.config import load_config
@@ -115,14 +117,16 @@ def setup(args):
         tmp = tempfile.mkdtemp(prefix="danet_train_")
         npz, img_dir = write_synthetic_dataset(tmp, n=args.num_samples, with_dp=True)
         datasets["h36m"] = NpzDataset(npz, img_dir, name="h36m", is_train=True,
-                                      heatmap_size=cfg.danet.heatmap_size, uv_symmetry=uv_symmetry)
+                                      heatmap_size=cfg.danet.heatmap_size, uv_symmetry=uv_symmetry,
+                                      return_raw=args.device_preprocess)
         args.train_data = "single"
     else:
         for entry in args.datasets:
             name, rest = entry.split("=", 1)
             npz, _, img_dir = rest.partition(":")
             datasets[name] = NpzDataset(npz, img_dir or None, name=name, is_train=True,
-                                        heatmap_size=cfg.danet.heatmap_size, uv_symmetry=uv_symmetry)
+                                        heatmap_size=cfg.danet.heatmap_size, uv_symmetry=uv_symmetry,
+                                        return_raw=args.device_preprocess)
         if not datasets:
             raise SystemExit("--datasets required (or --synthetic-data)")
 
@@ -139,8 +143,9 @@ def setup(args):
     else:
         fits = FitsDict.from_datasets(datasets)
 
-    # --- image-size coherence for fixture runs (the dataset crops at 224) ---
-    if args.img_size is not None and args.img_size != 224:
+    # --- image-size coherence for fixture runs (the dataset crops at 224;
+    # the crop on the card emits cfg.danet.img_size crops from the frames) ---
+    if args.img_size is not None and args.img_size != 224 and not args.device_preprocess:
         train_ds = _Resize(train_ds, args.img_size)
 
     renderer = IUVRenderer(

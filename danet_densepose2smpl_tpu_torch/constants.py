@@ -42,6 +42,9 @@ J24_TO_J17 = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 18, 14, 16, 17]
 J24_TO_J14 = J24_TO_J17[:14]
 J24_TO_J19 = np.concatenate([J24_TO_J14, np.arange(19, 24, dtype=np.int32)])
 
+# 24 GT joints -> the 17 COCO keypoints (nose, eyes, ears, shoulders, ...).
+J24_TO_JCOCO = np.array([19, 20, 21, 22, 23, 9, 8, 10, 7, 11, 6, 3, 2, 4, 1, 5, 0], dtype=np.int32)
+
 # Horizontal flip: the left/right swap of the 24 SMPL joints, its expansion
 # to the 72-dim axis-angle pose, and the swaps of the 24 GT, 25 OpenPose
 # and 49 joints.

@@ -7,8 +7,9 @@ flip 1/2, channel noise, +-2*rot_factor rotation (zeroed w.p. 0.6),
 +-scale_factor scaling; rotation forced to 0 for DensePose samples. Each
 sample's augmentation comes from the `RandomState` its caller passes, so a
 loader that derives it from (seed, epoch, slot) replays a resumed epoch
-exactly. Items are numpy dicts with channels-last RGB crops, normalized.
-Images are read without cv2 (`data/image_io.py`).
+exactly. Items are numpy dicts with channels-last RGB crops, normalized,
+or with `return_raw` the decoded frame as uint8 for the crop on the card
+(`data/pipeline.py`). Images are read without cv2 (`data/image_io.py`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from danet_densepose2smpl_tpu_torch.constants import (
     SMPL_JOINTS_FLIP_PERM,
 )
 from danet_densepose2smpl_tpu_torch.data.dp_annot import dp_annot_process, empty_dp_dict
-from danet_densepose2smpl_tpu_torch.data.image_io import read_image
+from danet_densepose2smpl_tpu_torch.data.image_io import read_rgb
 from danet_densepose2smpl_tpu_torch.data.transforms import (
     crop,
     flip_img,
@@ -46,8 +47,13 @@ class AugmentConfig:
 
 
 class NpzDataset:
-    """One npz-backed dataset. `return_raw` (the full frame for an
-    augmentation on the card) is not ported yet and raises."""
+    """One npz-backed dataset.
+
+    `return_raw` emits the decoded full frame (`raw_img`, uint8 RGB) and
+    the channel noise (`pixel_noise`, float32) in place of `img`: the crop,
+    flip, noise and normalization then run on the card
+    (`data/pipeline.device_preprocess[_train]`), and batches need frames of
+    one size. The labels are still augmented here."""
 
     def __init__(
         self,
@@ -62,10 +68,7 @@ class NpzDataset:
         uv_symmetry=None,
         return_raw: bool = False,
     ):
-        if return_raw:
-            raise NotImplementedError(
-                "NpzDataset(return_raw=True) feeds the augmentation on the card, which is not ported "
-                "to PyTorch yet (ROADMAP.md queue 1, item 16)")
+        self.return_raw = return_raw
         self.name = name or os.path.basename(npz_path)
         self.img_dir = img_dir
         self.is_train = is_train
@@ -130,11 +133,11 @@ class NpzDataset:
         return flip, pn, rot, sc
 
     def _load_image(self, index: int) -> np.ndarray:
-        """RGB float32 (H, W, 3)."""
+        """RGB uint8 (H, W, 3)."""
         path = os.path.join(self.img_dir or "", str(self.imgname[index]))
         if not os.path.isfile(path):
             raise FileNotFoundError(path)
-        return read_image(path)
+        return read_rgb(path)
 
     def _j2d_processing(self, kp, center, scale, rot, flip):
         kp = kp.copy()
@@ -173,11 +176,16 @@ class NpzDataset:
         pose = self.pose[index].copy() if self.has_smpl[index] else np.zeros(72)
         betas = self.betas[index].copy() if self.has_smpl[index] else np.zeros(10)
 
-        rgb = crop(img, center, sc * scale, (IMG_RES, IMG_RES), rot=rot)
-        if flip:
-            rgb = flip_img(rgb)
-        rgb = np.clip(rgb * pn[None, None, :], 0, 255) / 255.0
-        item["img"] = ((rgb - IMG_NORM_MEAN) / IMG_NORM_STD).astype(np.float32)
+        if self.return_raw:
+            # the augmentation the card replays on the frame
+            item["raw_img"] = img
+            item["pixel_noise"] = pn.astype(np.float32)
+        else:
+            rgb = crop(img.astype(np.float32), center, sc * scale, (IMG_RES, IMG_RES), rot=rot)
+            if flip:
+                rgb = flip_img(rgb)
+            rgb = np.clip(rgb * pn[None, None, :], 0, 255) / 255.0
+            item["img"] = ((rgb - IMG_NORM_MEAN) / IMG_NORM_STD).astype(np.float32)
 
         pose[:3] = rot_aa_np(pose[:3], rot)
         if flip:

@@ -7,9 +7,10 @@ interlace) is decoded and encoded here and round-trips bit for bit with
 cv2's own PNG codec. JPEG goes through PIL; where PIL is missing, reading a
 JPEG raises and names the decoder that is missing.
 
-Arrays are RGB (or 2-D gray), uint8, as they are in the file; `read_image`
-gives the dataset's view: RGB float32 (H, W, 3), gray replicated, alpha
-dropped, as `cv2.imread(path)[:, :, ::-1].astype(np.float32)` gives it.
+Arrays are RGB (or 2-D gray), uint8, as they are in the file; `read_rgb`
+gives the dataset's view: RGB uint8 (H, W, 3), gray replicated, alpha
+dropped, as `cv2.imread(path)[:, :, ::-1]` gives it. `read_gray` reads a
+label PNG as `cv2.imread(path, 0)` does.
 """
 
 from __future__ import annotations
@@ -124,8 +125,21 @@ def read_png(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
-def read_image(path: str) -> np.ndarray:
-    """An image file -> RGB float32 (H, W, 3): PNG here, JPEG through PIL."""
+def read_gray(path: str) -> np.ndarray:
+    """A PNG file -> uint8 (H, W), as `cv2.imread(path, 0)` reads it: gray
+    as it is (alpha dropped); RGB and RGBA through libpng's rgb-to-gray,
+    which cv2's PNG decoder asks for with the weights (0.299, 0.587):
+    15-bit fixed-point coefficients (9797, 19234, 3737; they sum to 2^15,
+    so R == G == B reads back as it is), truncated."""
+    img = read_png(path)
+    if img.ndim == 2:
+        return img
+    r, g, b = (img[..., i].astype(np.uint32) for i in range(3))
+    return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """An image file -> RGB uint8 (H, W, 3): PNG here, JPEG through PIL."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob.startswith(PNG_SIGNATURE):
@@ -145,4 +159,4 @@ def read_image(path: str) -> np.ndarray:
         raise ValueError(f"{path}: neither PNG nor JPEG")
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
-    return img.astype(np.float32)
+    return img

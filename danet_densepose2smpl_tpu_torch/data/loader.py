@@ -21,7 +21,9 @@ import numpy as np
 
 def _collate(items: list) -> dict:
     """Stack a list of sample dicts into batched numpy arrays (strings stay
-    lists, nested dicts recurse)."""
+    lists, nested dicts recurse). Arrays of one key must share a shape:
+    raw frames (`NpzDataset(return_raw=True)`, `--device_preprocess`) of
+    different sizes raise a ValueError that says so."""
     out = {}
     for k in items[0]:
         vals = [it[k] for it in items]
@@ -30,7 +32,15 @@ def _collate(items: list) -> dict:
         elif isinstance(vals[0], str):
             out[k] = vals
         else:
-            out[k] = np.stack([np.asarray(v) for v in vals])
+            arrays = [np.asarray(v) for v in vals]
+            shapes = sorted({a.shape for a in arrays})
+            if len(shapes) > 1:
+                raise ValueError(
+                    f"cannot batch '{k}': its samples have shapes {shapes}. Raw frames "
+                    "(NpzDataset(return_raw=True), the --device_preprocess path) are cropped on the "
+                    "card as one batch, so every frame of a dataset must have the same size; "
+                    "run without --device_preprocess to crop frames of mixed sizes on the host")
+            out[k] = np.stack(arrays)
     return out
 
 

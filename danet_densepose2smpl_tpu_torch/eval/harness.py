@@ -4,9 +4,11 @@ Port of the JAX package's `eval/harness.py`: per batch, model inference ->
 SMPL forward -> H36M-regressor joints -> pelvis-centred MPJPE and
 Procrustes PA-MPJPE; gendered GT meshes for 3DPW; the H36M-P2 per-action
 table. The step runs on the device of the `para` that `infer_fn` returns;
-batches are dicts of numpy arrays, as the JAX harness takes them. The
-stages carry `record_function` ranges pose.infer / metrics / read for
-torch.profiler.
+batches are dicts of numpy arrays, as the JAX harness takes them. With
+`device_preprocess`, the batches carry the raw uint8 frames and the crop
+(`data/pipeline.device_preprocess`) runs on `device`, the model's device,
+before `infer_fn`. The stages carry `record_function` ranges pose.crop /
+infer / metrics / read for torch.profiler.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.constants import H36M_TO_J14, H36M_TO_J17, J24_TO_J14, J24_TO_J17
+from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess as crop_on_device
 from danet_densepose2smpl_tpu_torch.eval.metrics import compute_mpjpe
 from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
@@ -63,9 +66,9 @@ def h36m_action_of(imgname: str) -> str:
     return imgname.split("/")[-1].split(".")[0].split("_")[1]
 
 
-def _not_ported(device_preprocess: bool, mesh) -> None:
-    if device_preprocess:
-        raise NotImplementedError("device_preprocess: GPU ingest is not ported yet (ROADMAP item 16)")
+def _check_options(device_preprocess: bool, device, mesh) -> None:
+    if device_preprocess and device is None:
+        raise ValueError("device_preprocess crops on the model's device: pass device=")
     if mesh is not None:
         raise NotImplementedError("mesh: data-parallel eval is not ported yet (ROADMAP item 19)")
 
@@ -81,29 +84,36 @@ def make_eval_step(
     smpl_female: SMPLModel | None = None,
     device_preprocess: bool = False,
     mesh=None,
+    device=None,
 ):
     """One eval step: images (+GT) -> ((per-sample mpjpe, pa), para).
 
     `infer_fn(images) -> para (B, 229)` runs the model; the step follows
     `para`'s device and dtype, and moves the SMPL arrays, the regressor and
-    the GT there (once per device and dtype)."""
-    _not_ported(device_preprocess, mesh)
+    the GT there (once per device and dtype). With `device_preprocess`,
+    `images` are the raw (B, H, W, 3) uint8 frames, and `centers` /
+    `scales` place each crop; the crop runs on `device`."""
+    _check_options(device_preprocess, device, mesh)
     on = {}
 
-    def tables(device, dtype):
-        key = (str(device), dtype)
+    def tables(dev, dtype):
+        key = (str(dev), dtype)
         if key not in on:
             models = {"neutral": smpl_neutral}
             if use_gt_verts:
                 models.update(male=smpl_male, female=smpl_female)
-            on[key] = {k: to_torch(m, device, dtype) for k, m in models.items()} | {
-                "jreg": torch.as_tensor(np.asarray(j_regressor), device=device).to(dtype),
-                "mh": torch.as_tensor(np.asarray(joint_mapper_h36m), dtype=torch.long, device=device),
-                "mg": torch.as_tensor(np.asarray(joint_mapper_gt), dtype=torch.long, device=device)}
+            on[key] = {k: to_torch(m, dev, dtype) for k, m in models.items()} | {
+                "jreg": torch.as_tensor(np.asarray(j_regressor), device=dev).to(dtype),
+                "mh": torch.as_tensor(np.asarray(joint_mapper_h36m), dtype=torch.long, device=dev),
+                "mg": torch.as_tensor(np.asarray(joint_mapper_gt), dtype=torch.long, device=dev)}
         return on[key]
 
     @torch.inference_mode()
-    def step(images, gt_pose, gt_betas, gender, pose_3d):
+    def step(images, gt_pose, gt_betas, gender, pose_3d, centers=None, scales=None):
+        if device_preprocess:
+            with record_function("pose.crop"):
+                images = crop_on_device(torch.as_tensor(np.asarray(images)).to(device),
+                                        torch.as_tensor(np.asarray(centers)), torch.as_tensor(np.asarray(scales)))
         with record_function("pose.infer"):
             para = infer_fn(images)
         with record_function("pose.metrics"):
@@ -145,11 +155,14 @@ def run_pose_eval(
     log_every: int = 10,
     device_preprocess: bool = False,
     mesh=None,
+    device=None,
 ) -> PoseEvalResult:
     """Evaluate over `loader`: an iterable of (batch index, batch dict)
     with img (B, H, W, 3) normalized, pose (B, 72), betas (B, 10), gender
-    (B,), pose_3d (B, 24, 4) and sample_index (B,), numpy arrays."""
-    _not_ported(device_preprocess, mesh)
+    (B,), pose_3d (B, 24, 4) and sample_index (B,), numpy arrays; with
+    `device_preprocess`, raw_img (B, H, W, 3) uint8, center (B, 2) and
+    scale (B,) in place of img, cropped on `device` (the model's)."""
+    _check_options(device_preprocess, device, mesh)
     is_mpi = dataset_name == "mpi-inf-3dhp"
     mapper_h36m = H36M_TO_J17 if is_mpi else H36M_TO_J14
     mapper_gt = J24_TO_J17 if is_mpi else J24_TO_J14
@@ -158,12 +171,17 @@ def run_pose_eval(
     step = make_eval_step(
         infer_fn, smpl_neutral, j_regressor, mapper_h36m, mapper_gt,
         use_gt_verts, smpl_male or smpl_neutral, smpl_female or smpl_neutral,
+        device_preprocess=device_preprocess, device=device,
     )
 
     all_mpjpe, all_pa, all_idx = [], [], []
     for b, batch in loader:
-        (mpjpe, pa), _ = step(torch.as_tensor(np.asarray(batch["img"])), batch["pose"], batch["betas"],
-                              batch["gender"], batch["pose_3d"])
+        if device_preprocess:
+            images, extra = batch["raw_img"], (batch["center"], batch["scale"])
+        else:
+            images, extra = batch["img"], ()
+        (mpjpe, pa), _ = step(torch.as_tensor(np.asarray(images)), batch["pose"], batch["betas"],
+                              batch["gender"], batch["pose_3d"], *extra)
         with record_function("pose.read"):
             all_mpjpe.append(mpjpe.cpu().numpy())
             all_pa.append(pa.cpu().numpy())

@@ -4,7 +4,9 @@ Port of the body of the JAX package's `cli/eval.py::run_lsp_eval`
 (reference eval.py:218-266). Per batch: model inference -> SMPL -> the
 224 x 224 [mask, part] render (`PartRenderer`) -> `uncrop` into each
 image's original frame -> accuracy and per-class TP/FP/FN, counted on the
-device in int64 and read on the log lines and at the end.
+device in int64 and read on the log lines and at the end. With
+`device_preprocess` the batches carry raw frames, cropped on the model's
+device first (`data/pipeline.device_preprocess`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess as crop_on_device
 from danet_densepose2smpl_tpu_torch.data.transforms import uncrop
 from danet_densepose2smpl_tpu_torch.eval.metrics import SegmentationScores
 from danet_densepose2smpl_tpu_torch.kernels.part_renderer import PartRenderer
@@ -24,9 +27,11 @@ IGNORE = 255   # the part label of pixels the reference leaves out
 
 @torch.inference_mode()
 def run_lsp_eval(infer_fn, loader, smpl: SMPLModel, img_size: int = 224, face_parts: np.ndarray | None = None,
-                 backend: str = "auto", log_every: int = 10) -> dict:
+                 backend: str = "auto", log_every: int = 10, device_preprocess: bool = False,
+                 device=None) -> dict:
     """Score `loader`'s batches: an iterable of (batch index, dict) with img
-    (B, img_size, img_size, 3) normalized, center (B, 2), scale (B,),
+    (B, H, W, 3) normalized (with `device_preprocess`: raw_img, uint8
+    frames of one size, cropped on `device`), center (B, 2), scale (B,),
     orig_shape (B, 2) as (H, W), and either `gt_mask` and `gt_parts` (B
     label maps in original-image coordinates, the upi-s1h annotation PNGs
     as arrays; parts use 255 as ignore) or pose (B, 72) and betas (B, 10),
@@ -36,8 +41,10 @@ def run_lsp_eval(infer_fn, loader, smpl: SMPLModel, img_size: int = 224, face_pa
     runs on `para`'s device. `face_parts` and `backend` go to
     `PartRenderer`. Prints the reference's four "Final Results" lines and
     returns them as {name: value}. The stages of a batch carry
-    `record_function` ranges lsp.infer / render / uncrop / score for
+    `record_function` ranges lsp.crop / infer / render / uncrop / score for
     torch.profiler; nothing here turns it on."""
+    if device_preprocess and device is None:
+        raise ValueError("device_preprocess crops on the model's device: pass device=")
     if face_parts is not None:
         print("part labels: original cube_parts lookup")
     else:
@@ -51,8 +58,15 @@ def run_lsp_eval(infer_fn, loader, smpl: SMPLModel, img_size: int = 224, face_pa
     tables, warned = {}, False
 
     for b, batch in loader:
+        if device_preprocess:
+            with record_function("lsp.crop"):
+                images = crop_on_device(torch.as_tensor(np.asarray(batch["raw_img"])).to(device),
+                                        torch.as_tensor(np.asarray(batch["center"])),
+                                        torch.as_tensor(np.asarray(batch["scale"])))
+        else:
+            images = torch.as_tensor(np.asarray(batch["img"]))
         with record_function("lsp.infer"):
-            para = infer_fn(torch.as_tensor(np.asarray(batch["img"])))
+            para = infer_fn(images)
         dev = para.device
         key = (str(dev), para.dtype)
         if key not in tables:

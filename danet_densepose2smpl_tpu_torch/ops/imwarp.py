@@ -1,5 +1,6 @@
 """Differentiable image warping (port of the JAX `ops/imwarp.py`):
-bilinear grid-sample and the axis-aligned STN crops as interpolation
+bilinear grid-sample, affine crops (`affine_grid`, `affine_crop`: the
+ingest's crop on the card) and the axis-aligned STN crops as interpolation
 matrices (`_axis_weights`, `separable_crop` and its two layout variants).
 
 Convention: channels-last images (B, H, W, C); normalized coordinates in
@@ -90,3 +91,35 @@ def grid_sample_bilinear(images: torch.Tensor, grid: torch.Tensor) -> torch.Tens
     top = gather(y0, x0) * (1 - tx) + gather(y0, x0 + 1) * tx
     bot = gather(y0 + 1, x0) * (1 - tx) + gather(y0 + 1, x0 + 1) * tx
     return top * (1 - ty) + bot * ty
+
+
+def div(t: torch.Tensor, d: float) -> torch.Tensor:
+    """t / d, correctly rounded on every device. PyTorch's CUDA kernels
+    divide by a Python number as a product with its reciprocal (one bit
+    off), which its CPU kernels and JAX do not; a tensor divisor keeps the
+    IEEE division, so the card's crops equal the CPU's."""
+    return t / torch.full((), d, dtype=t.dtype, device=t.device)
+
+
+def affine_grid(theta: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Sampling grid of a 2x3 affine map over normalized coordinates.
+
+    theta: (..., 2, 3) maps output normalized (x, y, 1) to input normalized
+    coordinates (`F.affine_grid` semantics, align_corners=False). Returns
+    (..., S, S, 2) in theta's dtype. The three products and two sums run
+    elementwise, so no matrix unit (TF32 on the card) rounds a sample
+    position, as `Precision.HIGHEST` keeps the JAX contraction exact."""
+    base = div(2.0 * torch.arange(out_size, dtype=theta.dtype, device=theta.device) + 1.0, out_size) - 1.0
+    gx, gy = base[None, :], base[:, None]                     # (1, S) varies in x, (S, 1) in y
+    t = theta[..., None, None]                                # (..., 2, 3, 1, 1)
+    rows = [t[..., i, 0, :, :] * gx + t[..., i, 1, :, :] * gy + t[..., i, 2, :, :] for i in (0, 1)]
+    return torch.stack(rows, dim=-1)
+
+
+def affine_crop(images: torch.Tensor, theta: torch.Tensor, out_size: int) -> torch.Tensor:
+    """K affine crops of each image: images (B, H, W, C), theta (B, K, 2, 3)
+    -> (B, K, S, S, C), bilinear with zero padding (`grid_sample_bilinear`
+    on the grids of all K crops at once)."""
+    b, k = theta.shape[:2]
+    grid = affine_grid(theta, out_size).reshape(b, k * out_size, out_size, 2)
+    return grid_sample_bilinear(images, grid).reshape(b, k, out_size, out_size, images.shape[-1])

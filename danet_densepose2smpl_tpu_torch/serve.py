@@ -70,24 +70,41 @@ class Predictor:
     """DaNet + SMPL on one device.
 
     device: where the model and SMPL arrays live (required: no silent
-    default); dtype: torch.float32 or torch.bfloat16; state_dict: weights to
-    load (e.g. from `port.state_dict_from_flax`), else seeded random
-    weights from `seed`.
+    default); dtype: torch.float32 or torch.bfloat16; model: a built DaNet
+    to serve (the eval CLIs pass the one `cli/common.build_model_and_params`
+    loaded; it is moved and cast in place), else one built from `cfg` with
+    `state_dict`'s weights (e.g. from `port.state_dict_from_flax`), else
+    seeded random weights from `seed`.
     """
 
     def __init__(self, device, dtype: torch.dtype = torch.float32, cfg: DaNetConfig | None = None,
-                 state_dict: dict | None = None, seed: int = 0, smpl: SMPLModel | None = None):
+                 state_dict: dict | None = None, seed: int = 0, smpl: SMPLModel | None = None,
+                 model: nn.Module | None = None):
         if dtype not in SERVING_DTYPES:
             raise ValueError(f"serving dtype must be one of {SERVING_DTYPES}, got {dtype}")
         self.device = torch.device(device)
         self.dtype = dtype
-        model = DaNet(cfg)
-        if state_dict is not None:
-            model.load_state_dict(state_dict)
-        else:
-            random_init_(model, seed)
-        self.model = model.to(device=self.device, dtype=dtype, memory_format=torch.channels_last)
+        if model is None:
+            model = DaNet(cfg)
+            if state_dict is not None:
+                model.load_state_dict(state_dict)
+            else:
+                random_init_(model, seed)
+        self.model = model.eval().to(device=self.device, dtype=dtype, memory_format=torch.channels_last)
         self.smpl = to_torch(smpl if smpl is not None else synthetic_smpl_model(), self.device)
+
+    @torch.inference_mode()
+    def run_model(self, images_nhwc) -> dict:
+        """The DaNet outputs of (B, H, W, 3) normalized RGB (numpy or
+        tensor): para (fp32) and the estimator's maps under iuv_raw (in the
+        serving dtype; `iuv_raw['index']` holds the (B, S, S, 25) part-index
+        logits), without SMPL."""
+        if isinstance(images_nhwc, np.ndarray):
+            images_nhwc = torch.from_numpy(images_nhwc)
+        x = images_nhwc.to(device=self.device, dtype=self.dtype)
+        fp32 = full_fp32() if self.dtype == torch.float32 else contextlib.nullcontext()
+        with record_function("serve.model"), fp32:
+            return self.model(x)
 
     @torch.inference_mode()
     def predict(self, images_nhwc) -> dict:
@@ -97,12 +114,7 @@ class Predictor:
         pred_rotmat (B, 24, 3, 3), vertices (B, V, 3) and joints (B, 49, 3),
         all fp32 (the regressor promotes to fp32 from its first graph
         stage, as JAX's bf16 path does)."""
-        if isinstance(images_nhwc, np.ndarray):
-            images_nhwc = torch.from_numpy(images_nhwc)
-        x = images_nhwc.to(device=self.device, dtype=self.dtype)
-        fp32 = full_fp32() if self.dtype == torch.float32 else contextlib.nullcontext()
-        with record_function("serve.model"), fp32:
-            out = self.model(x)
+        out = self.run_model(images_nhwc)
         with record_function("serve.smpl"):
             body = smpl_forward(self.smpl, out["pred_shape"].float(), out["pred_rotmat"].float())
         return {

@@ -12,9 +12,13 @@ optimizer moments, BatchNorm statistics, GT preparation, SMPL and every
 loss stay fp32, as in `step.py:93-99` of the JAX package. The geometry
 (SMPL chain, crops, raster) runs in matmuls and the raster kernel, never
 in TF32: PyTorch leaves `torch.backends.cuda.matmul.allow_tf32` off, and
-nothing here turns it on. The stages carry `record_function` ranges
-(train.prepare_targets, .forward, .losses, .backward, .optimizer) for
-`torch.profiler`; outside a profile they cost a few microseconds a step.
+nothing here turns it on. A batch of raw uint8 frames (`raw_img`, from
+`NpzDataset(return_raw=True)`) is first cropped, flipped, noised and
+normalized on the model's device, in fp32 and outside autocast
+(`data/pipeline.device_preprocess_train`). The stages carry
+`record_function` ranges (train.ingest, .prepare_targets, .forward,
+.losses, .backward, .optimizer) for `torch.profiler`; outside a profile
+they cost a few microseconds a step.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.config import Config
+from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess_train
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.train.objective import compute_losses
 from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
@@ -78,7 +83,8 @@ def create_train_state(model: torch.nn.Module, cfg: Config) -> TrainState:
 
 def batch_to_device(batch: dict, device, float_dtype: torch.dtype = torch.float32) -> dict:
     """Numpy or tensor batch (nested dicts allowed) -> tensors on `device`,
-    floating arrays as `float_dtype`."""
+    floating arrays as `float_dtype`; integer arrays (the uint8 raw frames)
+    keep their dtype, so frames cross to the card as bytes."""
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
@@ -103,8 +109,10 @@ def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, render
     """Build step(state, batch, generator) -> (state, metrics).
 
     `smpl` holds numpy arrays (moved to the model's device at first use) or
-    tensors. When the batch carries raw GT (`opt_pose`, no `opt_rotmat`),
-    the step first runs `prepare_targets`, GT IUV raster included. In
+    tensors. A batch with `raw_img` and `pixel_noise` (raw frames) gets its
+    `img` from `device_preprocess_train` at `cfg.danet.img_size` first.
+    When the batch carries raw GT (`opt_pose`, no `opt_rotmat`), the step
+    then runs `prepare_targets`, GT IUV raster included. In
     `pretrain_mode` the regressor does not run; its parameters still take
     an optimizer step with zero gradients, as optax applies one."""
     schedule = make_lr_schedule(cfg)
@@ -117,6 +125,12 @@ def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, render
         if device not in smpl_on:
             smpl_on[device] = smpl if torch.is_tensor(smpl.v_template) else to_torch(smpl, device)
         smpl_t = smpl_on[device]
+        if "raw_img" in batch:
+            with record_function("train.ingest"):
+                batch = dict(batch)
+                batch["img"] = device_preprocess_train(
+                    batch.pop("raw_img"), batch["center"], batch["scale"], batch["rot_angle"],
+                    batch["is_flipped"], batch.pop("pixel_noise"), out_size=cfg.danet.img_size)
         if "opt_pose" in batch and "opt_rotmat" not in batch:
             with record_function("train.prepare_targets"):
                 batch = prepare_targets(cfg, smpl_t, batch, renderer=renderer, is_itw=is_itw)

@@ -75,13 +75,39 @@ def test_cli_train_end_to_end_and_resume(workdir):
 
 @pytest.mark.parametrize("flag,message", [
     (["--data_parallel"], "item 19"),
-    (["--device_preprocess"], "item 16"),
     (["--remat"], "item 13"),
-], ids=["data_parallel", "device_preprocess", "remat"])
+], ids=["data_parallel", "remat"])
 def test_cli_unported_options_raise(flag, message, workdir, monkeypatch):
     monkeypatch.setattr("tempfile.tempdir", str(workdir))
     with pytest.raises(NotImplementedError, match=message):
         cli_train.main(["--cpu", *FIXTURE, "--log_dir", str(workdir), *flag])
+
+
+def test_cli_train_device_preprocess_and_resume(workdir, monkeypatch):
+    """--device_preprocess (item 16; it raised until it was ported): the
+    dataset emits raw uint8 frames and no host crop, the step crops them
+    on the model's device at the config's 64 px (no host resize), and a
+    second run on the same directory resumes at the first one's end."""
+    from danet_densepose2smpl_tpu_torch.data import pipeline
+
+    monkeypatch.setattr("tempfile.tempdir", str(workdir))
+    sizes = []
+    real = pipeline.device_preprocess_train
+
+    def watched(images, *args, **kw):
+        out = real(images, *args, **kw)
+        sizes.append((images.dtype, tuple(images.shape[1:]), tuple(out.shape[1:])))
+        return out
+
+    monkeypatch.setattr("danet_densepose2smpl_tpu_torch.train.step.device_preprocess_train", watched)
+    argv = ["--cpu", *FIXTURE, "--log_dir", str(workdir), "--name", "raw", "--device_preprocess"]
+    first = cli_train.main(argv + ["--num_epochs", "1"])
+    assert first.state.step == 2
+    second = cli_train.main(argv + ["--num_epochs", "2"])
+    assert tuple(second.resume) == (1, 0, 2) and second.state.step == 4
+    assert sizes == [(torch.uint8, (256, 256, 3), (64, 64, 3))] * 4
+    rows = [json.loads(line) for line in open(workdir / "raw" / "metrics.jsonl")]
+    assert [r["step"] for r in rows] == [1, 2, 3, 4] and all(np.isfinite(r["loss_total"]) for r in rows)
 
 
 def test_cli_without_a_card_raises(workdir, monkeypatch):

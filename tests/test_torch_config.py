@@ -18,7 +18,7 @@ from danet_densepose2smpl_tpu_torch import config, constants
 
 CLASSES = ["Config", "DaNetConfig", "RefinementConfig", "SolverConfig", "TrainConfig"]
 CONSTANTS = ["FOCAL_LENGTH", "IMG_RES", "JOINT_MAP_TO_EXTENDED", "H36M_TO_J17", "H36M_TO_J14",
-             "J24_TO_J17", "J24_TO_J14", "J24_TO_J19", "NUM_DP_PATCHES", "NUM_DP_PARTS",
+             "J24_TO_J17", "J24_TO_J14", "J24_TO_J19", "J24_TO_JCOCO", "NUM_DP_PATCHES", "NUM_DP_PARTS",
              "IUV_CHANNELS", "ANN_CHANNELS", "INDEX2ANN_GROUPS", "IMG_NORM_MEAN", "IMG_NORM_STD",
              "SMPL_JOINTS_FLIP_PERM", "SMPL_POSE_FLIP_PERM", "J24_FLIP_PERM", "OP25_FLIP_PERM", "J49_FLIP_PERM"]
 

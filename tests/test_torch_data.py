@@ -285,7 +285,7 @@ def _encode_png_filtered(img: np.ndarray, color: int) -> bytes:
 def test_png_read_all_filters_equals_cv2(color, channels, tmp_path):
     """Files whose rows use every filter type, read here and by
     `cv2.imread`: the same pixels, bit for bit (`read_png` as the file
-    holds them, `read_image` as the dataset reads them)."""
+    holds them, `read_rgb` as the dataset reads them)."""
     rng = np.random.RandomState(color)
     base = np.cumsum(rng.randint(0, 9, (31, 45, channels)), axis=1)   # smooth rows and random ones
     img = np.where(rng.rand(31, 1, 1) < 0.5, base, rng.randint(0, 256, base.shape)).astype(np.uint8)
@@ -299,7 +299,7 @@ def test_png_read_all_filters_equals_cv2(color, channels, tmp_path):
     if color == 4:       # cv2 keeps gray+alpha as two channels; the reader keeps the gray
         want = want[..., 0]
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(image_io.read_image(path), cv2.imread(path)[:, :, ::-1].astype(np.float32))
+    np.testing.assert_array_equal(image_io.read_rgb(path), cv2.imread(path)[:, :, ::-1])
 
 
 @pytest.mark.parametrize("shape", [(33, 47), (33, 47, 3), (256, 256, 3)])
@@ -313,7 +313,28 @@ def test_png_write_read_round_trips_with_cv2(shape, tmp_path):
     np.testing.assert_array_equal(got if img.ndim == 2 else got[..., ::-1], img)
     cv2.imwrite(theirs, img if img.ndim == 2 else img[..., ::-1])
     np.testing.assert_array_equal(image_io.read_png(theirs), img)
-    np.testing.assert_array_equal(image_io.read_image(theirs), cv2.imread(theirs)[:, :, ::-1].astype(np.float32))
+    np.testing.assert_array_equal(image_io.read_rgb(theirs), cv2.imread(theirs)[:, :, ::-1])
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4], ids=["gray", "gray+alpha", "rgb", "rgba"])
+def test_read_gray_equals_cv2_grayscale(channels, tmp_path):
+    """A label PNG read as `cv2.imread(path, 0)` reads it (the LSP GT):
+    gray as it is; colour through libpng's fixed-point rgb-to-gray,
+    bit for bit, grays (R == G == B) unchanged."""
+    rng = np.random.RandomState(channels)
+    img = rng.randint(0, 256, (23, 37, channels)).astype(np.uint8)
+    if channels >= 3:
+        img[:5, :5, :3] = img[:5, :5, :1]          # gray pixels in a colour file
+    path = str(tmp_path / "label.png")
+    if channels == 2:
+        with open(path, "wb") as f:
+            f.write(_encode_png_filtered(img, 4))
+    else:
+        cv2.imwrite(path, img[..., 0] if channels == 1 else img[..., [2, 1, 0, 3][:channels]])
+    want = cv2.imread(path, 0)
+    got = image_io.read_gray(path)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
 
 
 def test_read_image_jpeg_and_refusals(tmp_path):
@@ -322,14 +343,14 @@ def test_read_image_jpeg_and_refusals(tmp_path):
     img = (np.random.RandomState(8).rand(40, 50, 3) * 255).astype(np.uint8)
     path = str(tmp_path / "x.jpg")
     cv2.imwrite(path, img[..., ::-1])
-    got = image_io.read_image(path)
-    want = cv2.imread(path)[:, :, ::-1].astype(np.float32)
-    assert got.shape == want.shape and got.dtype == np.float32
-    assert np.abs(got - want).mean() < 2.0
+    got = image_io.read_rgb(path)
+    want = cv2.imread(path)[:, :, ::-1]
+    assert got.shape == want.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(np.float32) - want).mean() < 2.0
     bad = tmp_path / "x.bmp"
     cv2.imwrite(str(bad), img)
     with pytest.raises(ValueError, match="neither PNG nor JPEG"):
-        image_io.read_image(str(bad))
+        image_io.read_rgb(str(bad))
 
 
 # --------------------------------------------------------------------------
@@ -494,11 +515,46 @@ def test_npz_dataset_items_match_jax(which, datasets):
 
 
 def test_npz_dataset_eval_mode_and_return_raw(datasets):
+    """Eval-mode items equal JAX's; with `return_raw` (the frames for the
+    crop on the card), in eval and in train mode, so are the items: the
+    raw frame (uint8 RGB) bit for bit, the channel noise and every
+    augmented label exactly, and no host crop."""
     ours, theirs = _pair(datasets, "plain", is_train=False, ignore_3d=True)
     assert_tree_equal(ours.__getitem__(4, rng=np.random.RandomState(0)),
                       theirs.__getitem__(4, rng=np.random.RandomState(0)))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        NpzDataset(datasets[0][0], datasets[0][1], return_raw=True)
+    seen = set()
+    for which, kw in (("plain", {"is_train": False}), ("plain", {}), ("dp_flip", {})):
+        ours, theirs = _pair(datasets, which, return_raw=True, **kw)
+        for index, seed in ((0, 0), (3, 5), (7, 11), (11, 2)):
+            a = ours.__getitem__(index, rng=np.random.RandomState(seed))
+            b = theirs.__getitem__(index, rng=np.random.RandomState(seed))
+            assert "img" not in a and a["raw_img"].dtype == np.uint8 and a["pixel_noise"].dtype == np.float32
+            assert_tree_equal(a, b, f"{which}[{index}]")
+            seen.add((bool(a["is_flipped"]), bool(a["rot_angle"] != 0)))
+    assert (True, False) in seen and any(rot for _, rot in seen), seen
+
+
+def test_collate_refuses_frames_of_mixed_sizes(tmp_path):
+    """Raw frames of two sizes cannot form one batch for the crop on the
+    card: the loader says so (and names --device_preprocess), where
+    numpy's stack would give its own message."""
+    a = write_synthetic_dataset(str(tmp_path / "a"), n=2, seed=1, img_size=64)
+    b = write_synthetic_dataset(str(tmp_path / "b"), n=2, seed=2, img_size=80)
+    parts = [NpzDataset(*a, name="a", return_raw=True), NpzDataset(*b, name="b", return_raw=True)]
+
+    class Both:                  # rows 0-1 of frames of 64 px, rows 2-3 of 80 px
+        def __len__(self):
+            return 4
+
+        def __getitem__(self, i, rng=None):
+            return parts[i // 2].__getitem__(i % 2, rng=rng)
+
+    batches = loader.ResumableLoader(Both(), 4, shuffle=False).epoch(0)
+    with pytest.raises(ValueError, match="raw_img.*same size.*--device_preprocess"):
+        next(batches)
+    same = loader.ResumableLoader(NpzDataset(*a, name="a", return_raw=True), 2, shuffle=False)
+    _, batch = next(same.epoch(0))
+    assert batch["raw_img"].shape == (2, 64, 64, 3) and batch["raw_img"].dtype == np.uint8
 
 
 def test_mixed_dataset_draws_match_jax(datasets):

@@ -209,11 +209,32 @@ def test_run_pose_eval_per_action_matches_jax(x64_mode, capsys):
 
 
 def test_unported_eval_options_raise():
-    for kw, item in (({"device_preprocess": True}, "item 16"), ({"mesh": object()}, "item 19")):
-        with pytest.raises(NotImplementedError, match=item):
-            harness.run_pose_eval(None, [], "h36m-p1", synthetic_smpl_model(NV), None, **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            harness.make_eval_step(None, None, None, None, None, False, **kw)
+    """mesh= (data-parallel eval, item 19) raises. device_preprocess
+    (item 16) is ported: it needs the device the crop runs on, and then
+    the step takes raw uint8 frames with their centres and scales and
+    hands the model normalized 224 px crops (`tests/test_torch_ingest.py`
+    holds its results against JAX's)."""
+    with pytest.raises(NotImplementedError, match="item 19"):
+        harness.run_pose_eval(None, [], "h36m-p1", synthetic_smpl_model(NV), None, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 19"):
+        harness.make_eval_step(None, None, None, None, None, False, mesh=object())
+    with pytest.raises(ValueError, match="device="):
+        harness.run_pose_eval(None, [], "h36m-p1", synthetic_smpl_model(NV), None, device_preprocess=True)
+    with pytest.raises(ValueError, match="device="):
+        harness.make_eval_step(None, None, None, None, None, False, device_preprocess=True)
+    seen = []
+
+    def infer(img):
+        seen.append((img.dtype, tuple(img.shape)))
+        return _t(_fixed_para(2, 1))
+
+    batch = _pose_batches(1, 2, 3)[0]
+    step = harness.make_eval_step(infer, synthetic_smpl_model(NV), harness.synthetic_h36m_regressor(NV), np.arange(14),
+                                  np.arange(14), False, device_preprocess=True, device="cpu")
+    frames = np.random.RandomState(4).randint(0, 256, (2, 50, 40, 3)).astype(np.uint8)
+    (m, pa), _ = step(_t(frames), batch["pose"], batch["betas"], batch["gender"], batch["pose_3d"],
+                      np.array([[20.0, 25.0], [18.0, 30.0]], np.float32), np.array([0.2, 0.15], np.float32))
+    assert seen == [(torch.float32, (2, 224, 224, 3))] and bool(torch.isfinite(m).all() & torch.isfinite(pa).all())
 
 
 # --------------------------------------------------------------------------

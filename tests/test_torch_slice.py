@@ -126,8 +126,9 @@ def test_unported_configs_raise():
 
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port (serve, train, data, eval, the
-    kernels, and the training entry point with its ingest, loaders,
-    trainer and checkpoints included) from a directory that holds the port
+    kernels, the training entry point with its ingest, loaders, trainer
+    and checkpoints, the eval entry points, the COCO harness and the
+    ingest on the card included) from a directory that holds the port
     alone works, and leaves jax, flax and the JAX package out of
     sys.modules."""
     (tmp_path / "danet_densepose2smpl_tpu_torch").symlink_to(REPO / "danet_densepose2smpl_tpu_torch")
@@ -140,6 +141,8 @@ def test_port_imports_no_jax(tmp_path):
         "import danet_densepose2smpl_tpu_torch.cli.train, danet_densepose2smpl_tpu_torch.train.trainer\n"
         "import danet_densepose2smpl_tpu_torch.data.dataset, danet_densepose2smpl_tpu_torch.data.loader\n"
         "import danet_densepose2smpl_tpu_torch.core.checkpoint, danet_densepose2smpl_tpu_torch.data.image_io\n"
+        "import danet_densepose2smpl_tpu_torch.cli.eval, danet_densepose2smpl_tpu_torch.cli.eval_coco\n"
+        "import danet_densepose2smpl_tpu_torch.data.pipeline, danet_densepose2smpl_tpu_torch.eval.coco_harness\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
