@@ -6,13 +6,14 @@ Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout and drives the serving slice (full HRNet-W48 DaNet
 + SMPL, seeded random weights), the training slice (the full DaNet
 training step), the eval path, the training CLI and the eval CLIs on the
-card. The synthetic raw batches get 2D keypoints
+card, then the demo, the training visualization and the offline
+preprocessing. The synthetic raw batches get 2D keypoints
 that their poses explain (`posed_keypoints`), so the fitted cameras frame
 body-sized silhouettes. In phases:
 
   0. environment: a CUDA card of capability 9.0, versions, the card's name
-     and power limit, whether yaml, PIL (and its JPEG decoder), matplotlib
-     and torchvision import; build both kernels (one nvcc each, started together)
+     and power limit, whether yaml, PIL (and its JPEG decoder) and
+     torchvision import; build both kernels (one nvcc each, started together)
      and print the compilers' `-Xptxas -v` reports; for each K1 kernel its
      registers, spill stores and the count of tensor-core instructions
      (HMMA/HGMMA) in the built library's SASS (`cuobjdump --dump-sass`):
@@ -128,7 +129,31 @@ body-sized silhouettes. In phases:
      `rasterize_flat` each step), then the host ms to assemble one raw
      B=64 batch on one thread and on the prefetcher's decode threads
      (batches 0-3, in turns), beside phase 9 (b)'s host-crop figure of
-     the same call.
+     the same call;
+ 11. the demo, the training visualization and the offline preprocessing,
+     over files written under build/chip_smoke_demo and removed: (a)
+     `render_shaded` (the demo's shaded views: one `rasterize_flat` call
+     per image, a 1-channel face texture) on the full synthetic SMPL body
+     (6,890 vertices, 13,776 faces) under cameras fitted to posed
+     keypoints, B=4, 224 px, yaw 0 and 90, against its plain version on
+     the CPU (the shading, then the banded plain raster, bit-identical to
+     `rasterize_flat_plain`; at most PIXELS_OFF_MAX of the pixels differ,
+     foreground > 2%), then its time by CUDA events at B=1 and B=4 beside the raster
+     calls alone and the plain version, the pairs enumerated and
+     `raster_bound`'s bound; (b) `cli.demo.main` in-process with the
+     default config (HRNet-W48, 224 px), seeded random weights and
+     synthetic assets over 8 PNG frames of 448x448, 300x200, 200x300 and
+     640x480 px, once in fp32 and once with `--bf16`: one readable,
+     non-constant composite per input with tiles of the expected sizes, K1
+     launched once and `rasterize_flat` three times per image (counts
+     zeroed before each run, read after), and the host ms per image after
+     the first by `demo.*` range; (c) `Trainer._save_vis` at full width
+     (bf16) on a B=64 host-cropped batch and on a raw
+     (`--device_preprocess`) batch: both PNGs written, K1 once and the
+     raster 5 times (the IUV render and 4 shaded views), and its ms; (d)
+     `cli.preprocess` on a synthetic densepose_coco json of 256
+     annotations: GO, the npz written, and one B=64 batch with DensePose
+     blobs assembled from it by `NpzDataset`.
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
@@ -136,8 +161,10 @@ describing each kernel (with the path its launch count was read from;
 `rasterize_flat` also has `cli_launches` and
 `cli_device_preprocess_launches`, its counts in phase 9 (a) and 10 (e);
 `part_crop_head` has `cli_eval_launches`, its counts in phase 10 (a)-(c);
-the raster entry of the LSP CLI has `cli_eval_lsp_launches`), and
-`{"ok": true, "device": {...}}`.
+the raster entry of the LSP CLI has `cli_eval_lsp_launches`; the K1 and
+`rasterize_flat` entries have `demo_launches` and `vis_launches`, their
+counts in phase 11 (b) and (c), and `rasterize_flat` has `shaded`, phase
+11 (a)'s numbers), and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -268,12 +295,11 @@ def phase0_environment():
 def import_probe() -> dict:
     """{module: version, or why it does not import} for the optional modules
     the port's host code may use: yaml (`config.load_config`), PIL (JPEG
-    images), matplotlib (training visualization, not ported) and
-    torchvision (unused)."""
+    images) and torchvision (unused)."""
     import importlib
 
     out = {}
-    for name in ("yaml", "PIL", "matplotlib", "torchvision"):
+    for name in ("yaml", "PIL", "torchvision"):
         try:
             out[name] = getattr(importlib.import_module(name), "__version__", "imports (no __version__)")
         except ImportError as e:
@@ -1104,17 +1130,19 @@ def phase8_eval(dev, card) -> dict:
           "K3 on the eval's predicted bodies: not bit-equal to the rasterize_flat kernel")
     check(torch.equal(img0, R._launch(vpx0, faces_s, tex_s, s, 224.0, route="tiles")),
           "K3 on the eval's predicted bodies: the pair kernel and the tile kernel differ")
+    own_plain = lambda: R.rasterize_flat_banded_plain(vpx0, faces_s, tex_s, s, 224.0, 256)   # noqa: E731
+    check(torch.equal(img0, own_plain()), "K3 on the eval's predicted bodies: not bit-equal to its plain version")
     own_calls = {"K3": lambda: R.rasterize_flat_banded(vpx0, faces_s, tex_s, s),
                  "rasterize_flat": lambda: R.rasterize_flat(vpx0, faces_s, tex_s, s),
-                 "tiles": lambda: R._launch(vpx0, faces_s, tex_s, s, 224.0, route="tiles")}
+                 "tiles": lambda: R._launch(vpx0, faces_s, tex_s, s, 224.0, route="tiles"), "plain": own_plain}
     own = {name: [] for name in own_calls}
-    for name in ("K3", "rasterize_flat", "tiles", "tiles", "rasterize_flat", "K3"):
-        own[name].append(cuda_ms(own_calls[name], 20))
+    for name in ("K3", "rasterize_flat", "tiles", "plain", "plain", "tiles", "rasterize_flat", "K3"):
+        own[name].append(cuda_ms(own_calls[name], 1 if name == "plain" else 20))
     _, pairs = R._launch(vpx0, faces_s, tex_s, s, 224.0, with_pairs=True)
     _, stats = pair_stats(vpx0, faces_s, s)
     print(f"phase 8: (c) the eval's render of batch 0's predicted bodies, B={EVAL_BATCH} S={s}: K3 {own['K3']} ms, "
-          f"rasterize_flat {own['rasterize_flat']} ms, tile kernel {own['tiles']} ms (CUDA events, mean of 20, in "
-          f"turns); bound {raster_bound(vpx0, faces_s, tex_s, s)!r} (ms, by); foreground "
+          f"rasterize_flat {own['rasterize_flat']} ms, tile kernel {own['tiles']} ms, plain version (banded, on "
+          f"the card, chunk 256) {own['plain']} ms (CUDA events, mean of 20 / 1 call, in turns); bound {raster_bound(vpx0, faces_s, tex_s, s)!r} (ms, by); foreground "
           f"{(img0[..., 0] > 0).float().mean().item()!r}; pairs enumerated {int(pairs.item())}, in the exact boxes "
           f"{exact_box_pairs(vpx0, faces_s, s)}; {stats}; card {card}")
     expected = {  # one K1 launch a batch; one raster launch for the prediction and one for the GT fallback
@@ -1513,6 +1541,220 @@ def phase10_eval_cli(dev, card, host_crop: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+DEMO_FRAMES = ((448, 448), (300, 200), (200, 300), (640, 480)) * 2     # (width, height): 8 frames
+DP_JSON_ANNOTATIONS = 256
+
+
+class RangeClock:
+    """A stand-in for `torch.profiler.record_function` in a module that
+    imports it: it opens the real range and appends the host ms of each
+    use to `ms[name]`."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def __call__(self, name):
+        import contextlib
+
+        from torch.profiler import record_function
+
+        @contextlib.contextmanager
+        def timed():
+            t0 = time.perf_counter()
+            with record_function(name):
+                yield
+            self.ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+
+        return timed()
+
+
+def phase11_demo_vis(dev, card) -> dict:
+    """(a) `render_shaded` on the card against its plain version on the CPU;
+    (b) the demo CLI in-process in fp32 and bf16; (c) the Trainer's vis step
+    on a host-cropped and a raw batch; (d) the offline DensePose-COCO
+    preprocessing CLI. Data under build/chip_smoke_demo, removed."""
+    import shutil
+    import tempfile
+
+    from danet_densepose2smpl_tpu_torch.cli import demo as cli_demo
+    from danet_densepose2smpl_tpu_torch.cli import preprocess as cli_preprocess
+    from danet_densepose2smpl_tpu_torch.cli import train as cli_train
+    from danet_densepose2smpl_tpu_torch.config import Config
+    from danet_densepose2smpl_tpu_torch.data.dataset import NpzDataset
+    from danet_densepose2smpl_tpu_torch.data.image_io import read_png, write_png
+    from danet_densepose2smpl_tpu_torch.data.loader import ResumableLoader
+    from danet_densepose2smpl_tpu_torch.data.synthetic import (
+        DP_COCO_KINDS,
+        synthetic_raw_batch,
+        write_synthetic_dp_coco_json,
+    )
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import fused_part_predict
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model, to_torch
+    from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device
+    from danet_densepose2smpl_tpu_torch.train.trainer import Trainer
+    from danet_densepose2smpl_tpu_torch.utils.vis import DEMO_PANELS
+
+    def counted(fn):
+        """fn() with K1's and `rasterize_flat`'s launch counts zeroed just
+        before it; (its result, the counts read just after it)."""
+        fused_part_predict.launches = R.rasterize_flat.launches = 0
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {"part_crop_head": fused_part_predict.launches, "rasterize_flat": R.rasterize_flat.launches}
+
+    out = {}
+    # (a) render_shaded: the full synthetic SMPL body (6,890 vertices,
+    # 13,776 faces) under the cameras prepare_targets fits to posed
+    # keypoints, B=4, 224 px, the card against the plain version on the CPU
+    cfg = Config()
+    smpl = synthetic_smpl_model()
+    raw = posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, 4, seed=60), seed=61)
+    prep = prepare_targets(cfg, to_torch(smpl, dev), batch_to_device(raw, dev))
+    verts, cam = prep["target_verts"], prep["target_cam"]
+    faces = torch.as_tensor(smpl.faces.astype(np.int64), device=dev)
+    shaded = {}
+    for yaw in (0.0, 90.0):
+        got, counts = counted(lambda: R.render_shaded(verts, faces, cam, yaw_deg=yaw))
+        # the plain version on the CPU: the shading, then per image the
+        # banded plain raster (bit-identical to `rasterize_flat_plain`,
+        # tests/test_torch_raster.py, and ~10x faster on these faces)
+        vpx_c, shade_c = R.shaded_faces(verts.cpu(), faces.cpu(), cam.cpu(), yaw_deg=yaw)
+        plain_ms = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            img = R.rasterize_flat_banded_plain(vpx_c[i:i + 1], faces.cpu(), shade_c[i][:, None], 224, 224.0)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            exp = img if i == 0 else torch.cat([exp, img])
+        exp = exp[..., 0]
+        off = got.cpu() != exp
+        frac = off.double().mean().item()
+        fg = (exp > 0).double()
+        err = (got.cpu().double() - exp.double()).abs().max().item()
+        print(f"phase 11: (a) render_shaded yaw {yaw}, B=4, 224 px, {faces.shape[0]} faces: {int(off.sum())} of "
+              f"{off.numel()} pixels differ from the plain version on the CPU ({frac!r}), max abs err {err!r}, "
+              f"foreground {fg.mean().item()!r} (per image {fg.mean((1, 2)).tolist()}); launches {counts}")
+        check(tuple(got.shape) == (4, 224, 224) and bool(torch.isfinite(got).all()), "render_shaded: shape")
+        check(counts["rasterize_flat"] == 4, f"render_shaded: {counts} for 4 images")
+        check(frac <= PIXELS_OFF_MAX, f"render_shaded yaw {yaw}: {frac} of the pixels differ")
+        check(fg.mean().item() > 0.02 and bool((fg.mean((1, 2)) > 0).all()), f"render_shaded yaw {yaw}: foreground")
+        for b in (1, 4):
+            v, c = verts[:b], cam[:b]
+            ms = [cuda_ms(lambda: R.render_shaded(v, faces, c, yaw_deg=yaw), 20) for _ in range(2)]
+            vpx, shade = R.shaded_faces(v, faces, c, yaw_deg=yaw)
+            tex = [shade[i][:, None].contiguous() for i in range(b)]
+            raster_ms = [cuda_ms(lambda: [R._launch(vpx[i:i + 1], faces, tex[i], 224, 224.0) for i in range(b)], 20)
+                         for _ in range(2)]
+            pairs = sum(int(R._launch(vpx[i:i + 1], faces, tex[i], 224, 224.0, with_pairs=True)[1].item())
+                        for i in range(b))
+            exact = sum(exact_box_pairs(vpx[i:i + 1], faces, 224) for i in range(b))
+            bnd = bound(nbytes(v, faces, c) + b * 224 * 224 * 4, exact * RASTER_OPS_PER_CANDIDATE, "fp32")
+            shaded[(yaw, b)] = {"ms": min(ms), "raster_ms": min(raster_ms), "plain_ms": sum(plain_ms[:b]),
+                                "bound_ms": bnd[0], "bound_by": bnd[1], "pairs": pairs, "max_abs_err": err}
+            print(f"phase 11: (a) render_shaded yaw {yaw} B={b}: {ms} ms a call (CUDA events, mean of 20, twice; "
+                  f"shading + {b} rasterize_flat calls), the raster calls alone {raster_ms} ms; the plain raster "
+                  f"on the CPU {sum(plain_ms[:b])!r} ms (host clock, banded, {b} call(s) of {plain_ms}); pairs the "
+                  f"kernel enumerated {pairs}, {exact} in the exact boxes; bound {bnd!r} (ms, by); library call: "
+                  f"none; card {card}")
+    out["shaded"] = shaded
+
+    root = os.path.join(REPO, "build", "chip_smoke_demo")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, root      # cli.train's setup writes its datasets there
+    try:
+        # (b) the demo CLI, in-process, default config (W48, 224 px), seeded
+        # random weights and synthetic assets, over 8 PNG frames of mixed sizes
+        frames = os.path.join(root, "frames")
+        os.makedirs(frames)
+        rng = np.random.RandomState(70)
+        for i, (w, h) in enumerate(DEMO_FRAMES):
+            write_png(os.path.join(frames, f"frame_{i}_{w}x{h}.png"), rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        widths = [224, 224, 224, 336, 224, 224]          # the part grid is 4 x 6 tiles of 56 px
+        demo = {}
+        for mode in ("fp32", "bf16"):
+            argv = ["--synthetic-assets", "--imglist", frames, "--out_dir", os.path.join(root, f"out_{mode}")]
+            argv += ["--bf16"] if mode == "bf16" else []
+            clock = RangeClock()
+            real, cli_demo.record_function = cli_demo.record_function, clock
+            try:
+                t0 = time.perf_counter()
+                results, counts = counted(lambda: cli_demo.main(argv))
+                wall = time.perf_counter() - t0
+            finally:
+                cli_demo.record_function = real
+            check(len(results) == len(DEMO_FRAMES), f"demo {mode}: {len(results)} composites")
+            for r in results:
+                img = read_png(r["out_path"])
+                check(img.shape == (224, sum(widths), 3) and img.std() > 0, f"demo {mode}: {r['out_path']} {img.shape}")
+                check([t for t, _ in r["panels"]] == list(DEMO_PANELS), f"demo {mode}: panels")
+                check([p.shape[1] * 224 // p.shape[0] for _, p in r["panels"]] == widths, f"demo {mode}: tile sizes")
+                check(bool(np.isfinite(r["para"]).all()), f"demo {mode}: para finite")
+            n = len(DEMO_FRAMES)
+            check(counts == {"part_crop_head": n, "rasterize_flat": 3 * n},
+                  f"demo {mode}: launches {counts}, expected {n} of K1 and {3 * n} of rasterize_flat")
+            per_image = {k: float(np.mean(v[1:])) for k, v in clock.ms.items()}
+            demo[mode] = {"launches": counts, "ms_by_range": per_image}
+            print(f"phase 11: (b) cli.demo {' '.join(argv)}: {n} composites of 224 x {sum(widths)} px in {wall!r} s "
+                  f"(model build included); launches {counts}; host ms per image after the first, by range "
+                  f"{per_image} (each: {clock.ms}); card {card}")
+        out["demo"] = demo
+
+        # (c) the Trainer's vis step at full width, bf16, B=64, on the batch of
+        # the host crop and on a raw batch (--device_preprocess)
+        vis = {}
+        argv = ["--synthetic-data", "--num_samples", str(TRAIN_BATCH), "--batch_size", str(TRAIN_BATCH), "--bf16",
+                "--vis_interval", "1", "--log_dir", root, "--name", "vis"]
+        _, tcfg, ds, tsmpl, renderer, fits = cli_train.setup(cli_train.build_parser().parse_args(argv))
+        _, _, raw_ds, _, _, _ = cli_train.setup(cli_train.build_parser().parse_args(argv + ["--device_preprocess"]))
+        trainer = Trainer(tcfg, ds, tsmpl, renderer, fits, os.path.join(root, "vis"), device=dev)
+        for name, d in (("host_crop", ds), ("raw", raw_ds)):
+            batch = trainer._device_batch(next(iter(ResumableLoader(d, TRAIN_BATCH, seed=0).epoch(0)))[1])
+            check(("raw_img" in batch) == (name == "raw"), f"vis {name}: batch keys")
+            _, counts = counted(lambda: trainer._save_vis(batch, 1))
+            t0 = time.perf_counter()
+            trainer._save_vis(batch, 2)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            main_png = read_png(os.path.join(root, "vis", "vis", "step_0000002.png"))
+            parts_png = read_png(os.path.join(root, "vis", "vis", "step_0000002_parts.png"))
+            print(f"phase 11: (c) Trainer._save_vis, bf16, B={TRAIN_BATCH} batch ({name}): {ms!r} ms (host clock, the "
+                  f"second call, ends in the PNG writes); launches {counts}; sheets {main_png.shape} and "
+                  f"{parts_png.shape}; card {card}")
+            check(main_png.shape == (4 * 224, 4 * 224, 3) and main_png.std() > 0, f"vis {name}: {main_png.shape}")
+            check(parts_png.shape == (224, 2 * 336, 3) and parts_png.std() > 0, f"vis {name}: {parts_png.shape}")
+            check(counts == {"part_crop_head": 1, "rasterize_flat": 5},
+                  f"vis {name}: launches {counts}, expected 1 of K1 and 5 of rasterize_flat (the IUV render, 4 shaded)")
+            vis[name] = {"launches": counts, "ms": ms}
+        out["vis"] = vis
+
+        # (d) the offline preprocessing: a synthetic densepose_coco json of
+        # 256 annotations -> GO, the npz, one batch through NpzDataset
+        src, img_dir = os.path.join(root, "dp_coco.json"), os.path.join(root, "dp_images")
+        write_synthetic_dp_coco_json(src, DP_JSON_ANNOTATIONS, n_images=32, img_dir=img_dir,
+                                     kinds=DP_COCO_KINDS[:-1])          # no degenerate boxes
+        npz = os.path.join(root, "dp_coco.npz")
+        t0 = time.perf_counter()
+        rc = cli_preprocess.main(["--json", src, "--out", npz])
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        check(rc == 0 and os.path.isfile(npz), f"cli.preprocess: exit code {rc}")
+        dp_ds = NpzDataset(npz, img_dir, name="dp_coco", heatmap_size=56)
+        t0 = time.perf_counter()
+        _, batch = next(iter(ResumableLoader(dp_ds, TRAIN_BATCH, seed=0).epoch(0)))
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        check(batch["img"].shape == (TRAIN_BATCH, 224, 224, 3) and bool((batch["has_dp"] == 1).all())
+              and batch["dp_dict"]["point_weights"].sum() > 0, "cli.preprocess: a batch with DensePose blobs")
+        print(f"phase 11: (d) cli.preprocess on {DP_JSON_ANNOTATIONS} annotations: GO, {len(dp_ds)} samples in "
+              f"{pre_ms!r} ms (host); one B={TRAIN_BATCH} batch with DensePose blobs from NpzDataset in "
+              f"{batch_ms!r} ms (host, one thread)")
+        out["preprocess"] = {"samples": len(dp_ds), "ms": pre_ms}
+        return out
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
@@ -1535,6 +1777,7 @@ def main():
     k3 = timed(8, lambda: phase8_eval(dev, card))
     cli = timed(9, lambda: phase9_train_cli(dev, card))
     evals = timed(10, lambda: phase10_eval_cli(dev, card, cli))
+    demo = timed(11, lambda: phase11_demo_vis(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
                 f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
@@ -1565,6 +1808,11 @@ def main():
     for k in kernels:
         if k["name"] == evals["lsp"]["raster_entry"]:
             k["cli_eval_lsp_launches"] = evals["lsp"]["raster"]    # phase 10 (b), 4 batches
+        if k["name"] in ("part_crop_head", "rasterize_flat"):    # phase 11 (b), (c)
+            k["demo_launches"] = {m: demo["demo"][m]["launches"][k["name"]] for m in ("fp32", "bf16")}
+            k["vis_launches"] = {b: demo["vis"][b]["launches"][k["name"]] for b in ("host_crop", "raw")}
+        if k["name"] == "rasterize_flat":                        # phase 11 (a): render_shaded, 224 px, C=1
+            k["shaded"] = {f"yaw{int(yaw)}_B{b}": v for (yaw, b), v in demo["shaded"].items()}
     print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

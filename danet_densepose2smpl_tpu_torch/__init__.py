@@ -19,12 +19,15 @@ Layer map:
              atlas and its flip symmetry
   data/      SPIN-format npz datasets and augmentation, the resumable and
              prefetching loaders, image files and transforms without cv2,
-             synthetic fixtures
+             the offline DensePose-COCO preprocessing, synthetic fixtures
   train/     GT preparation, the loss assembly, the training step, the
              fits store and the Trainer
   core/      torch checkpoints with mid-epoch resume, metric logging
-  eval/      pose MPJPE / PA-MPJPE and the LSP segmentation eval
-  cli/       `python -m danet_densepose2smpl_tpu_torch.cli.train`
+  eval/      pose MPJPE / PA-MPJPE, the LSP segmentation eval, COCO OKS AP
+  utils/     the demo's and the training summaries' panels and PNGs
+             (numpy; no cv2, no matplotlib)
+  cli/       `python -m danet_densepose2smpl_tpu_torch.cli.<name>`: train,
+             eval, eval_coco, demo, preprocess
   port.py    flax variables -> this package's state_dict
   serve.py   `Predictor`: one request = one batch of images -> SMPL
 

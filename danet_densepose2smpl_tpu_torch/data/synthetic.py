@@ -1,14 +1,16 @@
-"""Synthetic fixtures (numpy): the raw training batch and the SPIN-format
-dataset on disk.
+"""Synthetic fixtures (numpy): the raw training batch, the SPIN-format
+dataset on disk, and a densepose_coco json for the offline preprocessing.
 
-Copies of the JAX package's `data/synthetic.py::synthetic_raw_batch` and
-`write_synthetic_dataset` (the JAX `data` package imports JAX); the same
-seed gives the same arrays and columns, pinned by tests. The dataset's
-images are PNG, written without cv2.
+`synthetic_raw_batch` and `write_synthetic_dataset` are copies of the JAX
+package's `data/synthetic.py` functions (the JAX `data` package imports
+JAX); the same seed gives the same arrays and columns, pinned by tests.
+The dataset's images are PNG, written without cv2.
+`write_synthetic_dp_coco_json` is the port's own.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -164,3 +166,76 @@ def write_synthetic_dataset(
     npz_path = os.path.join(out_dir, "labels.npz")
     np.savez(npz_path, **cols)
     return (npz_path, img_dir, annot_dir) if with_lsp_masks else (npz_path, img_dir)
+
+
+DP_COCO_KINDS = ("plain", "crowd", "compressed", "no_kps", "empty_kps", "many", "no_dp", "odd")
+
+
+def _dp_coco_annotation(rng: np.random.RandomState, aid: int, image_id: int, kind: str) -> dict:
+    """One densepose_coco annotation of the kind named: 'plain'; 'crowd'
+    (iscrowd with DensePose labels); 'compressed' (every mask a compressed
+    RLE string; other kinds mix both variants); 'no_kps' (no keypoints
+    key); 'empty_kps' (an empty list); 'many' (over 196 points); 'no_dp'
+    (no DensePose labels: the converter drops it); 'odd' (a patch id, a
+    point and a U out of range and a zero-width box: preflight warnings)."""
+    from danet_densepose2smpl_tpu_torch.data.rle import compress_counts, encode_rle
+
+    ann = {"id": aid, "image_id": image_id, "iscrowd": int(kind == "crowd"),
+           "bbox": [float(v) for v in rng.uniform(5, 60, 2)] + [float(v) for v in rng.uniform(30, 150, 2)]}
+    kps = np.stack([rng.uniform(0, 200, 17), rng.uniform(0, 200, 17), rng.randint(0, 3, 17)], 1)
+    ann["keypoints"] = kps.reshape(-1).tolist()
+    ann["num_keypoints"] = int((kps[:, 2] > 0).sum())
+    if kind == "no_dp":
+        return ann
+    if kind == "no_kps":
+        del ann["keypoints"]
+    if kind == "empty_kps":
+        ann["keypoints"] = []
+    masks = []
+    for _ in range(14):
+        if rng.rand() < 0.4:
+            masks.append([])
+            continue
+        m = np.zeros((256, 256), np.uint8)
+        y0, x0 = rng.randint(0, 200, 2)
+        m[y0:y0 + rng.randint(5, 56), x0:x0 + rng.randint(5, 56)] = 1
+        rle = encode_rle(m)
+        if kind == "compressed" or rng.rand() < 0.3:
+            rle = {"size": rle["size"], "counts": compress_counts(rle["counts"]).decode("ascii")}
+        masks.append(rle)
+    ann["dp_masks"] = masks
+    n = rng.randint(210, 260) if kind == "many" else rng.randint(1, 120)
+    ann["dp_I"] = rng.randint(1, 25, n).astype(float).tolist()
+    ann["dp_U"] = rng.rand(n).tolist()
+    ann["dp_V"] = rng.rand(n).tolist()
+    ann["dp_x"] = rng.uniform(0, 256, n).tolist()
+    ann["dp_y"] = rng.uniform(0, 256, n).tolist()
+    if kind == "odd":
+        ann["dp_I"][0] = 25.0
+        ann["dp_x"][0] = 300.0
+        ann["dp_U"][0] = 1.5
+        ann["bbox"][2] = 0.0
+    return ann
+
+
+def write_synthetic_dp_coco_json(path: str, n: int, seed: int = 0, n_images: int = 6, kinds=DP_COCO_KINDS,
+                                 img_dir: str | None = None, frame_size=(240, 320)) -> dict:
+    """Write a densepose_coco json of `n` annotations over `n_images`
+    frames (`COCO_train2014_<i>.png`), the `kinds` in turn (see
+    `_dp_coco_annotation`), and return it; with `img_dir`, also the frames
+    as random RGB PNGs of `frame_size` (height, width)."""
+    from danet_densepose2smpl_tpu_torch.data.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = frame_size
+    db = {"images": [{"id": 100 + i, "file_name": f"COCO_train2014_{i:012d}.png", "height": h, "width": w}
+                     for i in range(n_images)],
+          "annotations": [_dp_coco_annotation(rng, i + 1, 100 + i % n_images, kinds[i % len(kinds)])
+                          for i in range(n)]}
+    with open(path, "w") as f:
+        json.dump(db, f)
+    if img_dir is not None:
+        os.makedirs(img_dir, exist_ok=True)
+        for im in db["images"]:
+            write_png(os.path.join(img_dir, im["file_name"]), rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    return db

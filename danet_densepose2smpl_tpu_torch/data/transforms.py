@@ -4,8 +4,10 @@ Port of the JAX package's `data/transforms.py` (SPIN convention: the
 bounding box is `center` and a square of 200 * `scale` pixels): the
 training crop (`crop`, cv2's `warpAffine(INTER_LINEAR)` reproduced in
 numpy), the point transforms, the flips and the global-orientation
-rotation of the dataset's augmentation, and `uncrop`, which pastes label
-maps back into original-image coordinates on their device.
+rotation of the dataset's augmentation, the demo's frame preparation
+(`demo_frame`: square padding, cv2's bilinear resize, normalization), and
+`uncrop`, which pastes label maps back into original-image coordinates on
+their device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from danet_densepose2smpl_tpu_torch.constants import (
+    IMG_NORM_MEAN,
+    IMG_NORM_STD,
     IMG_RES,
     J24_FLIP_PERM,
     J49_FLIP_PERM,
@@ -111,26 +115,49 @@ def crop(img: np.ndarray, center, scale, res=(IMG_RES, IMG_RES), rot: float = 0.
     return _fma32(ay, bottom - top, top)
 
 
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) linear interpolation matrix with cv2's half-pixel
-    centres, clamped at both borders."""
+def _resize_taps(n_in: int, n_out: int):
+    """(first source index, second, weight of the second) per output
+    index of a linear resize with cv2's half-pixel centres, clamped at
+    both borders; float32 weights, as cv2 keeps them."""
     f = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
     s = np.floor(f).astype(np.int64)
     a = (f - s).astype(np.float32)
     a[s < 0], s[s < 0] = 0, 0
     a[s >= n_in - 1], s[s >= n_in - 1] = 0, n_in - 1
-    w = np.zeros((n_out, n_in), np.float32)
-    np.add.at(w, (np.arange(n_out), s), 1 - a)
-    np.add.at(w, (np.arange(n_out), np.minimum(s + 1, n_in - 1)), a)
-    return w
+    return s, np.minimum(s + 1, n_in - 1), a
 
 
 def resize_bilinear(img: np.ndarray, size) -> np.ndarray:
     """(H, W, C) float image -> (size[0], size[1], C), bilinear: what
-    `cv2.resize(img, (size[1], size[0]))` computes (within 1e-4 on float32
-    images, `tests/test_torch_data.py`)."""
-    wy, wx = _resize_weights(img.shape[0], int(size[0])), _resize_weights(img.shape[1], int(size[1]))
-    return np.einsum("yh,hwc,xw->yxc", wy, np.asarray(img, np.float32), wx).astype(np.float32)
+    `cv2.resize(img, (size[1], size[0]))` computes on float32 (two taps a
+    pass, the horizontal pass first; within 1e-4 of cv2 on 0-255 images,
+    `tests/test_torch_data.py`)."""
+    img = np.asarray(img, np.float32)
+    x0, x1, ax = _resize_taps(img.shape[1], int(size[1]))
+    y0, y1, ay = _resize_taps(img.shape[0], int(size[0]))
+    ax, ay = ax[:, None], ay[:, None, None]
+    rows = img[:, x0] * (np.float32(1) - ax) + img[:, x1] * ax
+    return (rows[y0] * (np.float32(1) - ay) + rows[y1] * ay).astype(np.float32)
+
+
+def pad_to_square(img: np.ndarray) -> np.ndarray:
+    """(H, W, ...) -> (S, S, ...), S = max(H, W): zeros at the bottom and
+    the right, as `cv2.copyMakeBorder(img, 0, S - H, 0, S - W,
+    cv2.BORDER_CONSTANT)` pads."""
+    h, w = img.shape[:2]
+    side = max(h, w)
+    out = np.zeros((side, side) + img.shape[2:], img.dtype)
+    out[:h, :w] = img
+    return out
+
+
+def demo_frame(rgb: np.ndarray, size: int = IMG_RES) -> np.ndarray:
+    """The demo's frame preparation (JAX `cli/demo.py:73-79`): an RGB
+    uint8 frame (H, W, 3), padded to a square at the bottom and right,
+    resized to (size, size) as cv2's `INTER_LINEAR` does on float32, scaled
+    to [0, 1] and ImageNet-normalized -> float32 (size, size, 3)."""
+    img = resize_bilinear(pad_to_square(np.asarray(rgb).astype(np.float32)), (size, size)) / 255.0
+    return ((img - IMG_NORM_MEAN) / IMG_NORM_STD).astype(np.float32)
 
 
 def flip_img(img: np.ndarray) -> np.ndarray:

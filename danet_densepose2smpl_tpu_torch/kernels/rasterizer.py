@@ -16,6 +16,9 @@ One hand-written kernel file serves four entry points, one per JAX function:
                          `rasterize_flat`; its plain version sorts faces by
                          y (`band_setup`) and skips chunks per tile
 
+`render_shaded` (the demo's and the training vis's shaded mesh) calls
+`rasterize_flat` once per image with a 1-channel face texture.
+
 Each dispatches on the device of `verts_px`: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, which launches or raises. In fp32 the
 kernel's unit of work is the (pixel centre, face) pair inside the face's
@@ -615,3 +618,67 @@ class IUVRenderer:
             return rasterize_flat_culled(verts_px, faces, tex, *args, self.chunk,
                                          self.cull_budget_frac)
         return rasterize_flat(verts_px, faces, tex, *args, self.chunk)
+
+
+def _cross(a, b):
+    """a x b over the last axis, each component a difference of two
+    products taken as separate ops: the card rounds as the CPU does (no
+    contraction into fused multiply-adds)."""
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+
+
+def _dot3(a, b):
+    """sum_i a_i b_i over a last axis of 3, as explicit products and sums
+    (no TF32, no contraction)."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def shaded_faces(verts, faces, cam, orig_size: float = 224.0, light_dir=(0.0, 0.0, -1.0),
+                 ambient: float = 0.35, yaw_deg: float = 0.0):
+    """`render_shaded`'s raster inputs: (verts_px (B, V, 3), the pixel-space
+    projection after the optional yaw of `yaw_deg` about the mesh centre;
+    shade (B, F), ambient + (1 - ambient) * |n . l| per face, double-sided).
+
+    The rotation and the shading are explicit sums of products, so they
+    never run in TF32 on the card. The mesh centre is summed in f64 and
+    the shades are computed in f64, each then rounded to the vertices'
+    dtype, so the card and the CPU agree on them (in fp32 the card's
+    shades came an ulp off the CPU's on 4e-4 of the pixels); R is built
+    from deg2rad(yaw) in the vertices' dtype, as JAX builds it (in fp32,
+    cos(pi/2) is -4.4e-8)."""
+    dtype = verts.dtype
+    if yaw_deg:
+        rad = torch.deg2rad(torch.tensor(float(yaw_deg), dtype=dtype))
+        cy, sy = torch.cos(rad).item(), torch.sin(rad).item()
+        center = verts.double().mean(dim=1, keepdim=True).to(dtype)
+        x, y, z = (verts - center).unbind(-1)
+        verts = torch.stack([x * cy + z * sy, y, z * cy - x * sy], dim=-1) + center
+    tri = verts[:, faces, :].double()                                 # (B, F, 3, 3)
+    n = _cross(tri[:, :, 1] - tri[:, :, 0], tri[:, :, 2] - tri[:, :, 0])
+    n = n / torch.sqrt(_dot3(n, n)).clamp_min(1e-9)[..., None]
+    light = torch.as_tensor(light_dir, dtype=torch.float64)
+    light = (light / torch.linalg.norm(light)).to(verts.device)
+    shade = ambient + (1.0 - ambient) * _dot3(n, light).abs()
+    return project_weak_perspective(verts, cam, orig_size), shade.to(dtype)
+
+
+def render_shaded(verts, faces, cam, out_size: int = 224, orig_size: float = 224.0,
+                  light_dir=(0.0, 0.0, -1.0), ambient: float = 0.35, yaw_deg: float = 0.0,
+                  chunk: int = 1024):
+    """Lambert-shaded mesh render (the JAX `kernels/rasterizer.py::
+    render_shaded`, the demo's shaded panels): flat per-face shading
+    ambient + (1 - ambient) * |n . l| (double-sided), after an optional yaw
+    of `yaw_deg` about the mesh centre for a side view (`shaded_faces`).
+    verts: (B, V, 3) SMPL-space vertices; faces: (F, 3); cam: (B, 3).
+    Returns (B, S, S) in [0, 1], background 0.
+
+    One `rasterize_flat` call per image, as in JAX: each image has its own
+    face shades, a 1-channel face texture. On a CUDA tensor each call is
+    the raster kernel; on a CPU tensor, its plain version."""
+    faces = torch.as_tensor(faces, device=verts.device).long()
+    verts_px, shade = shaded_faces(verts, faces, cam, orig_size, light_dir, ambient, yaw_deg)
+    outs = [rasterize_flat(verts_px[b:b + 1], faces, shade[b][:, None], out_size, orig_size, chunk)
+            for b in range(verts.shape[0])]
+    return torch.cat(outs, dim=0)[..., 0]

@@ -1,5 +1,5 @@
-"""IUV map codec (port of the JAX `ops/iuvmap.py::iuvmap_clean` and
-`iuv_img2map` without its `uv_rois` branch).
+"""IUV map codec (port of the JAX `ops/iuvmap.py::iuvmap_clean`,
+`iuv_img2map` and `iuv_map2img`, without their `uv_rois` branches).
 
 "img" form: (B, H, W, 3) channels (I/24, U, V); "maps" form: per-channel
 stacks (B, H, W, 25) for U/V/Index and a 15-channel ann stack.
@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from danet_densepose2smpl_tpu_torch.constants import IUV_CHANNELS, NUM_DP_PATCHES, index2ann_matrix
+from danet_densepose2smpl_tpu_torch.ops.imwarp import div
 
 
 def one_hot_argmax(x: torch.Tensor) -> torch.Tensor:
@@ -39,3 +40,27 @@ def iuv_img2map(uv_images: torch.Tensor):
     v = index_oh * uv_images[..., 2:3]
     ann = index_oh @ torch.as_tensor(index2ann_matrix(), dtype=uv_images.dtype, device=uv_images.device)
     return u, v, index_oh, ann
+
+
+def iuv_map2img(u_map, v_map, index_map, ann_map=None, ind_mapping=None):
+    """(U, V, Index[, Ann]) stacks (B, H, W, K) -> IUV image (B, H, W, 3).
+
+    The winning index channel becomes I/(K-1), or `ind_mapping[winner]/24`
+    when a per-channel id map is given (the 7-channel partial part
+    stacks); U and V are gathered from the winner, and channel 0
+    (background) contributes none. With `ann_map`, pixels whose ann
+    argmax is 0 become background."""
+    k = index_map.shape[-1]
+    winner = torch.argmax(index_map, dim=-1)
+    if ann_map is not None:
+        winner = winner * (torch.argmax(ann_map, dim=-1) > 0).to(winner.dtype)
+    if ind_mapping is None:
+        i_chan = div(winner.to(u_map.dtype), float(k - 1))
+    else:
+        lut = torch.as_tensor([int(i) for i in ind_mapping], dtype=u_map.dtype, device=u_map.device)
+        i_chan = div(lut, float(NUM_DP_PATCHES))[winner]
+    fg = F.one_hot(winner, k).to(u_map.dtype)
+    fg[..., 0] = 0
+    u_chan = (fg * u_map).sum(-1)
+    v_chan = (fg * v_map).sum(-1)
+    return torch.stack([i_chan, u_chan, v_chan], dim=-1)

@@ -5,8 +5,9 @@
 mask with the patch symmetry list and the per-patch UV symmetry transform
 images (`UV_symmetry_transforms.mat`). The tables load from the official
 .mat; `synthetic_uv_symmetry` is a chart-mirror stand-in that keeps
-asset-free pipelines runnable. The surface lookups `iuv_to_face_bc` and
-`fbc_to_surface` are not ported yet (ROADMAP item 18.3).
+asset-free pipelines runnable. The surface lookups `iuv_to_face_bc`
+(chart point -> face and barycentrics) and `fbc_to_surface` (-> a 3D
+point on the SMPL surface) are numpy copies of the JAX functions.
 
 Warnings here are `warnings.warn` at one place each, so Python's default
 filter shows each once per process.
@@ -114,3 +115,49 @@ def get_symmetric_densepose(I, U, V, x, y, mask, sym: UVSymmetry):
     mask_out = MASK_SYMMETRY[mask_flip]
     x_sym = mask_flip.shape[1] - np.asarray(x)
     return I_sym, U_sym, V_sym, x_sym, np.asarray(y), mask_out.astype(mask.dtype)
+
+
+def iuv_to_face_bc(atlas, i_point: int, u_point: float, v_point: float):
+    """Chart (I, U, V) -> (face index, barycentric coords), vectorized over
+    the patch's faces: the first face whose 2D triangle holds the point,
+    else the face of the nearest corner, with that corner's coordinate 1
+    (reference IUV2FBC, densepose_methods.py:99-132). `atlas` is a
+    `DensePoseAtlas`."""
+    face_ids = np.flatnonzero(atlas.face_indices == i_point)
+    tris = atlas.faces[face_ids]                               # (F, 3)
+    pu = atlas.u_norm[tris]
+    pv = atlas.v_norm[tris]
+    p = np.array([u_point, v_point])
+
+    a = np.stack([pu[:, 0], pv[:, 0]], axis=1)
+    b = np.stack([pu[:, 1], pv[:, 1]], axis=1)
+    c = np.stack([pu[:, 2], pv[:, 2]], axis=1)
+    v0 = b - a
+    v1 = c - a
+    v2 = p[None, :] - a
+    d00 = (v0 * v0).sum(1)
+    d01 = (v0 * v1).sum(1)
+    d11 = (v1 * v1).sum(1)
+    d20 = (v2 * v0).sum(1)
+    d21 = (v2 * v1).sum(1)
+    denom = d00 * d11 - d01 * d01
+    denom = np.where(np.abs(denom) < 1e-12, 1e-12, denom)
+    r = (d11 * d20 - d01 * d21) / denom
+    t = (d00 * d21 - d01 * d20) / denom
+    inside = (r >= 0) & (t >= 0) & (r + t <= 1)
+    if inside.any():
+        k = int(np.flatnonzero(inside)[0])
+        return int(face_ids[k]), float(1 - r[k] - t[k]), float(r[k]), float(t[k])
+
+    d = np.stack([((a - p) ** 2).sum(1), ((b - p) ** 2).sum(1), ((c - p) ** 2).sum(1)])   # (3, F)
+    corner, k = np.unravel_index(np.argmin(d), d.shape)
+    bc = np.zeros(3)
+    bc[corner] = 1.0
+    return int(face_ids[k]), float(bc[0]), float(bc[1]), float(bc[2])
+
+
+def fbc_to_surface(atlas, face_index: int, bc, vertices: np.ndarray) -> np.ndarray:
+    """(face, barycentrics) + SMPL vertices (V, 3) -> the 3D surface point
+    (reference FBC2PointOnSurface, densepose_methods.py:134-142)."""
+    vert_ids = atlas.vert_mapping[atlas.faces[face_index]]
+    return (vertices[vert_ids] * np.asarray(bc)[:, None]).sum(axis=0)

@@ -6,8 +6,9 @@ An epoch loop with mid-epoch resume; `step < pretr_step` runs the IUV-only
 pretrain step, later steps the full one; a checkpoint every
 `checkpoint_steps`, scalar summaries every `summary_steps`, and a
 wall-clock budget (`time_to_run`) that checkpoints and returns, for
-requeue environments. The host runs the input pipeline and the fits
-lookup; the step runs on the model's device.
+requeue environments; every `vis_interval` steps, two PNGs of panels
+(`_save_vis`). The host runs the input pipeline and the fits lookup; the
+step runs on the model's device.
 
 The step's noise (STN jitter, PartDrop) comes from a `torch.Generator` on
 the model's device seeded from (train.seed + 1, step), as the JAX step
@@ -17,6 +18,7 @@ generator state in the checkpoint.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -27,7 +29,7 @@ from danet_densepose2smpl_tpu_torch.core.checkpoint import CheckpointManager, Me
 from danet_densepose2smpl_tpu_torch.data.loader import PrefetchLoader, ResumableLoader
 from danet_densepose2smpl_tpu_torch.models.danet import DaNet
 from danet_densepose2smpl_tpu_torch.serve import random_init_
-from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel
+from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.train.fits_dict import FitsDict
 from danet_densepose2smpl_tpu_torch.train.step import (
     TrainState,
@@ -69,7 +71,7 @@ class Trainer:
         self.device = torch.device(device)
         self.time_to_run = time_to_run
         self.start_time = time.time()
-        self._vis_said = False
+        self._vis_smpl = {}               # dtype -> the SMPL tables on the device, for the vis step
 
         self.loader = ResumableLoader(dataset, cfg.train.batch_size, seed=cfg.train.seed)
         if cfg.train.prefetch_workers != 0:
@@ -152,10 +154,8 @@ class Trainer:
                 if step_count % cfg.train.checkpoint_steps == 0:
                     self.ckpt.save(self.state, ResumePoint(epoch, b_idx + 1, step_count))
 
-                if cfg.train.vis_interval and step_count % cfg.train.vis_interval == 0 and not self._vis_said:
-                    self._vis_said = True
-                    print("training visualization is not ported to PyTorch yet (ROADMAP.md queue 1, "
-                          "item 18.3); training goes on without it")
+                if cfg.train.vis_interval and step_count % cfg.train.vis_interval == 0:
+                    self._save_vis(batch, step_count)
 
                 if self._out_of_time():
                     print("time budget exceeded; checkpointing and exiting")
@@ -164,3 +164,111 @@ class Trainer:
 
         self.ckpt.save(self.state, ResumePoint(epochs, 0, step_count))
         return self.state
+
+    @torch.no_grad()
+    def vis_panels(self, device_batch: dict):
+        """The panels of one vis step (JAX `train/trainer.py:160-293`): an
+        eval-mode forward of the trainer's model (in the training dtype) on
+        the first 4 samples; raw batches (`--device_preprocess`) are cropped
+        by `device_preprocess_train` first. Returns (rows, sheets): rows of
+        per-sample panels as [(title, [panel per sample])] (the input with
+        the GT keypoint skeleton and the STN centres, the predicted IUV, the
+        GT IUV when the batch has it, the predicted SMPL's IUV render
+        through the trainer's renderer, and the shaded overlay
+        0.35 * img + 0.65 * shade), and sample 0's sheets [(title, image)]
+        (the 24-part grid, the heatmap grid). The model's train/eval state
+        is restored afterwards."""
+        from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess_train
+        from danet_densepose2smpl_tpu_torch.kernels.rasterizer import render_shaded
+        from danet_densepose2smpl_tpu_torch.ops.iuvmap import iuv_map2img
+        from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward
+        from danet_densepose2smpl_tpu_torch.utils.vis import (
+            denormalize_image,
+            draw_points,
+            draw_skeleton,
+            heatmap_grid,
+            part_grid,
+            partial_iuv_images,
+        )
+
+        res = self.cfg.danet.img_size
+        if "img" in device_batch:
+            imgs = device_batch["img"][:4]
+        else:
+            imgs = device_preprocess_train(
+                device_batch["raw_img"][:4], device_batch["center"][:4], device_batch["scale"][:4],
+                device_batch["rot_angle"][:4], device_batch["is_flipped"][:4], device_batch["pixel_noise"][:4],
+                out_size=res)
+        model = self.state.model
+        was_training = model.training
+        mixed = self.cfg.danet.compute_dtype == "bfloat16"
+        autocast = torch.autocast(self.device.type, dtype=torch.bfloat16) if mixed else contextlib.nullcontext()
+        model.eval()
+        try:
+            with autocast:
+                out = model(imgs)
+        finally:
+            model.train(was_training)
+
+        def host(t):
+            return t.float().cpu().numpy() if t.dtype in (torch.bfloat16, torch.float16) else t.cpu().numpy()
+
+        pred_iuv = host(iuv_map2img(*out["iuv_clean"]))
+        n = pred_iuv.shape[0]
+        images = [denormalize_image(host(imgs[k])) for k in range(n)]
+        est = out["iuv_raw"]
+        centers = host(est["stn_centers"]) if "stn_centers" in est else None
+        key = "smpl_2dkps" if "smpl_2dkps" in device_batch else "target_smpl_kps"
+        gt_kps = host(device_batch[key][:n]) if key in device_batch else None
+        inputs = []
+        for k in range(n):
+            panel = images[k]
+            if gt_kps is not None:
+                panel = draw_skeleton(panel, 0.5 * res * (gt_kps[k, :, :2] + 1.0))
+            if centers is not None:
+                panel = draw_points(panel, 0.5 * res * (centers[k] + 1.0))
+            inputs.append(panel)
+
+        rows = [("input / GT kps / STN", inputs), ("pred IUV", [np.clip(pred_iuv[k], 0, 1) for k in range(n)])]
+        if "uv_image_gt" in device_batch:
+            gt = host(device_batch["uv_image_gt"][:n])
+            rows.append(("GT IUV", [np.clip(gt[k], 0, 1) for k in range(n)]))
+        if self.renderer is not None and "pred_cam" in out:
+            # the predicted mesh, as the reference renders it each vis step
+            # (no try/except as in JAX: a failing raster launch raises)
+            dt = torch.float64 if out["pred_cam"].dtype == torch.float64 else torch.float32
+            if dt not in self._vis_smpl:
+                self._vis_smpl[dt] = to_torch(self.smpl, self.device, dt)
+            smpl_t = self._vis_smpl[dt]
+            cam = out["pred_cam"].to(dt)
+            verts = smpl_forward(smpl_t, out["pred_shape"].to(dt), out["pred_rotmat"].to(dt)).vertices
+            rendered = host(self.renderer(verts, cam))
+            sh = host(render_shaded(verts, smpl_t.faces, cam, out_size=res, orig_size=float(res)))
+            rows.append(("rendered IUV (pred)", [np.clip(rendered[k], 0, 1) for k in range(n)]))
+            rows.append(("pred mesh overlay", [
+                np.where(sh[k][..., None] > 0, 0.35 * images[k] + 0.65 * sh[k][..., None], images[k])
+                for k in range(n)]))
+
+        sheets = []
+        if "part_iuv_clean" in out:
+            sheets.append(("24-part partial IUV (pred)", part_grid(partial_iuv_images(host(out["part_iuv_clean"][0])))))
+        if "heatmaps" in est:
+            sheets.append(("24 joint heatmaps", np.clip(heatmap_grid(host(est["heatmaps"][0])), 0, 1)))
+        return rows, sheets
+
+    def _save_vis(self, device_batch: dict, step_count: int) -> None:
+        """Write `vis/step_XXXXXXX.png` (a row of panels per kind, a column
+        per sample, each panel scaled to img_size) and
+        `vis/step_XXXXXXX_parts.png` (sample 0's sheets side by side) under
+        the workdir. Errors raise: unlike the JAX Trainer, a failing vis
+        (a kernel launch included) stops training."""
+        import os
+
+        from danet_densepose2smpl_tpu_torch.utils.vis import save_rows
+
+        rows, sheets = self.vis_panels(device_batch)
+        vis_dir = os.path.join(self.workdir, "vis")
+        os.makedirs(vis_dir, exist_ok=True)
+        save_rows([panels for _, panels in rows], os.path.join(vis_dir, f"step_{step_count:07d}.png"))
+        if sheets:
+            save_rows([[sheet for _, sheet in sheets]], os.path.join(vis_dir, f"step_{step_count:07d}_parts.png"))

@@ -127,10 +127,11 @@ def test_unported_configs_raise():
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port (serve, train, data, eval, the
     kernels, the training entry point with its ingest, loaders, trainer
-    and checkpoints, the eval entry points, the COCO harness and the
-    ingest on the card included) from a directory that holds the port
-    alone works, and leaves jax, flax and the JAX package out of
-    sys.modules."""
+    and checkpoints, the eval entry points, the COCO harness, the ingest
+    on the card, the demo, the training visualization and the offline
+    preprocessing included) from a directory that holds the port alone
+    works, and leaves jax, flax, optax, the JAX package, cv2 and
+    matplotlib out of sys.modules."""
     (tmp_path / "danet_densepose2smpl_tpu_torch").symlink_to(REPO / "danet_densepose2smpl_tpu_torch")
     code = (
         "import importlib, pkgutil, sys\n"
@@ -143,10 +144,13 @@ def test_port_imports_no_jax(tmp_path):
         "import danet_densepose2smpl_tpu_torch.core.checkpoint, danet_densepose2smpl_tpu_torch.data.image_io\n"
         "import danet_densepose2smpl_tpu_torch.cli.eval, danet_densepose2smpl_tpu_torch.cli.eval_coco\n"
         "import danet_densepose2smpl_tpu_torch.data.pipeline, danet_densepose2smpl_tpu_torch.eval.coco_harness\n"
+        "import danet_densepose2smpl_tpu_torch.cli.demo, danet_densepose2smpl_tpu_torch.cli.preprocess\n"
+        "import danet_densepose2smpl_tpu_torch.utils.vis, danet_densepose2smpl_tpu_torch.data.preprocess\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'danet_densepose2smpl_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'danet_densepose2smpl_tpu',\n"
+        "                                    'cv2', 'matplotlib'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

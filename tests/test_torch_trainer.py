@@ -22,6 +22,7 @@ from danet_densepose2smpl_tpu_torch.cli.train import _Resize
 from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig, SolverConfig, TrainConfig
 from danet_densepose2smpl_tpu_torch.core.checkpoint import CheckpointManager, MetricLogger, ResumePoint
 from danet_densepose2smpl_tpu_torch.data.dataset import NpzDataset
+from danet_densepose2smpl_tpu_torch.data.image_io import read_png
 from danet_densepose2smpl_tpu_torch.data.synthetic import write_synthetic_dataset
 from danet_densepose2smpl_tpu_torch.kernels.rasterizer import IUVRenderer
 from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import synthetic_densepose_atlas
@@ -133,7 +134,7 @@ def _rows(path):
         return [json.loads(line) for line in f]
 
 
-def test_trainer_two_stage_checkpoints_and_bit_identical_resume(workdir, capsys):
+def test_trainer_two_stage_checkpoints_and_bit_identical_resume(workdir):
     """4 steps (1 pretrain, 3 full) with checkpoints every 2; then a run cut
     after step 2 (its time budget) and a fresh Trainer on the same
     directory: it resumes at (epoch 0, batch 2, step 2) and ends with the
@@ -147,7 +148,9 @@ def test_trainer_two_stage_checkpoints_and_bit_identical_resume(workdir, capsys)
     assert "smpl_pose" not in rows[0] and all("smpl_pose" in r and np.isfinite(r["loss_total"]) for r in rows[1:])
     assert all(r["imgs_per_sec"] > 0 for r in rows)
     assert CheckpointManager(str(workdir / "whole" / "checkpoints")).steps() == [2, 4]
-    assert capsys.readouterr().out.count("item 18.3") == 1      # vis_interval=1 fired 4 times: said once
+    vis = sorted(os.listdir(workdir / "whole" / "vis"))         # vis_interval=1: a pair of PNGs a step
+    assert vis == [f"step_{s:07d}{suffix}.png" for s in (1, 2, 3, 4) for suffix in ("", "_parts")]
+    assert all(read_png(str(workdir / "whole" / "vis" / f)).std() > 0 for f in vis)
 
     expected = whole.state.model.state_dict()
     expected_sq = [s["exp_avg_sq"] for s in whole.state.optimizer.state_dict()["state"].values()]
