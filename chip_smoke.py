@@ -7,9 +7,11 @@ sources in the checkout and drives the serving slice (full HRNet-W48 DaNet
 + SMPL, seeded random weights), the training slice (the full DaNet
 training step), the eval path, the training CLI and the eval CLIs on the
 card, then the demo, the training visualization and the offline
-preprocessing. The synthetic raw batches get 2D keypoints
-that their poses explain (`posed_keypoints`), so the fitted cameras frame
-body-sized silhouettes. In phases:
+preprocessing, and last the other architectures (the ResNet-50 backbone,
+whose 256 channels K1 takes in chunks, the other refinements, the
+GlobalPredictor and the HMR baseline). The synthetic raw batches get 2D
+keypoints that their poses explain (`posed_keypoints`), so the fitted
+cameras frame body-sized silhouettes. In phases:
 
   0. environment: a CUDA card of capability 9.0, versions, the card's name
      and power limit, whether yaml, PIL (and its JPEG decoder) and
@@ -17,8 +19,8 @@ body-sized silhouettes. In phases:
      and print the compilers' `-Xptxas -v` reports; for each K1 kernel its
      registers, spill stores and the count of tensor-core instructions
      (HMMA/HGMMA) in the built library's SASS (`cuobjdump --dump-sass`):
-     the bf16 kernel must have some and spill nothing, the fp32/f64 kernel
-     none;
+     the bf16 kernels (all of C at once, and in channel chunks) must have
+     some and spill nothing, the fp32/f64 kernel none;
   1. the kernel against its plain PyTorch version at the production shape
      (B=8, 56x56x48, S=56, 24 parts, 21 outputs), fed by bilinear
      `_axis_weights` matrices and by random dense ones: fp32 (TF32 off)
@@ -153,7 +155,30 @@ body-sized silhouettes. In phases:
      raster 5 times (the IUV render and 4 shaded views), and its ms; (d)
      `cli.preprocess` on a synthetic densepose_coco json of 256
      annotations: GO, the npz written, and one B=64 batch with DensePose
-     blobs assembled from it by `NpzDataset`.
+     blobs assembled from it by `NpzDataset`;
+ 12. slice D's architectures: (a) K1 at the ResNet backbone's width
+     (56x56x256; the kernels take the channels in chunks) against its
+     plain version, bilinear and dense weights: B=64 bf16 within 2e-2 of
+     max|ref|, B=16 fp32 within 1e-4 (TF32 off), B=2 f64 within 1e-10, and
+     B=1 at C=200 and 201 (a partial last chunk); then its time at B=64
+     bf16 by CUDA events in turns beside the plain version, the unfused
+     route and its conv alone, its device time and its bound; (b)
+     `configs/danet_resnet.yaml` (ResNet-50 backbone, seeded random
+     weights): f64 B=2 on the card against the CPU (para atol 1e-6, rtol
+     1e-9), fp32 `Predictor` against that f64 result (atol 0.05, rtol
+     1e-3), and 8 bf16 requests of B=64 with K1 launched once each, imgs/s,
+     one under `torch.profiler`; (c) `cli.train --cfg
+     configs/danet_resnet.yaml` in-process as phase 9 (a) (4 steps, B=64,
+     bf16: finite losses, `rasterize_flat` each step), then 2 steps of
+     phase 7's main path on that config (closed atlas, culling:
+     `rasterize_flat_masked` each step); (d) 'gcn_direct', 'lstm',
+     'lstm_direct', `decomposed=False` and `refine_on=False` on the
+     HRNet-W48 backbone: f64 B=2 card against CPU (atol 1e-6, rtol 1e-9),
+     then one bf16 request of B=64 (finite; K1 once, none without
+     `decomposed`); (e) `cli.eval --regressor hmr` on h36m-p2 and lsp, B=16
+     over 64 synthetic rows, fp32: finite metrics, imgs/s, no K1 launch,
+     one raster a batch for lsp; and `cli.eval_coco --regressor hmr`
+     refuses.
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
@@ -164,7 +189,11 @@ describing each kernel (with the path its launch count was read from;
 the raster entry of the LSP CLI has `cli_eval_lsp_launches`; the K1 and
 `rasterize_flat` entries have `demo_launches` and `vis_launches`, their
 counts in phase 11 (b) and (c), and `rasterize_flat` has `shaded`, phase
-11 (a)'s numbers), and `{"ok": true, "device": {...}}`.
+11 (a)'s numbers; phase 12 adds `resnet` to `part_crop_head` (K1 at
+C=256: its launches on the ResNet-50 serving path and (a)'s numbers) with
+`arch_launches` (d), `resnet_cli_launches` and `hmr_lsp_launches` to
+`rasterize_flat`, and `resnet_launches` to `rasterize_flat_masked`), and
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -285,9 +314,11 @@ def phase0_environment():
         print(f"phase 0: K1 {name}: {r['registers']} registers, {r['spill_stores']} bytes of spill stores, "
               f"{r['mma']} tensor-core instructions (HMMA/HGMMA) in the SASS")
     tc = reports.get("part_crop_head_bf16_kernel")
-    check(tc is not None and tc["mma"] > 0 and tc["spill_stores"] == 0,
-          f"the bf16 K1 kernel runs on the tensor cores and spills nothing: {tc}")
-    check(all(r["mma"] == 0 for n, r in reports.items() if n != "part_crop_head_bf16_kernel"),
+    for name in ("part_crop_head_bf16_kernel", "part_crop_head_bf16_kernel<chunked>"):
+        r = reports.get(name)
+        check(r is not None and r["mma"] > 0 and r["spill_stores"] == 0,
+              f"the bf16 K1 kernel {name} runs on the tensor cores and spills nothing: {r}")
+    check(all(r["mma"] == 0 for n, r in reports.items() if not n.startswith("part_crop_head_bf16_kernel")),
           "the fp32/f64 K1 kernel is the scalar one")
     return tc
 
@@ -317,8 +348,8 @@ def kernel_reports(lib_path: str, log: str) -> dict:
     from danet_densepose2smpl_tpu_torch.kernels.build import find_nvcc
 
     def short(mangled):
-        if "bf16_kernel" in mangled:
-            return "part_crop_head_bf16_kernel"
+        if "bf16_kernel" in mangled:   # <false>: all of C at once; <true>: in channel chunks
+            return "part_crop_head_bf16_kernel" + ("<chunked>" if "bf16_kernelILb1E" in mangled else "")
         m = re.search(r"part_crop_head_kernelI([fd])E", mangled)
         return f"part_crop_head_kernel<{'float' if m.group(1) == 'f' else 'double'}>" if m else mangled
 
@@ -1394,19 +1425,6 @@ def phase10_eval_cli(dev, card, host_crop: dict) -> dict:
     from danet_densepose2smpl_tpu_torch.cli import train as cli_train
     from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess, device_preprocess_train
     from danet_densepose2smpl_tpu_torch.eval import coco_harness, harness, lsp
-    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
-    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import fused_part_predict
-
-    def counted(fn):
-        """fn() with K1's and the rasters' launch counts zeroed just before
-        it; (its result, the counts read just after it)."""
-        fused_part_predict.launches = 0
-        R.rasterize_flat.launches = R.rasterize_flat_banded.launches = R.rasterize_flat_masked.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {"part_crop_head": fused_part_predict.launches, "rasterize_flat": R.rasterize_flat.launches,
-                     "rasterize_flat_banded": R.rasterize_flat_banded.launches,
-                     "rasterize_flat_masked": R.rasterize_flat_masked.launches}
 
     root = os.path.join(REPO, "build", "chip_smoke_eval")
     shutil.rmtree(root, ignore_errors=True)
@@ -1422,7 +1440,7 @@ def phase10_eval_cli(dev, card, host_crop: dict) -> dict:
             restore = timed_calls(harness, "run_pose_eval", passes)
             try:
                 argv = ["--dataset", "h36m-p2", *data, "--bf16", "--log_freq", "0"] + (["--device_preprocess"] if raw else [])
-                res, counts = counted(lambda: cli_eval.main(argv)["pose"])
+                res, counts = launch_counts(lambda: cli_eval.main(argv)["pose"])
             finally:
                 restore()
             print(res.summary("h36m-p2"))
@@ -1440,7 +1458,7 @@ def phase10_eval_cli(dev, card, host_crop: dict) -> dict:
         restore = timed_calls(lsp, "run_lsp_eval", passes)
         try:
             argv = ["--dataset", "lsp", *data, "--bf16", "--log_freq", "0"]
-            scores, counts = counted(lambda: cli_eval.main(argv)["lsp"])
+            scores, counts = launch_counts(lambda: cli_eval.main(argv)["lsp"])
         finally:
             restore()
         rasters = counts["rasterize_flat"] + counts["rasterize_flat_banded"]
@@ -1457,7 +1475,7 @@ def phase10_eval_cli(dev, card, host_crop: dict) -> dict:
         passes = []
         restore = timed_calls(coco_harness, "run_coco_eval", passes)
         try:
-            (ap, preds), counts = counted(lambda: cli_eval_coco.main(data))
+            (ap, preds), counts = launch_counts(lambda: cli_eval_coco.main(data))
         finally:
             restore()
         print(f"phase 10: (c) cli.eval_coco {' '.join(data)}: AP {ap}; {n / passes[0]!r} imgs/s over the eval pass "
@@ -1512,7 +1530,7 @@ def phase10_eval_cli(dev, card, host_crop: dict) -> dict:
         argv = ["--synthetic-data", "--num_samples", str(steps * bt), "--batch_size", str(bt), "--bf16",
                 "--pretr_step", "1", "--num_epochs", "1", "--summary_steps", "1", "--vis_interval", "0",
                 "--log_dir", root, "--name", "raw", "--device_preprocess"]
-        trainer, counts = counted(lambda: cli_train.main(argv))
+        trainer, counts = launch_counts(lambda: cli_train.main(argv))
         with open(os.path.join(root, "raw", "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
         print(f"phase 10: (e) cli.train {' '.join(argv)}: loss_total {[r['loss_total'] for r in rows]}; imgs/s by "
@@ -1755,6 +1773,307 @@ def phase11_demo_vis(dev, card) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+RESNET_CFG = "configs/danet_resnet.yaml"
+ARCH_REQUEST_BATCH = 64
+
+
+def launch_counts(fn):
+    """fn() with K1's and the rasters' launch counts zeroed just before it;
+    (its result, the counts read just after it)."""
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import fused_part_predict
+
+    fused_part_predict.launches = 0
+    R.rasterize_flat.launches = R.rasterize_flat_banded.launches = R.rasterize_flat_masked.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {"part_crop_head": fused_part_predict.launches, "rasterize_flat": R.rasterize_flat.launches,
+                 "rasterize_flat_banded": R.rasterize_flat_banded.launches,
+                 "rasterize_flat_masked": R.rasterize_flat_masked.launches}
+
+
+def phase12_archs(dev, card) -> dict:
+    """Slice D's architectures on the card: K1 at the ResNet backbone's 256
+    channels, the ResNet-50 DaNet through `Predictor` and `cli.train`, the
+    other refinements and the GlobalPredictor, and the HMR baseline through
+    `cli.eval` (see the module docstring, phase 12)."""
+    out = {"k1": phase12_k1_wide(dev, card)}
+    out.update(phase12_models(dev, card))
+    return out
+
+
+def k1_launch(args, s):
+    """A function that launches the bf16 K1 kernel alone on `args` (the
+    wrapper's checks, chunk query and weight packing done once, here)."""
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import bf16_chunk, load_library, pack_head_weights
+
+    feats, wy, wx, kernel, bias = args
+    b, h, w, c = feats.shape
+    k, o = wy.shape[1], kernel.shape[-1] // wy.shape[1]
+    chunk = bf16_chunk(h, w, c, s, o)
+    wpack = pack_head_weights(kernel, k, chunk)
+    out = torch.empty((b, k, s, s, o), dtype=feats.dtype, device=feats.device)
+    lib = load_library()[0]
+
+    def launch():
+        err = lib.part_crop_head_bf16(feats.data_ptr(), wy.data_ptr(), wx.data_ptr(), wpack.data_ptr(),
+                                      bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, chunk,
+                                      torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"K1 launch: cudaError {err}")
+
+    return launch
+
+
+def phase12_k1_wide(dev, card) -> dict:
+    """(a): K1 at C=256 and C=200/201 against its plain version, and its
+    time at B=64 bf16 beside the plain version and the unfused route."""
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
+        bf16_chunk,
+        fused_part_predict,
+        part_crop_head_plain,
+    )
+    from danet_densepose2smpl_tpu_torch.nn.iuv_head import PartialIUVHead
+    from danet_densepose2smpl_tpu_torch.ops.imwarp import separable_crop_concat
+
+
+    # K1 at C=256 (and C=200/201: a partial last chunk) against its plain version
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cases = [("bfloat16", 64, 56, 256, 21), ("float32", 16, 56, 256, 21), ("float64", 2, 56, 256, 21),
+             ("bfloat16", 1, 56, 200, 21), ("float32", 1, 56, 200, 21), ("float64", 1, 56, 200, 21),
+             ("bfloat16", 1, 57, 201, 5), ("float64", 1, 57, 201, 5)]
+    for name, b, hw, c, o in cases:
+        dt = getattr(torch, name)
+        for dense in (False, True):
+            args = k1_inputs(b, hw, hw, c, hw, dt, dev, seed=3, dense=dense, o=o)
+            got = fused_part_predict(*args, hw)
+            torch.cuda.synchronize()
+            ref = part_crop_head_plain(*args, hw)
+            err, ref_max = (got.double() - ref.double()).abs().max().item(), ref.double().abs().max().item()
+            tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 1e-10}[name]
+            weights = "dense" if dense else "bilinear"
+            chunk = f", bf16 chunk {bf16_chunk(hw, hw, c, hw, o)}" if name == "bfloat16" else ""
+            print(f"phase 12: (a) K1 {name} B={b} {hw}x{hw}x{c} S={hw} O={o} {weights} weights: max abs err {err!r} "
+                  f"(max|ref| {ref_max!r}, tolerance {tol!r}{chunk})")
+            check(got.shape == (b, 24, hw, hw, o) and bool(torch.isfinite(got).all()), f"K1 {name} C={c}: shape")
+            check(err <= tol, f"K1 {name} C={c} {weights}: {err} > {tol}")
+            if (name, b, dense) == ("bfloat16", 64, False):
+                k1_err = err
+            del got, ref, args
+    args, centers, scales = k1_inputs(ARCH_REQUEST_BATCH, 56, 56, 256, 56, torch.bfloat16, dev, seed=2, boxes=True)
+    feats, _, _, kernel, bias = args
+    head = PartialIUVHead(256).to(dev, torch.bfloat16, memory_format=torch.channels_last)
+    head.weight.data.copy_(kernel.permute(3, 2, 0, 1))
+    head.bias.data.copy_(bias)
+    crops = separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)
+    calls = {
+        "kernel": lambda: fused_part_predict(*args, 56),
+        "plain": lambda: part_crop_head_plain(*args, 56),
+        "unfused": lambda: head(separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)),
+        "unfused conv": lambda: head(crops),
+    }
+    times = {k: [] for k in calls}
+    with torch.no_grad():
+        for name in ("plain", "kernel", "unfused", "unfused conv", "unfused conv", "unfused", "kernel", "plain"):
+            times[name].append(cuda_ms(calls[name], 3 if name == "plain" else 10))
+        alone = cuda_ms(k1_launch(args, 56), 10)
+    bound_ms, bound_by = k1_bound(args, 56)
+    ms = {k: min(v) for k, v in times.items()}
+    print(f"phase 12: (a) K1 B={ARCH_REQUEST_BATCH} bf16 56x56x256 (CUDA events, mean of 10 calls, plain 3, in "
+          f"turns; TF32 off): kernel {times['kernel']} ms, plain {times['plain']} ms, unfused route "
+          f"{times['unfused']} ms, its conv alone {times['unfused conv']} ms; the kernel alone (its launch "
+          f"on weights packed once, CUDA events, mean of 10) {alone!r} ms; bound {bound_ms!r} ms ({bound_by}); "
+          f"card {card}")
+    del args, feats, kernel, bias, head, crops, calls
+    torch.cuda.empty_cache()
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "unfused_ms": ms["unfused"],
+            "unfused_conv_ms": ms["unfused conv"], "device_ms": alone, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": k1_err, "chunk": bf16_chunk(56, 56, 256, 56, 21)}
+
+
+def phase12_models(dev, card) -> dict:
+    """(b)-(e): the ResNet-50 DaNet through `Predictor`, `cli.train` and the
+    training step, the other regressors, the HMR baseline in `cli.eval`."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from danet_densepose2smpl_tpu_torch.cli import eval as cli_eval
+    from danet_densepose2smpl_tpu_torch.cli import eval_coco as cli_eval_coco
+    from danet_densepose2smpl_tpu_torch.cli import train as cli_train
+    from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig, RefinementConfig, load_config
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.eval import harness, lsp
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import Predictor, random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import closed_synthetic_atlas
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device, create_train_state, make_train_step
+
+    out = {}
+    # (b) configs/danet_resnet.yaml (ResNet-50 backbone) through Predictor
+    cfg = load_config(os.path.join(REPO, RESNET_CFG)).danet
+    check(cfg.iuv_regressor == "resnet" and cfg.msres_num_layers == 50, f"{RESNET_CFG}: {cfg.iuv_regressor}")
+    x = torch.from_numpy(np.random.RandomState(3).rand(2, 224, 224, 3))
+    cpu_model = random_init_(DaNet(cfg), seed=0).double()
+    gpu_model = copy.deepcopy(cpu_model).to(dev, memory_format=torch.channels_last)
+    with torch.inference_mode():
+        ref = cpu_model(x)["para"]
+        got, counts = launch_counts(lambda: gpu_model(x.to(dev))["para"].cpu())
+    err = (got - ref).abs().max().item()
+    print(f"phase 12: (b) {RESNET_CFG}, f64 B=2 224 px: para card vs CPU max abs err {err!r} (max|cpu| "
+          f"{ref.abs().max().item()!r}; bar atol 1e-6, rtol 1e-9); launches {counts}")
+    check(counts["part_crop_head"] == 1 and torch.allclose(got, ref, atol=1e-6, rtol=1e-9), "resnet f64 card vs CPU")
+    del gpu_model, cpu_model
+    para32 = Predictor(dev, torch.float32, cfg=cfg, seed=0).predict(x.float())["para"].double().cpu()
+    err32 = (para32 - ref).abs().max().item()
+    print(f"phase 12: (b) fp32 Predictor (TF32 off) on the card vs f64 on the CPU: para max abs err {err32!r} "
+          f"(bar: atol 0.05, rtol 1e-3)")
+    check(bool(torch.isfinite(para32).all()) and torch.allclose(para32, ref, atol=0.05, rtol=1e-3),
+          "resnet fp32 serving vs f64")
+    predictor = Predictor(dev, torch.bfloat16, cfg=cfg, seed=0)
+    images = torch.from_numpy(np.random.RandomState(5).rand(SERVE_BATCH, 224, 224, 3).astype(np.float32)
+                              ).to(dev, torch.bfloat16)
+    predictor.predict(images)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, counts = launch_counts(lambda: [predictor.predict(images) for _ in range(SERVE_REQUESTS)])
+    dt = time.perf_counter() - t0
+    for res in outs:
+        check(tuple(res["para"].shape) == (SERVE_BATCH, 229) and tuple(res["vertices"].shape) == (SERVE_BATCH, 6890, 3)
+              and all(bool(torch.isfinite(v).all()) for v in res.values()), "resnet bf16 serving: shapes, finite")
+    check(counts["part_crop_head"] == SERVE_REQUESTS, f"resnet serving: K1 launches {counts}")
+    print(f"phase 12: (b) served {SERVE_REQUESTS} requests of B={SERVE_BATCH} bf16 ({RESNET_CFG}) in {dt!r} s: "
+          f"{SERVE_BATCH * SERVE_REQUESTS / dt!r} imgs/s (host clock, ends in synchronize); launches {counts}; "
+          f"card {card}")
+    profile_request(lambda: predictor.predict(images), SERVE_BATCH, card)
+    out["serve"] = {"launches": counts["part_crop_head"], "imgs_per_s": SERVE_BATCH * SERVE_REQUESTS / dt}
+    del predictor, outs, images
+    torch.cuda.empty_cache()
+
+    root = os.path.join(REPO, "build", "chip_smoke_archs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, root     # the CLIs write their datasets there
+    try:
+        # (c) cli.train --cfg configs/danet_resnet.yaml (soup atlas: rasterize_flat), then
+        # the training step's main path on that config (closed atlas, culling: K4)
+        steps = 4
+        argv = ["--cfg", os.path.join(REPO, RESNET_CFG), "--synthetic-data", "--num_samples", str(steps * TRAIN_BATCH),
+                "--batch_size", str(TRAIN_BATCH), "--bf16", "--pretr_step", "1", "--num_epochs", "1",
+                "--summary_steps", "1", "--vis_interval", "0", "--log_dir", root, "--name", "resnet"]
+        t0 = time.perf_counter()
+        trainer, counts = launch_counts(lambda: cli_train.main(argv))
+        wall = time.perf_counter() - t0
+        with open(os.path.join(root, "resnet", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        check(trainer.state.step == steps and len(rows) == steps, f"cli.train resnet: {len(rows)} rows")
+        check(all(np.isfinite(v) for r in rows for v in r.values()), "cli.train resnet: every logged value finite")
+        check(counts["rasterize_flat"] >= steps, f"cli.train resnet: raster launches {counts}")
+        print(f"phase 12: (c) cli.train {' '.join(argv)}: {steps} steps in {wall!r} s of command; loss_total "
+              f"{[r['loss_total'] for r in rows]}; imgs/s by window {[r['imgs_per_sec'] for r in rows]}; launches "
+              f"{counts}; card {card}")
+        out["cli_train"] = counts
+        del trainer
+        tcfg = Config(danet=dataclasses.replace(cfg, compute_dtype="bfloat16"))
+        smpl = synthetic_smpl_model()
+        atlas, template = closed_synthetic_atlas(smpl.num_verts)
+        renderer = R.IUVRenderer(atlas, 224, 56, cull_verts=template)
+        model = random_init_(DaNet(tcfg.danet), seed=0).to(dev, memory_format=torch.channels_last)
+        state = create_train_state(model, tcfg)
+        step = make_train_step(model, smpl, tcfg, renderer=renderer)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batches = [batch_to_device(posed_keypoints(tcfg, smpl, synthetic_raw_batch(tcfg, TRAIN_BATCH, seed=30 + i),
+                                                   seed=40 + i), dev) for i in range(3)]
+        step(state, batches[0], gen)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, counts = launch_counts(lambda: [step(state, bt, gen)[1] for bt in batches[1:]])
+        dt = time.perf_counter() - t0
+        check(all(bool(torch.isfinite(v)) for m in metrics for v in m.values()), "resnet bf16 step: finite losses")
+        check(counts["rasterize_flat_masked"] >= 2 and counts["part_crop_head"] == 0,
+              f"resnet bf16 step: launches {counts} in 2 steps")
+        print(f"phase 12: (c) train step, {RESNET_CFG}, bf16 B={TRAIN_BATCH}, closed atlas with culling: 2 steps in "
+              f"{dt!r} s ({2 * TRAIN_BATCH / dt!r} imgs/s, host clock); loss_total "
+              f"{[m['loss_total'].item() for m in metrics]}; launches {counts}; card {card}")
+        out["train_step"] = counts
+        del model, state, step, batches
+        torch.cuda.empty_cache()
+
+        # (d) the other regressors (HRNet-W48 backbone): f64 card vs CPU at B=2,
+        # then one bf16 request of B=64
+        archs = {"gcn_direct": DaNetConfig(refine_strategy="gcn_direct"), "lstm": DaNetConfig(refine_strategy="lstm"),
+                 "lstm_direct": DaNetConfig(refine_strategy="lstm_direct"), "global": DaNetConfig(decomposed=False),
+                 "refine_off": DaNetConfig(refinement=RefinementConfig(refine_on=False))}
+        out["archs"] = {}
+        for name, acfg in archs.items():
+            cpu_model = random_init_(DaNet(acfg), seed=1).double()
+            gpu_model = copy.deepcopy(cpu_model).to(dev, memory_format=torch.channels_last)
+            with torch.inference_mode():
+                ref = cpu_model(x)["para"]
+                got = gpu_model(x.to(dev))["para"].cpu()
+            err = (got - ref).abs().max().item()
+            del cpu_model, gpu_model
+            predictor = Predictor(dev, torch.bfloat16, cfg=acfg, seed=1)
+            images = torch.from_numpy(np.random.RandomState(6).rand(ARCH_REQUEST_BATCH, 224, 224, 3).astype(np.float32))
+            res, counts = launch_counts(lambda: predictor.predict(images.to(dev, torch.bfloat16)))
+            t0 = time.perf_counter()
+            predictor.predict(images.to(dev, torch.bfloat16))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            print(f"phase 12: (d) {name}: f64 B=2 para card vs CPU max abs err {err!r} (max|cpu| "
+                  f"{ref.abs().max().item()!r}); bf16 request of B={ARCH_REQUEST_BATCH}: {ms!r} ms (host clock, the "
+                  f"second), launches {counts}; card {card}")
+            check(torch.allclose(got, ref, atol=1e-6, rtol=1e-9), f"{name}: f64 card vs CPU")
+            check(tuple(res["para"].shape) == (ARCH_REQUEST_BATCH, 229)
+                  and all(bool(torch.isfinite(v).all()) for v in res.values()), f"{name}: bf16 request finite")
+            check(counts["part_crop_head"] == (1 if acfg.decomposed else 0), f"{name}: K1 launches {counts}")
+            out["archs"][name] = {"k1": counts["part_crop_head"], "ms": ms}
+            del predictor, res
+            torch.cuda.empty_cache()
+
+        # (e) the HMR baseline through cli.eval, fp32 (--bf16 is ignored for it),
+        # h36m-p2 and lsp; cli.eval_coco refuses it
+        n, b = EVAL_BATCHES * EVAL_BATCH, EVAL_BATCH
+        coco_argv = ["--regressor", "hmr", "--synthetic-data", "--num_samples", str(n), "--batch_size", str(b)]
+        data = coco_argv + ["--log_freq", "0"]
+        out["hmr"] = {}
+        for dataset, module, fn_name in (("h36m-p2", harness, "run_pose_eval"), ("lsp", lsp, "run_lsp_eval")):
+            passes = []
+            restore = timed_calls(module, fn_name, passes)
+            try:
+                res, counts = launch_counts(lambda: cli_eval.main(["--dataset", dataset, *data]))
+            finally:
+                restore()
+            if dataset == "lsp":
+                values = list(res["lsp"].values())
+                check(len(values) == 4 and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in values),
+                      f"hmr lsp: {res['lsp']}")
+                check(counts["rasterize_flat"] + counts["rasterize_flat_banded"] == EVAL_BATCHES,
+                      f"hmr lsp: launches {counts}")
+                summary = res["lsp"]
+            else:
+                pose = res["pose"]
+                check(bool(np.isfinite(pose.mpjpe).all() and np.isfinite(pose.pa_mpjpe).all())
+                      and pose.mpjpe.shape == (n,), "hmr h36m-p2: finite MPJPE / PA-MPJPE")
+                summary = {"MPJPE mm": pose.mpjpe_mm, "PA-MPJPE mm": pose.pa_mpjpe_mm}
+            check(counts["part_crop_head"] == 0, f"hmr {dataset}: K1 launches {counts}")
+            print(f"phase 12: (e) cli.eval --dataset {dataset} {' '.join(data)}: {summary}; {n / passes[0]!r} imgs/s "
+                  f"over the eval pass (host clock, fp32); launches {counts}; card {card}")
+            out["hmr"][dataset] = {"imgs_per_s": n / passes[0], "launches": counts}
+        try:
+            cli_eval_coco.main(coco_argv)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "runs DaNet only" in refused, f"cli.eval_coco --regressor hmr: {refused}")
+        print(f"phase 12: (e) cli.eval_coco --regressor hmr refuses: {refused}")
+        return out
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
@@ -1778,6 +2097,7 @@ def main():
     cli = timed(9, lambda: phase9_train_cli(dev, card))
     evals = timed(10, lambda: phase10_eval_cli(dev, card, cli))
     demo = timed(11, lambda: phase11_demo_vis(dev, card))
+    archs = timed(12, lambda: phase12_archs(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
                 f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
@@ -1813,6 +2133,16 @@ def main():
             k["vis_launches"] = {b: demo["vis"][b]["launches"][k["name"]] for b in ("host_crop", "raw")}
         if k["name"] == "rasterize_flat":                        # phase 11 (a): render_shaded, 224 px, C=1
             k["shaded"] = {f"yaw{int(yaw)}_B{b}": v for (yaw, b), v in demo["shaded"].items()}
+        if k["name"] == "part_crop_head":                         # phase 12 (a), (b), (d)
+            k["resnet"] = {"launches": archs["serve"]["launches"], "path": f"serving {RESNET_CFG}: Predictor.predict, "
+                           f"bf16, B={SERVE_BATCH}, {SERVE_REQUESTS} requests", "C": 256, **archs["k1"],
+                           "library_ms": None}
+            k["arch_launches"] = {name: v["k1"] for name, v in archs["archs"].items()}
+        if k["name"] == "rasterize_flat":                         # phase 12 (c), (e)
+            k["resnet_cli_launches"] = archs["cli_train"]["rasterize_flat"]
+            k["hmr_lsp_launches"] = archs["hmr"]["lsp"]["launches"]["rasterize_flat"]
+        if k["name"] == "rasterize_flat_masked":                  # phase 12 (c)
+            k["resnet_launches"] = archs["train_step"]["rasterize_flat_masked"]
     print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

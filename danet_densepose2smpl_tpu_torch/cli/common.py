@@ -109,18 +109,30 @@ def load_reference_checkpoint(model: torch.nn.Module, pt_path: str) -> list[str]
     return list(unexpected)
 
 
+def refuse_hmr(args, entry: str) -> None:
+    """Raise for --regressor hmr in an entry point that runs DaNet only."""
+    if args.regressor == "hmr":
+        raise ValueError(
+            f"{entry} runs DaNet only: --regressor hmr is for cli.eval (the JAX package's {entry} "
+            "calls the HMR baseline without its mean parameters and fails; ROADMAP.md, caveats "
+            "in the reference)")
+
+
 def build_model_and_params(args, cfg, device, train: bool = False) -> torch.nn.Module:
-    """The DaNet model on `device`: random init from --seed, then the
-    weights of --torch_checkpoint and of --checkpoint (this port's
-    trainer's checkpoints) where given. In eval mode unless `train`."""
+    """The model of --regressor on `device`: DaNet for `cfg`, or the HMR
+    baseline (`nn/hmr.py`); random init from --seed, then the weights of
+    --torch_checkpoint (a released reference file; HMR's `init_*` mean
+    parameter buffers are among its unused keys) and of --checkpoint (this
+    port's trainer's checkpoints) where given. In eval mode unless
+    `train`."""
     from danet_densepose2smpl_tpu_torch.core.checkpoint import CheckpointManager
     from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.nn.hmr import HMR
     from danet_densepose2smpl_tpu_torch.serve import random_init_
     from danet_densepose2smpl_tpu_torch.train.step import create_train_state
 
-    if args.regressor == "hmr":
-        raise NotImplementedError("the HMR regressor is not ported to PyTorch yet (ROADMAP.md queue 1, item 20)")
-    model = random_init_(DaNet(cfg.danet), seed=args.seed).to(device, memory_format=torch.channels_last)
+    model = HMR() if args.regressor == "hmr" else DaNet(cfg.danet)
+    model = random_init_(model, seed=args.seed).to(device, memory_format=torch.channels_last)
 
     if getattr(args, "torch_checkpoint", None):
         extra = load_reference_checkpoint(model, args.torch_checkpoint)

@@ -36,6 +36,7 @@ from danet_densepose2smpl_tpu_torch.cli.common import (
     add_common_args,
     build_model_and_params,
     load_assets,
+    refuse_hmr,
     resolve_device,
 )
 from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
@@ -56,8 +57,8 @@ def demo_outputs(run_model, smpl, renderer, faces, images: torch.Tensor, img_siz
     normalized images: `run_model` (the DaNet forward), the predicted IUV
     image, SMPL on the predicted parameters, its IUV render and its shaded
     views at yaw 0 and 90. Returns tensors: iuv_img (B, h, h, 3), part_iuv
-    (B, 24, h, h, 3, 7), rendered (B, h, h, 3), para (B, 229), shaded and
-    shaded_side (B, S, S)."""
+    (B, 24, h, h, 3, 7; None for a model without `decomposed`), rendered
+    (B, h, h, 3), para (B, 229), shaded and shaded_side (B, S, S)."""
     from danet_densepose2smpl_tpu_torch.kernels.rasterizer import render_shaded
     from danet_densepose2smpl_tpu_torch.ops.iuvmap import iuv_map2img
     from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward
@@ -72,7 +73,7 @@ def demo_outputs(run_model, smpl, renderer, faces, images: torch.Tensor, img_siz
         rendered = renderer(verts, cam)
         shaded = render_shaded(verts, faces, cam, out_size=img_size, orig_size=float(img_size))
         side = render_shaded(verts, faces, cam, out_size=img_size, orig_size=float(img_size), yaw_deg=90.0)
-    return {"iuv_img": iuv_img, "part_iuv": out["part_iuv_clean"], "rendered": rendered, "para": para,
+    return {"iuv_img": iuv_img, "part_iuv": out.get("part_iuv_clean"), "rendered": rendered, "para": para,
             "shaded": shaded, "shaded_side": side}
 
 
@@ -88,6 +89,7 @@ def main(argv=None) -> list:
     from danet_densepose2smpl_tpu_torch.utils import vis
 
     args = build_parser().parse_args(argv)
+    refuse_hmr(args, "cli.demo")
     device = resolve_device(args)
     cfg = load_config(args.cfg)
     smpl, atlas, _, _, _, _ = load_assets(args)
@@ -112,8 +114,9 @@ def main(argv=None) -> list:
         with torch.inference_mode(), fp32():
             res = demo_outputs(predictor.run_model, predictor.smpl, renderer, faces, images, size)
         with record_function("demo.write"):
-            host = {k: v[0].float().cpu().numpy() for k, v in res.items()}
-            panels = vis.demo_panels(norm, host["iuv_img"], vis.partial_iuv_images(host["part_iuv"]),
+            host = {k: v[0].float().cpu().numpy() for k, v in res.items() if v is not None}
+            parts = vis.partial_iuv_images(host["part_iuv"]) if "part_iuv" in host else None
+            panels = vis.demo_panels(norm, host["iuv_img"], parts,
                                      host["rendered"], host["shaded"], host["shaded_side"])
             out_path = os.path.join(args.out_dir, os.path.splitext(os.path.basename(path))[0] + "_danet.png")
             vis.save_rows([[p for _, p in panels]], out_path)

@@ -14,6 +14,9 @@ Runs on cuda:0 unless --cpu is given. The model runs through
 `serve.Predictor` (--bf16: bf16 weights and activations, fp32 `para`).
 With --device_preprocess the host only decodes the frames (of one size);
 the crop and normalization run on the card (`data/pipeline.py`).
+--regressor hmr evaluates the HMR/SPIN baseline instead (pose datasets and
+lsp), from the default mean parameters and always in fp32 (without TF32),
+whatever --bf16 says, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -68,6 +71,27 @@ def with_gt_masks(loader, annot_dir: str):
         yield b, batch
 
 
+def hmr_infer_fn(model, device):
+    """para (B, 229) = [cam, shape, rotmats] of (B, H, W, 3) normalized
+    images (numpy or tensor) through the HMR baseline, from the default
+    mean parameters, in fp32 without TF32 (`full_fp32`)."""
+    from danet_densepose2smpl_tpu_torch.models.smpl_regressor import default_mean_params
+    from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
+
+    model = model.eval().to(device, torch.float32)
+    mp = default_mean_params()
+    init = [torch.as_tensor(a, device=device)[None] for a in (mp.pose6d, mp.shape, mp.cam)]
+
+    @torch.inference_mode()
+    def infer_fn(img):
+        x = torch.as_tensor(img).to(device, torch.float32)
+        with full_fp32():
+            rotmat, betas, cam = model(x, *init)
+        return torch.cat([cam, betas, rotmat.reshape(x.shape[0], 216)], dim=1)
+
+    return infer_fn
+
+
 def main(argv=None) -> dict:
     """Parse `argv`, evaluate, print the reference's summary lines, and
     return the result: {'pose': PoseEvalResult} or {'lsp': {name: value}}."""
@@ -108,10 +132,13 @@ def main(argv=None) -> dict:
     if args.prefetch > 0:
         loader = PrefetchLoader(loader, workers=args.prefetch)
 
-    predictor = Predictor(device, torch.bfloat16 if args.bf16 else torch.float32, smpl=smpl, model=model)
+    if args.regressor == "hmr":
+        infer_fn = hmr_infer_fn(model, device)
+    else:
+        predictor = Predictor(device, torch.bfloat16 if args.bf16 else torch.float32, smpl=smpl, model=model)
 
-    def infer_fn(img):
-        return predictor.run_model(img)["para"]
+        def infer_fn(img):
+            return predictor.run_model(img)["para"]
 
     if args.dataset == "lsp":
         face_parts = None

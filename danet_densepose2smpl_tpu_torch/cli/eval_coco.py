@@ -26,6 +26,7 @@ from danet_densepose2smpl_tpu_torch.cli.common import (
     add_common_args,
     build_model_and_params,
     load_assets,
+    refuse_hmr,
     resolve_device,
 )
 
@@ -66,6 +67,7 @@ def main(argv=None) -> tuple[dict, np.ndarray]:
     from danet_densepose2smpl_tpu_torch.serve import Predictor
 
     args = build_parser().parse_args(argv)
+    refuse_hmr(args, "cli.eval_coco")
     device = resolve_device(args)
     cfg = load_config(args.cfg)
     if args.synthetic_data:

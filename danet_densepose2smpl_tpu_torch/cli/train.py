@@ -28,6 +28,7 @@ from danet_densepose2smpl_tpu_torch.cli.common import (
     add_common_args,
     dump_run_config,
     load_assets,
+    refuse_hmr,
     resolve_device,
 )
 
@@ -75,6 +76,7 @@ def setup(args):
     (device, cfg, train dataset, SMPL model, GT IUV renderer, fits)."""
     if args.data_parallel:
         raise NotImplementedError("--data_parallel is not ported to PyTorch yet (ROADMAP.md queue 1, item 19)")
+    refuse_hmr(args, "cli.train")
     device = resolve_device(args)
 
     from danet_densepose2smpl_tpu_torch.config import load_config

@@ -65,20 +65,38 @@
 //   - Shared memory sets the tile: at the path's shape 4 rows fit two blocks
 //     on an SM (~105 KB each), so one block's copies and interpolation
 //     overlap the other's MMAs.
+//   - Wide features (the ResNet backbone's C = 256) do not fit: the ring,
+//     the packed weights and the staged rows all grow with C (~389 KB a block
+//     at C = 256). There the kernel (`<kChunked = true>`) takes the channels
+//     in chunks of kChunk = 32: the ring, the staged rows, tmp and the weight
+//     tile hold one chunk (the wrapper packs the weights chunk by chunk,
+//     `(K, chunks, npad, 9 * 32)`), and for each tile every chunk rebuilds
+//     the tile's crop rows and their halo and adds its share of the GEMM
+//     depth to the accumulators, which wait in shared memory between chunks.
+//     At C = 256, S = 56 that is 4-row tiles, ~100 KB a block, two a SM. The
+//     conv then bounds it: 4.7e11 FLOP, 0.47 ms at the bf16 peak, against
+//     0.09 ms for the bytes; measured 8.8 ms at B = 64 on an H100 (PERF.md
+//     §6). The halo rows are built twice (1.5x the crop work of 4-row
+//     tiles), a cost of the chunking; C = 48 keeps the unchunked kernel
+//     (`<false>`), the ring and its reuse across tiles.
 //
 // fp32 and f64: `part_crop_head_kernel`, scalar CUDA-core FMAs (their bars,
 // 1e-4 with TF32 off and 1e-10, rule out TF32 and bf16 tensor cores). One
 // block per (image, part, tile of output rows) builds the crop rows of its
 // tile plus a one-row halo in shared memory (from zero-skipping lists of
-// the interpolation weights) and runs the conv from there.
+// the interpolation weights) and runs the conv from there. Where all of C
+// does not fit, the channels pass in chunks of CC = 32, each rebuilding the
+// crop, its sums carried in shared memory.
 //
-// Shared memory of a scalar block, for R = rows + 2 crop rows:
-//   crop     [R][C][S+2]       input dtype, zero columns at both ends
+// Shared memory of a scalar block, for R = rows + 2 crop rows and a chunk
+// of CC channels (CC = C when it fits):
+//   crop     [R][CC][S+2]      input dtype, zero columns at both ends
 //   then a region used twice:
-//     phase 1: tmp [R][C][WP]   (WP = W rounded up to odd: no bank conflicts)
+//     phase 1: tmp [R][CC][WP]  (WP = W rounded up to odd: no bank conflicts)
 //              y lists: count[R], idx[R][H], val[R][H]
 //              x lists: count[S], idx[S][W], val[S][W]
-//     phase 2: weight [3][3][C][O] input dtype, bias [O] accumulator dtype
+//     phase 2: weight [3][3][CC][O] input dtype, bias [O] accumulator dtype
+//   in chunks, then: acc [rows][S][O] accumulator dtype
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,19 +120,21 @@ template <> __device__ __forceinline__ double from_acc<double>(double x) { retur
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 struct Layout {
-  size_t crop, tmp, ycnt, yidx, yval, xcnt, xidx, xval, weight, bias, total;
+  size_t crop, tmp, ycnt, yidx, yval, xcnt, xidx, xval, weight, bias, acc, total;
 };
 
-// Byte offsets of every shared-memory array for a tile of `rows` output rows.
-__host__ __device__ inline Layout make_layout(int rows, int H, int W, int C, int S, int O,
-                                              size_t elem, size_t acc) {
+// Byte offsets of every shared-memory array for a tile of `rows` output rows
+// and a chunk of CC channels; `chunked` adds the accumulators that carry the
+// conv's sums from one chunk to the next.
+__host__ __device__ inline Layout make_layout(int rows, int H, int W, int CC, int S, int O,
+                                              size_t elem, size_t acc, bool chunked) {
   Layout L;
   const size_t R = rows + 2;
   const size_t WP = W | 1;
   L.crop = 0;
-  size_t a = align16(R * C * (S + 2) * elem);
+  size_t a = align16(R * CC * (S + 2) * elem);
   L.tmp = a;
-  size_t p = align16(a + R * C * WP * elem);
+  size_t p = align16(a + R * CC * WP * elem);
   L.ycnt = p; p = align16(p + R * sizeof(int));
   L.yidx = p; p = align16(p + R * H * sizeof(int16_t));
   L.yval = p; p = align16(p + R * H * elem);
@@ -122,9 +142,10 @@ __host__ __device__ inline Layout make_layout(int rows, int H, int W, int C, int
   L.xidx = p; p = align16(p + size_t(S) * W * sizeof(int16_t));
   L.xval = p; p = align16(p + size_t(S) * W * elem);
   size_t q = a;
-  L.weight = q; q = align16(q + size_t(9) * C * O * elem);
+  L.weight = q; q = align16(q + size_t(9) * CC * O * elem);
   L.bias = q; q = align16(q + O * acc);
-  L.total = p > q ? p : q;
+  L.acc = p > q ? p : q;
+  L.total = L.acc + (chunked ? align16(size_t(rows) * S * O * acc) : 0);
   return L;
 }
 
@@ -136,10 +157,11 @@ part_crop_head_kernel(const T* __restrict__ feats,   // (B, H, W, C)
                       const T* __restrict__ weight,  // (K, 3, 3, C, O)
                       const T* __restrict__ bias,    // (K * O)
                       T* __restrict__ out,           // (B, K, S, S, O)
-                      int H, int W, int C, int S, int K, int O, int rows) {
+                      int H, int W, int C, int S, int K, int O, int rows, int CC) {
   using A = typename Acc<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(rows, H, W, C, S, O, sizeof(T), sizeof(A));
+  const int n_chunks = (C + CC - 1) / CC;
+  const Layout L = make_layout(rows, H, W, CC, S, O, sizeof(T), sizeof(A), n_chunks > 1);
   T* crop = reinterpret_cast<T*>(smem + L.crop);
   T* tmp = reinterpret_cast<T*>(smem + L.tmp);
   int* ycnt = reinterpret_cast<int*>(smem + L.ycnt);
@@ -150,6 +172,7 @@ part_crop_head_kernel(const T* __restrict__ feats,   // (B, H, W, C)
   T* xval = reinterpret_cast<T*>(smem + L.xval);
   T* wsm = reinterpret_cast<T*>(smem + L.weight);
   A* bsm = reinterpret_cast<A*>(smem + L.bias);
+  A* asm_ = reinterpret_cast<A*>(smem + L.acc);   // [rows][S][O], between chunks
 
   const int tid = threadIdx.x;
   const int y0 = blockIdx.x * rows;        // first output row of the tile
@@ -159,103 +182,125 @@ part_crop_head_kernel(const T* __restrict__ feats,   // (B, H, W, C)
   const int SP = S + 2;
   const int WP = W | 1;
   const T zero = from_acc<T>(A(0));
-
-  // Phase 0: zero the crop (padding and rows outside [0, S)) and compact the
-  // non-zero interpolation weights of this tile's rows and of all columns.
-  for (int i = tid; i < R * C * SP; i += blockDim.x) crop[i] = zero;
   const T* wy_bk = wy + (size_t(b) * K + k) * S * H;
   const T* wx_bk = wx + (size_t(b) * K + k) * S * W;
-  for (int t = tid; t < R + S; t += blockDim.x) {
-    if (t < R) {
-      const int gy = y0 - 1 + t;
-      int n = 0;
-      if (gy >= 0 && gy < S) {
-        for (int h = 0; h < H; ++h) {
-          const T v = wy_bk[size_t(gy) * H + h];
-          if (to_acc(v) != A(0)) { yidx[t * H + n] = int16_t(h); yval[t * H + n] = v; ++n; }
-        }
-      }
-      ycnt[t] = n;
-    } else {
-      const int x = t - R;
-      int n = 0;
-      for (int w = 0; w < W; ++w) {
-        const T v = wx_bk[size_t(x) * W + w];
-        if (to_acc(v) != A(0)) { xidx[x * W + n] = int16_t(w); xval[x * W + n] = v; ++n; }
-      }
-      xcnt[x] = n;
-    }
-  }
-  __syncthreads();
-
-  // Phase 1: y-interpolation of the needed rows, tmp[r][c][w], rounded.
   const T* f_b = feats + size_t(b) * H * W * C;
-  for (int r = 0; r < R; ++r) {
-    const int n = ycnt[r];
-    for (int i = tid; i < W * C; i += blockDim.x) {
-      A acc = A(0);
-      for (int j = 0; j < n; ++j)
-        acc += to_acc(yval[r * H + j]) * to_acc(f_b[size_t(yidx[r * H + j]) * W * C + i]);
-      const int w = i / C, c = i - w * C;
-      tmp[(r * C + c) * WP + w] = from_acc<T>(acc);
-    }
-  }
-  __syncthreads();
 
-  // Phase 2: x-interpolation, crop[r][c][x + 1], rounded. Rows outside the
-  // image stay zero (the conv's zero padding).
-  for (int i = tid; i < R * C * S; i += blockDim.x) {
-    const int x = i % S;
-    const int rc = i / S;
-    const int r = rc / C;
-    const int gy = y0 - 1 + r;
-    if (gy < 0 || gy >= S) continue;
-    const int n = xcnt[x];
-    const T* trow = tmp + size_t(rc) * WP;
-    A acc = A(0);
-    for (int j = 0; j < n; ++j) acc += to_acc(xval[x * W + j]) * to_acc(trow[xidx[x * W + j]]);
-    crop[size_t(rc) * SP + x + 1] = from_acc<T>(acc);
-  }
-  __syncthreads();
-
-  // Phase 3: this part's conv weights and bias replace tmp and the lists.
-  const T* w_k = weight + size_t(k) * 9 * C * O;
-  for (int i = tid; i < 9 * C * O; i += blockDim.x) wsm[i] = w_k[i];
-  for (int o = tid; o < O; o += blockDim.x) bsm[o] = to_acc(bias[size_t(k) * O + o]);
-  __syncthreads();
-
-  // Phase 4: 3x3 conv, one (pixel, chunk of kOutChunk outputs) per item;
-  // neighbouring threads take neighbouring x (contiguous crop reads) and
-  // read the same weights (broadcast).
-  const int rv = min(rows, S - y0);
-  const int n_chunks = (O + kOutChunk - 1) / kOutChunk;
-  const int n_pix = rv * S;
-  T* out_bk = out + (size_t(b) * K + k) * S * S * O;
-  for (int it = tid; it < n_pix * n_chunks; it += blockDim.x) {
-    const int chunk = it / n_pix;
-    const int p = it - chunk * n_pix;
-    const int ty = p / S, x = p - ty * S;
-    const int o0 = chunk * kOutChunk;
-    A acc[kOutChunk];
-#pragma unroll
-    for (int j = 0; j < kOutChunk; ++j) acc[j] = (o0 + j < O) ? bsm[o0 + j] : A(0);
-    for (int dy = 0; dy < 3; ++dy) {
-      for (int dx = 0; dx < 3; ++dx) {
-        const T* crow = crop + size_t(ty + dy) * C * SP + x + dx;
-        const T* wtap = wsm + size_t(dy * 3 + dx) * C * O + o0;
-        for (int c = 0; c < C; ++c) {
-          const A v = to_acc(crow[size_t(c) * SP]);
-          const T* wrow = wtap + size_t(c) * O;
-#pragma unroll
-          for (int j = 0; j < kOutChunk; ++j)
-            if (o0 + j < O) acc[j] += v * to_acc(wrow[j]);
+  // The channels pass in chunks of CC (one chunk when all of C fits); the
+  // conv's sums carry over in `asm_`. A chunk's phases 0-2 rebuild its crop
+  // (the weight tile of phase 3 overwrites the lists).
+  for (int cc = 0; cc < n_chunks; ++cc) {
+    const int cbase = cc * CC;
+    const int cn = min(CC, C - cbase);   // channels of this chunk
+    // Phase 0: zero the crop (padding and rows outside [0, S)) and compact
+    // the non-zero interpolation weights of this tile's rows and of all
+    // columns.
+    for (int i = tid; i < R * CC * SP; i += blockDim.x) crop[i] = zero;
+    for (int t = tid; t < R + S; t += blockDim.x) {
+      if (t < R) {
+        const int gy = y0 - 1 + t;
+        int n = 0;
+        if (gy >= 0 && gy < S) {
+          for (int h = 0; h < H; ++h) {
+            const T v = wy_bk[size_t(gy) * H + h];
+            if (to_acc(v) != A(0)) { yidx[t * H + n] = int16_t(h); yval[t * H + n] = v; ++n; }
+          }
         }
+        ycnt[t] = n;
+      } else {
+        const int x = t - R;
+        int n = 0;
+        for (int w = 0; w < W; ++w) {
+          const T v = wx_bk[size_t(x) * W + w];
+          if (to_acc(v) != A(0)) { xidx[x * W + n] = int16_t(w); xval[x * W + n] = v; ++n; }
+        }
+        xcnt[x] = n;
       }
     }
-    T* dst = out_bk + (size_t(y0 + ty) * S + x) * O + o0;
+    __syncthreads();
+
+    // Phase 1: y-interpolation of the needed rows, tmp[r][c][w], rounded.
+    for (int r = 0; r < R; ++r) {
+      const int n = ycnt[r];
+      for (int i = tid; i < W * cn; i += blockDim.x) {
+        const int w = i / cn, c = i - w * cn;
+        const T* src = f_b + size_t(w) * C + cbase + c;
+        A acc = A(0);
+        for (int j = 0; j < n; ++j) acc += to_acc(yval[r * H + j]) * to_acc(src[size_t(yidx[r * H + j]) * W * C]);
+        tmp[(r * CC + c) * WP + w] = from_acc<T>(acc);
+      }
+    }
+    __syncthreads();
+
+    // Phase 2: x-interpolation, crop[r][c][x + 1], rounded. Rows outside the
+    // image stay zero (the conv's zero padding), as do a last chunk's
+    // channels past C.
+    for (int i = tid; i < R * CC * S; i += blockDim.x) {
+      const int x = i % S;
+      const int rc = i / S;
+      const int r = rc / CC;
+      const int gy = y0 - 1 + r;
+      if (gy < 0 || gy >= S || rc - r * CC >= cn) continue;
+      const int n = xcnt[x];
+      const T* trow = tmp + size_t(rc) * WP;
+      A acc = A(0);
+      for (int j = 0; j < n; ++j) acc += to_acc(xval[x * W + j]) * to_acc(trow[xidx[x * W + j]]);
+      crop[size_t(rc) * SP + x + 1] = from_acc<T>(acc);
+    }
+    __syncthreads();
+
+    // Phase 3: this part's conv weights of the chunk (zero past C) and the
+    // bias replace tmp and the lists.
+    const T* w_k = weight + size_t(k) * 9 * C * O;
+    for (int i = tid; i < 9 * CC * O; i += blockDim.x) {
+      const int o = i % O, tc = i / O, tap = tc / CC, c = tc - tap * CC;
+      wsm[i] = c < cn ? w_k[(size_t(tap) * C + cbase + c) * O + o] : zero;
+    }
+    for (int o = tid; o < O; o += blockDim.x) bsm[o] = to_acc(bias[size_t(k) * O + o]);
+    __syncthreads();
+
+    // Phase 4: 3x3 conv, one (pixel, chunk of kOutChunk outputs) per item;
+    // neighbouring threads take neighbouring x (contiguous crop reads) and
+    // read the same weights (broadcast). The first chunk starts from the
+    // bias, the last writes the output.
+    const int rv = min(rows, S - y0);
+    const int n_oc = (O + kOutChunk - 1) / kOutChunk;
+    const int n_pix = rv * S;
+    T* out_bk = out + (size_t(b) * K + k) * S * S * O;
+    for (int it = tid; it < n_pix * n_oc; it += blockDim.x) {
+      const int chunk = it / n_pix;
+      const int p = it - chunk * n_pix;
+      const int ty = p / S, x = p - ty * S;
+      const int o0 = chunk * kOutChunk;
+      A acc[kOutChunk];
 #pragma unroll
-    for (int j = 0; j < kOutChunk; ++j)
-      if (o0 + j < O) dst[j] = from_acc<T>(acc[j]);
+      for (int j = 0; j < kOutChunk; ++j)
+        acc[j] = (o0 + j < O) ? (cc == 0 ? bsm[o0 + j] : asm_[p * O + o0 + j]) : A(0);
+      for (int dy = 0; dy < 3; ++dy) {
+        for (int dx = 0; dx < 3; ++dx) {
+          const T* crow = crop + size_t(ty + dy) * CC * SP + x + dx;
+          const T* wtap = wsm + size_t(dy * 3 + dx) * CC * O + o0;
+          for (int c = 0; c < cn; ++c) {
+            const A v = to_acc(crow[size_t(c) * SP]);
+            const T* wrow = wtap + size_t(c) * O;
+#pragma unroll
+            for (int j = 0; j < kOutChunk; ++j)
+              if (o0 + j < O) acc[j] += v * to_acc(wrow[j]);
+          }
+        }
+      }
+      if (cc + 1 < n_chunks) {
+#pragma unroll
+        for (int j = 0; j < kOutChunk; ++j)
+          if (o0 + j < O) asm_[p * O + o0 + j] = acc[j];
+      } else {
+        T* dst = out_bk + (size_t(y0 + ty) * S + x) * O + o0;
+#pragma unroll
+        for (int j = 0; j < kOutChunk; ++j)
+          if (o0 + j < O) dst[j] = from_acc<T>(acc[j]);
+      }
+    }
+    if (cc + 1 < n_chunks) __syncthreads();
   }
 }
 
@@ -275,6 +320,9 @@ int pick_rows(F total, size_t* bytes) {
   return 0;
 }
 
+// Channels a chunk of the scalar kernel takes when all of C does not fit.
+constexpr int kScalarChunk = 32;
+
 template <typename T>
 int launch(const void* feats, const void* wy, const void* wx, const void* weight,
            const void* bias, void* out, int B, int H, int W, int C, int S, int K, int O,
@@ -282,8 +330,15 @@ int launch(const void* feats, const void* wy, const void* wx, const void* weight
   using A = typename Acc<T>::type;
   if (H > 32767 || W > 32767) return int(cudaErrorInvalidValue);
   size_t bytes = 0;
-  const int rows = pick_rows(
-      [&](int r) { return make_layout(r, H, W, C, S, O, sizeof(T), sizeof(A)).total; }, &bytes);
+  int rows = 0, CC = C;   // all of C at once where it fits, else chunks
+  const int candidates[2] = {C, kScalarChunk};
+  for (const int cc : candidates) {
+    if (cc > C) break;
+    rows = pick_rows(
+        [&](int r) { return make_layout(r, H, W, cc, S, O, sizeof(T), sizeof(A), cc < C).total; }, &bytes);
+    CC = cc;
+    if (rows != 0) break;
+  }
   if (rows == 0) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(part_crop_head_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -293,7 +348,7 @@ int launch(const void* feats, const void* wy, const void* wx, const void* weight
   part_crop_head_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(feats), static_cast<const T*>(wy), static_cast<const T*>(wx),
       static_cast<const T*>(weight), static_cast<const T*>(bias), static_cast<T*>(out),
-      H, W, C, S, K, O, rows);
+      H, W, C, S, K, O, rows, CC);
   return int(cudaGetLastError());
 }
 
@@ -305,20 +360,23 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = kThreads / 32;
 constexpr int kN = 24;  // output channels per GEMM pass: three n8 MMA tiles
 
-// Sizes derived from C and O, the same on host and device.
+constexpr int kChunk = 32;  // channels a chunk takes when all of C does not fit
+
+// Sizes derived from C, O and the chunk of channels the kernel takes at a
+// time (0: all of C, padded to 16; else kChunk), the same on host and device.
 struct Dims {
-  int cpad;  // C rounded up to 16, the MMA depth
-  int c8;    // C rounded up to 8: a staged feature row's pixel stride
+  int cpad;  // the chunk's channels: C rounded up to 16 (the MMA depth), or kChunk
+  int c8;    // a staged feature row's pixel stride: C rounded up to 8, or the chunk
   int cps;   // crop pixel stride in elements, cpad + 8: an odd number of 16-byte units
-  int kdim;  // GEMM depth, 9 * cpad, in (dy, dx, c) order
+  int kdim;  // GEMM depth of a chunk, 9 * cpad, in (dy, dx, c) order
   int kp;    // weight row stride in elements, kdim + 8: an odd number of 16-byte units
   int npad;  // O rounded up to kN
 };
 
-__host__ __device__ inline Dims make_dims(int C, int O) {
+__host__ __device__ inline Dims make_dims(int C, int O, int chunk) {
   Dims d;
-  d.cpad = (C + 15) / 16 * 16;
-  d.c8 = (C + 7) / 8 * 8;
+  d.cpad = chunk != 0 ? chunk : (C + 15) / 16 * 16;
+  d.c8 = chunk != 0 ? chunk : (C + 7) / 8 * 8;
   d.cps = d.cpad + 8;
   d.kdim = 9 * d.cpad;
   d.kp = d.kdim + 8;
@@ -327,12 +385,17 @@ __host__ __device__ inline Dims make_dims(int C, int O) {
 }
 
 struct TcLayout {
-  size_t ring, wts, bias, xcnt, xidx, xval, xpk, ycnt, yidx, yval, items, stage, tmp, out, total;
+  size_t ring, wts, bias, xcnt, xidx, xval, xpk, ycnt, yidx, yval, items, acc, stage, tmp, out, total;
 };
 
-// Byte offsets of the bf16 kernel's shared arrays for tiles of `rows` rows.
-__host__ __device__ inline TcLayout make_tc_layout(int rows, int H, int W, int C, int S, int O) {
-  const Dims d = make_dims(C, O);
+// Byte offsets of the bf16 kernel's shared arrays for tiles of `rows` rows,
+// `chunk` channels at a time (0: all of C). In chunks, the GEMM's
+// accumulators wait in `acc` from one chunk to the next: 24 floats a lane
+// for each (32-pixel, kN-output) fragment of the tile.
+__host__ __device__ inline TcLayout make_tc_layout(int rows, int H, int W, int C, int S, int O,
+                                                   int chunk) {
+  const Dims d = make_dims(C, O, chunk);
+  const bool chunked = chunk != 0;
   const size_t R = rows + 2;
   TcLayout L;
   size_t p = 0;
@@ -347,6 +410,8 @@ __host__ __device__ inline TcLayout make_tc_layout(int rows, int H, int W, int C
   L.yidx = p; p = align16(p + R * H * sizeof(int16_t));
   L.yval = p; p = align16(p + R * H * sizeof(bf16));
   L.items = p; p = align16(p + R * sizeof(int));
+  const size_t frags = (size_t(rows) * S + 31) / 32 * (d.npad / kN);
+  L.acc = p; p = align16(p + (chunked ? frags * 24 * 32 * sizeof(float) : 0));
   // the crop build's buffers; the output stage reuses their bytes
   const size_t u = p;
   L.stage = p; p = align16(p + size_t(4) * W * d.c8 * sizeof(bf16));  // 2 steps x 2 feature rows
@@ -443,17 +508,19 @@ __device__ __forceinline__ int compact_row(const bf16* __restrict__ row, int n, 
   return count;
 }
 
+template <bool kChunked>
 __global__ void __launch_bounds__(kThreads, 2)
 part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
                            const bf16* __restrict__ wy,      // (B, K, S, H)
                            const bf16* __restrict__ wx,      // (B, K, S, W)
-                           const bf16* __restrict__ wpack,   // (K, npad, 9 * cpad)
+                           const bf16* __restrict__ wpack,   // (K, chunks, npad, 9 * cpad)
                            const bf16* __restrict__ bias,    // (K * O)
                            bf16* __restrict__ out,           // (B, K, S, S, O)
-                           int H, int W, int C, int S, int K, int O, int rows) {
+                           int H, int W, int C, int S, int K, int O, int rows, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Dims d = make_dims(C, O);
-  const TcLayout L = make_tc_layout(rows, H, W, C, S, O);
+  if (!kChunked) chunk = 0;   // all of C: the layout's arithmetic folds to C's alone
+  const Dims d = make_dims(C, O, chunk);
+  const TcLayout L = make_tc_layout(rows, H, W, C, S, O, chunk);
   bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);   // [R][S + 2][cps]
   bf16* wts = reinterpret_cast<bf16*>(smem + L.wts);     // [npad][kp]
   float* bsm = reinterpret_cast<float*>(smem + L.bias);
@@ -465,6 +532,7 @@ part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
   int16_t* yidx = reinterpret_cast<int16_t*>(smem + L.yidx);
   bf16* yval = reinterpret_cast<bf16*>(smem + L.yval);
   int* items = reinterpret_cast<int*>(smem + L.items);   // the rows that have taps
+  float* accsm = reinterpret_cast<float*>(smem + L.acc); // chunks only: [fragment][24][32 lanes]
   // feature columns xlo..xhi, the only ones the x lists read, are staged
   // and y-interpolated: column w at w - xlo
   bf16* stage = reinterpret_cast<bf16*>(smem + L.stage);  // [2][2][W][c8]
@@ -475,6 +543,7 @@ part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
   const int k = blockIdx.x, b = blockIdx.y;   // the parts of an image run side by side
   const int R = rows + 2, SP = S + 2;
   const int G = d.cpad / 8, G8 = d.c8 / 8;    // 8-channel groups: crop, staged row
+  const int n_chunks = kChunked ? (C + d.cpad - 1) / d.cpad : 1;
   const bf16* wy_bk = wy + (size_t(b) * K + k) * S * H;
   const bf16* wx_bk = wx + (size_t(b) * K + k) * S * W;
   const bf16* f_b = feats + size_t(b) * H * W * C;
@@ -483,17 +552,20 @@ part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
   // copied element by element into the padded staging layout
   const bool vec_rows = C % 8 == 0 && (reinterpret_cast<uintptr_t>(feats) & 15) == 0;
 
-  // Set-up: the part's packed weight tile (asynchronous), its bias in fp32,
-  // the x lists, and the ring's zero padding columns.
-  {
-    const bf16* w_k = wpack + size_t(k) * d.npad * d.kdim;
+  // The part's packed weight tile of chunk cc, asynchronously.
+  auto issue_weights = [&](int cc) {
+    const bf16* w_k = wpack + (size_t(k) * n_chunks + cc) * d.npad * d.kdim;
     const int chunks = d.kdim / 8;
     for (int i = tid; i < d.npad * chunks; i += kThreads) {
       const int n = i / chunks, q = i - n * chunks;
       cp_async16(wts + size_t(n) * d.kp + q * 8, w_k + size_t(n) * d.kdim + q * 8);
     }
     cp_async_commit();
-  }
+  };
+
+  // Set-up: the packed weight tile (of all of C), the bias in fp32, the x
+  // lists, and the ring's zero padding columns.
+  if (!kChunked) issue_weights(0);
   for (int n = tid; n < d.npad; n += kThreads)
     bsm[n] = n < O ? __bfloat162float(bias[size_t(k) * O + n]) : 0.f;
   for (int x = warp; x < S; x += kWarps) {
@@ -517,21 +589,39 @@ part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
     st16(ring + (size_t(rc >> 1) * SP + col) * d.cps + g * 8, zero16);
   }
 
-  // Copies the feature rows of work item i (a row of one or two taps) into
-  // staging buffer i & 1; a row of more taps reads global memory instead.
-  auto issue = [&](int i) {
+  // Copies the feature rows of work item i (a row of one or two taps),
+  // channels cbase on of columns xlo..xhi, into staging buffer i & 1; a row of
+  // more taps reads global memory instead.
+  auto issue = [&](int i, int cbase) {
     const int r = items[i], n = ycnt[r], xlo = ycnt[R + 1];
-    const int span = (ycnt[R + 2] - xlo + 1) * C;   // elements of columns xlo..xhi
+    const int npx = ycnt[R + 2] - xlo + 1;
     bf16* dst = stage + size_t(i & 1) * 2 * W * d.c8;
     for (int tap = 0; tap < n && n <= 2; ++tap) {
-      const bf16* src = f_b + size_t(yidx[r * H + tap]) * row_elems + size_t(xlo) * C;
+      const bf16* src = f_b + size_t(yidx[r * H + tap]) * row_elems + size_t(xlo) * C + cbase;
       bf16* to = dst + size_t(tap) * W * d.c8;
-      if (vec_rows) {
-        for (int q = tid; q < span / 8; q += kThreads) cp_async16(to + q * 8, src + q * 8);
-      } else {
-        for (int e = tid; e < span; e += kThreads) {
-          const int w = e / C;
-          to[w * d.c8 + e - w * C] = src[e];
+      if (kChunked) {   // the chunk's channels of each pixel
+        const int cn = min(d.cpad, C - cbase);
+        if (vec_rows) {
+          const int cg = cn / 8;
+          for (int q = tid; q < npx * cg; q += kThreads) {
+            const int w = q / cg, g = q - w * cg;
+            cp_async16(to + w * d.c8 + g * 8, src + size_t(w) * C + g * 8);
+          }
+        } else {
+          for (int e = tid; e < npx * cn; e += kThreads) {
+            const int w = e / cn, c = e - w * cn;
+            to[w * d.c8 + c] = src[size_t(w) * C + c];
+          }
+        }
+      } else {          // whole pixels: one contiguous span
+        const int span = npx * C;
+        if (vec_rows) {
+          for (int q = tid; q < span / 8; q += kThreads) cp_async16(to + q * 8, src + q * 8);
+        } else {
+          for (int e = tid; e < span; e += kThreads) {
+            const int w = e / C;
+            to[w * d.c8 + e - w * C] = src[e];
+          }
         }
       }
     }
@@ -545,7 +635,8 @@ part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
     const int y0 = t * rows, rv = min(rows, S - y0);
     // crop rows g_lo .. y0 + rv are built now; the first tile also builds
     // the halo row above, later tiles find rows y0 - 1 and y0 in the ring
-    const int g_lo = t == 0 ? -1 : y0 + 1;
+    // (in chunks, the ring holds one chunk: every tile builds its halo)
+    const int g_lo = t == 0 || kChunked ? y0 - 1 : y0 + 1;
     const int nb = y0 + rv - g_lo + 1;
 
     for (int r = warp; r < nb; r += kWarps) {
@@ -582,159 +673,180 @@ part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
     }
     __syncthreads();
 
-    // Crop build, a row a step: step i copies row i + 1's feature rows
-    // (asynchronous), y-interpolates row i and x-interpolates row i - 1.
     const int n_items = ycnt[R];
-    if (n_items > 0) issue(0);
-    for (int i = 0; i <= n_items; ++i) {
-      cp_async_wait<0>();
+    for (int cc = 0; cc < n_chunks; ++cc) {
+      const int cbase = cc * d.cpad;
+      if (kChunked) issue_weights(cc);
+      // Crop build, a row a step: step i copies row i + 1's feature rows
+      // (asynchronous), y-interpolates row i and x-interpolates row i - 1.
+      if (n_items > 0) issue(0, cbase);
+      for (int i = 0; i <= n_items; ++i) {
+        cp_async_wait<0>();
+        __syncthreads();
+        if (i + 1 < n_items) issue(i + 1, cbase);
+        // each thread takes one channel group of every P-th pixel: no division
+        // in the loops (computed here, from a thread index the compiler does
+        // not hoist, so that it holds no register through the MMAs)
+        const int tv = thread_index(), P = kThreads / G;
+        const int gq = tv % G, pq = tv < P * G ? tv / G : S + W;
+        const int xlo = ycnt[R + 1], xhi = ycnt[R + 2];
+        if (i < n_items) {   // y-interpolation: tmp[i & 1][w][c] = round(sum of the row's taps)
+          const int r = items[i], n = ycnt[r];
+          bf16* tw = tmp + size_t(i & 1) * W * d.cpad;
+          const float w0 = __bfloat162float(yval[r * H]);
+          const float w1 = n > 1 ? __bfloat162float(yval[r * H + 1]) : 0.f;
+          const bf16* s0 = stage + size_t(i & 1) * 2 * W * d.c8;
+          const bf16* s1 = s0 + size_t(W) * d.c8;
+          const int g = gq;
+          for (int w = xlo + pq; w <= xhi; w += P) {
+            const int ws = w - xlo;
+            float acc[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+            if (n <= 2) {
+              if (g < G8) {
+                float f[8];
+                unpack8(ld16(s0 + ws * d.c8 + g * 8), f);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) acc[e] = fmaf(w0, f[e], acc[e]);
+                if (n > 1) {
+                  unpack8(ld16(s1 + ws * d.c8 + g * 8), f);
+#pragma unroll
+                  for (int e = 0; e < 8; ++e) acc[e] = fmaf(w1, f[e], acc[e]);
+                }
+              }
+            } else {   // a dense row: every tap from global memory, in order
+              for (int j = 0; j < n; ++j) {
+                const float wv = __bfloat162float(yval[r * H + j]);
+                const bf16* src = f_b + size_t(yidx[r * H + j]) * row_elems + size_t(w) * C + cbase + g * 8;
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                  if (cbase + g * 8 + e < C) acc[e] = fmaf(wv, __bfloat162float(src[e]), acc[e]);
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[e] = cbase + g * 8 + e < C ? acc[e] : 0.f;   // zero channel padding
+            st16(tw + ws * d.cpad + g * 8, pack8(acc));
+          }
+        }
+        if (i > 0) {   // x-interpolation of row i - 1 into its ring slot, rounded
+          const bf16* tr = tmp + size_t((i - 1) & 1) * W * d.cpad;
+          bf16* crow = ring + size_t((g_lo + items[i - 1] + 1) % R) * SP * d.cps;
+          const int g = gq;
+          for (int x = pq; x < S; x += P) {
+            const uint2 pk = xpk[x];
+            float acc[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+            if ((pk.x & 0xffffu) != 0xffffu) {   // two taps, one (the second weighs 0) or none
+              if (pk.y != 0u) {
+                const float w0 = __bfloat162float(__ushort_as_bfloat16(pk.y & 0xffffu));
+                const float w1 = __bfloat162float(__ushort_as_bfloat16(pk.y >> 16));
+                float f0[8], f1[8];
+                unpack8(ld16(tr + (int(pk.x & 0xffffu) - xlo) * d.cpad + g * 8), f0);
+                unpack8(ld16(tr + (int(pk.x >> 16) - xlo) * d.cpad + g * 8), f1);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) acc[e] = fmaf(w1, f1[e], fmaf(w0, f0[e], 0.f));
+              }
+            } else {
+              for (int jj = 0; jj < xcnt[x]; ++jj) {
+                const float wv = __bfloat162float(xval[x * W + jj]);
+                float f[8];
+                unpack8(ld16(tr + (xidx[x * W + jj] - xlo) * d.cpad + g * 8), f);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) acc[e] = fmaf(wv, f[e], acc[e]);
+              }
+            }
+            st16(crow + (x + 1) * d.cps + g * 8, pack8(acc));
+          }
+        }
+      }
+      cp_async_wait<0>();   // the weight tile, when no row had a tap
       __syncthreads();
-      if (i + 1 < n_items) issue(i + 1);
-      // each thread takes one channel group of every P-th pixel: no division
-      // in the loops (computed here, from a thread index the compiler does
-      // not hoist, so that it holds no register through the MMAs)
-      const int tv = thread_index(), P = kThreads / G;
-      const int gq = tv % G, pq = tv < P * G ? tv / G : S + W;
-      const int xlo = ycnt[R + 1], xhi = ycnt[R + 2];
-      if (i < n_items) {   // y-interpolation: tmp[i & 1][w][c] = round(sum of the row's taps)
-        const int r = items[i], n = ycnt[r];
-        bf16* tw = tmp + size_t(i & 1) * W * d.cpad;
-        const float w0 = __bfloat162float(yval[r * H]);
-        const float w1 = n > 1 ? __bfloat162float(yval[r * H + 1]) : 0.f;
-        const bf16* s0 = stage + size_t(i & 1) * 2 * W * d.c8;
-        const bf16* s1 = s0 + size_t(W) * d.c8;
-        const int g = gq;
-        for (int w = xlo + pq; w <= xhi; w += P) {
-          const int ws = w - xlo;
-          float acc[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-          if (n <= 2) {
-            if (g < G8) {
-              float f[8];
-              unpack8(ld16(s0 + ws * d.c8 + g * 8), f);
-#pragma unroll
-              for (int e = 0; e < 8; ++e) acc[e] = fmaf(w0, f[e], acc[e]);
-              if (n > 1) {
-                unpack8(ld16(s1 + ws * d.c8 + g * 8), f);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) acc[e] = fmaf(w1, f[e], acc[e]);
-              }
-            }
-          } else {   // a dense row: every tap from global memory, in order
-            for (int j = 0; j < n; ++j) {
-              const float wv = __bfloat162float(yval[r * H + j]);
-              const bf16* src = f_b + size_t(yidx[r * H + j]) * row_elems + size_t(w) * C + g * 8;
-#pragma unroll
-              for (int e = 0; e < 8; ++e)
-                if (g * 8 + e < C) acc[e] = fmaf(wv, __bfloat162float(src[e]), acc[e]);
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] = g * 8 + e < C ? acc[e] : 0.f;   // zero channel padding
-          st16(tw + ws * d.cpad + g * 8, pack8(acc));
-        }
-      }
-      if (i > 0) {   // x-interpolation of row i - 1 into its ring slot, rounded
-        const bf16* tr = tmp + size_t((i - 1) & 1) * W * d.cpad;
-        bf16* crow = ring + size_t((g_lo + items[i - 1] + 1) % R) * SP * d.cps;
-        const int g = gq;
-        for (int x = pq; x < S; x += P) {
-          const uint2 pk = xpk[x];
-          float acc[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-          if ((pk.x & 0xffffu) != 0xffffu) {   // two taps, one (the second weighs 0) or none
-            if (pk.y != 0u) {
-              const float w0 = __bfloat162float(__ushort_as_bfloat16(pk.y & 0xffffu));
-              const float w1 = __bfloat162float(__ushort_as_bfloat16(pk.y >> 16));
-              float f0[8], f1[8];
-              unpack8(ld16(tr + (int(pk.x & 0xffffu) - xlo) * d.cpad + g * 8), f0);
-              unpack8(ld16(tr + (int(pk.x >> 16) - xlo) * d.cpad + g * 8), f1);
-#pragma unroll
-              for (int e = 0; e < 8; ++e) acc[e] = fmaf(w1, f1[e], fmaf(w0, f0[e], 0.f));
-            }
-          } else {
-            for (int jj = 0; jj < xcnt[x]; ++jj) {
-              const float wv = __bfloat162float(xval[x * W + jj]);
-              float f[8];
-              unpack8(ld16(tr + (xidx[x * W + jj] - xlo) * d.cpad + g * 8), f);
-#pragma unroll
-              for (int e = 0; e < 8; ++e) acc[e] = fmaf(wv, f[e], acc[e]);
-            }
-          }
-          st16(crow + (x + 1) * d.cps + g * 8, pack8(acc));
-        }
-      }
-    }
-    cp_async_wait<0>();   // the weight tile, when no row had a tap
-    __syncthreads();
 
-    // The conv as an implicit GEMM on the tensor cores.
-    const int n_pix = rv * S;
-    const size_t span0 = size_t(y0) * S * O;   // the tile's first output in out_bk
-    const int mis = int((reinterpret_cast<uintptr_t>(out_bk + span0) & 15) >> 1);
-    for (int m0 = warp * 32; m0 < n_pix; m0 += kWarps * 32) {   // two 16-pixel tiles a warp
-      uint32_t arow[2][3];
+      // The conv as an implicit GEMM on the tensor cores; in chunks, the
+      // sums wait in accsm between chunks and the last one writes them.
+      const bool last = cc + 1 == n_chunks;
+      const int n_pix = rv * S;
+      const size_t span0 = size_t(y0) * S * O;   // the tile's first output in out_bk
+      const int mis = int((reinterpret_cast<uintptr_t>(out_bk + span0) & 15) >> 1);
+      for (int m0 = warp * 32; m0 < n_pix; m0 += kWarps * 32) {   // two 16-pixel tiles a warp
+        uint32_t arow[2][3];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int p = min(m0 + mt * 16 + (lane & 15), n_pix - 1);
-        const int ty = p / S, x = p - ty * S;
+        for (int mt = 0; mt < 2; ++mt) {
+          const int p = min(m0 + mt * 16 + (lane & 15), n_pix - 1);
+          const int ty = p / S, x = p - ty * S;
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-          arow[mt][dy] =
-              ring_s + uint32_t(((((y0 + ty + dy) % R) * SP + x) * d.cps + (lane >> 4) * 8) * 2);
-      }
-      for (int nc = 0; nc < d.npad; nc += kN) {
-        float acc[2][3][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 3; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-        const uint32_t koff = ((lane >> 3) & 1) * 8;
-        const uint32_t b01 = wts_s + uint32_t(((nc + (lane & 7) + ((lane >> 4) << 3)) * d.kp + koff) * 2);
-        const uint32_t b2 = wts_s + uint32_t(((nc + 16 + (lane & 7)) * d.kp + koff) * 2);
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const uint32_t a_shift = uint32_t((tap % 3) * d.cps * 2);
-          const uint32_t b_tap = uint32_t(tap * d.cpad * 2);
-          for (int cs = 0; cs < d.cpad; cs += 16) {
-            uint32_t a[2][4], bq[4], bp[2];
-            ldsm_x4(arow[0][tap / 3] + a_shift + cs * 2, a[0][0], a[0][1], a[0][2], a[0][3]);
-            ldsm_x4(arow[1][tap / 3] + a_shift + cs * 2, a[1][0], a[1][1], a[1][2], a[1][3]);
-            ldsm_x4(b01 + b_tap + cs * 2, bq[0], bq[1], bq[2], bq[3]);
-            ldsm_x2(b2 + b_tap + cs * 2, bp[0], bp[1]);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              mma_bf16(acc[mt][0], a[mt], bq[0], bq[1]);
-              mma_bf16(acc[mt][1], a[mt], bq[2], bq[3]);
-              mma_bf16(acc[mt][2], a[mt], bp[0], bp[1]);
-            }
-          }
+          for (int dy = 0; dy < 3; ++dy)
+            arow[mt][dy] =
+                ring_s + uint32_t(((((y0 + ty + dy) % R) * SP + x) * d.cps + (lane >> 4) * 8) * 2);
         }
-        // bias in fp32, round, into the output stage
+        for (int nc = 0; nc < d.npad; nc += kN) {
+          float acc[2][3][4];
+          float* aslot = accsm + ((m0 / 32) * (d.npad / kN) + nc / kN) * 24 * 32 + lane;
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+          for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < 3; ++nt)
+            for (int nt = 0; nt < 3; ++nt)
 #pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              const int pr = m0 + mt * 16 + (lane >> 2) + hf * 8;
+              for (int e = 0; e < 4; ++e)
+                acc[mt][nt][e] = kChunked && cc > 0 ? aslot[((mt * 3 + nt) * 4 + e) * 32] : 0.f;
+          const uint32_t koff = ((lane >> 3) & 1) * 8;
+          const uint32_t b01 = wts_s + uint32_t(((nc + (lane & 7) + ((lane >> 4) << 3)) * d.kp + koff) * 2);
+          const uint32_t b2 = wts_s + uint32_t(((nc + 16 + (lane & 7)) * d.kp + koff) * 2);
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int n = nc + nt * 8 + (lane & 3) * 2 + e;
-                if (pr < n_pix && n < O)
-                  ostage[mis + pr * O + n] = __float2bfloat16_rn(acc[mt][nt][hf * 2 + e] + bsm[n]);
+          for (int tap = 0; tap < 9; ++tap) {
+            const uint32_t a_shift = uint32_t((tap % 3) * d.cps * 2);
+            const uint32_t b_tap = uint32_t(tap * d.cpad * 2);
+            for (int cs = 0; cs < d.cpad; cs += 16) {
+              uint32_t a[2][4], bq[4], bp[2];
+              ldsm_x4(arow[0][tap / 3] + a_shift + cs * 2, a[0][0], a[0][1], a[0][2], a[0][3]);
+              ldsm_x4(arow[1][tap / 3] + a_shift + cs * 2, a[1][0], a[1][1], a[1][2], a[1][3]);
+              ldsm_x4(b01 + b_tap + cs * 2, bq[0], bq[1], bq[2], bq[3]);
+              ldsm_x2(b2 + b_tap + cs * 2, bp[0], bp[1]);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_bf16(acc[mt][0], a[mt], bq[0], bq[1]);
+                mma_bf16(acc[mt][1], a[mt], bq[2], bq[3]);
+                mma_bf16(acc[mt][2], a[mt], bp[0], bp[1]);
               }
             }
+          }
+          if (kChunked && !last) {   // park the sums until the next chunk
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) aslot[((mt * 3 + nt) * 4 + e) * 32] = acc[mt][nt][e];
+            continue;
+          }
+          // bias in fp32, round, into the output stage
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int pr = m0 + mt * 16 + (lane >> 2) + hf * 8;
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int n = nc + nt * 8 + (lane & 3) * 2 + e;
+                  if (pr < n_pix && n < O)
+                    ostage[mis + pr * O + n] = __float2bfloat16_rn(acc[mt][nt][hf * 2 + e] + bsm[n]);
+                }
+              }
+        }
       }
+      if (!last) __syncthreads();   // the next chunk overwrites the ring and the weight tile
     }
     __syncthreads();
 
     // The tile's rows are one contiguous span of the output: 16-byte stores
     // (the stage is offset by the span's misalignment, so both sides align).
+    const int n_pix = rv * S;
+    const size_t span0 = size_t(y0) * S * O;
+    const int mis = int((reinterpret_cast<uintptr_t>(out_bk + span0) & 15) >> 1);
     const int total = n_pix * O;
     bf16* dst = out_bk + span0;
     const int head = min(total, (8 - mis) & 7);
@@ -748,26 +860,46 @@ part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
   }
 }
 
+// The chunk of channels the bf16 kernel takes at a time for this shape: all
+// of C (padded to 16) where that fits in shared memory, else kChunk; 0 if
+// neither fits.
+int bf16_chunk(int H, int W, int C, int S, int O) {
+  const int cpad = (C + 15) / 16 * 16;
+  size_t bytes = 0;
+  const int candidates[2] = {cpad, kChunk};
+  for (const int chunk : candidates) {
+    if (chunk > cpad) break;
+    const int c = chunk < cpad ? chunk : 0;
+    if (pick_rows([&](int r) { return make_tc_layout(r, H, W, C, S, O, c).total; }, &bytes) != 0)
+      return chunk;
+  }
+  return 0;
+}
+
 int launch_bf16(const void* feats, const void* wy, const void* wx, const void* wpack,
                 const void* bias, void* out, int B, int H, int W, int C, int S, int K, int O,
-                cudaStream_t stream) {
-  // int16 lists; every thread of the interpolations needs a channel group
-  if (H > 32767 || W > 32767 || make_dims(C, O).cpad / 8 > kThreads) return int(cudaErrorInvalidValue);
+                int chunk, cudaStream_t stream) {
+  // int16 lists; every thread of the interpolations needs a channel group;
+  // the chunk is all of C padded to 16, or a multiple of 16 below that
+  const int cpad = (C + 15) / 16 * 16;
+  if (H > 32767 || W > 32767 || chunk <= 0 || chunk % 16 != 0 || chunk > cpad || chunk / 8 > kThreads)
+    return int(cudaErrorInvalidValue);
+  if (chunk == cpad) chunk = 0;   // all of C
   size_t bytes = 0;
-  const int rows = pick_rows([&](int r) { return make_tc_layout(r, H, W, C, S, O).total; }, &bytes);
+  const int rows =
+      pick_rows([&](int r) { return make_tc_layout(r, H, W, C, S, O, chunk).total; }, &bytes);
   if (rows == 0) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(part_crop_head_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  const auto kernel = chunk != 0 ? part_crop_head_bf16_kernel<true> : part_crop_head_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(part_crop_head_bf16_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              int(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(K, B);
-  part_crop_head_bf16_kernel<<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(feats), static_cast<const bf16*>(wy), static_cast<const bf16*>(wx),
       static_cast<const bf16*>(wpack), static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-      H, W, C, S, K, O, rows);
+      H, W, C, S, K, O, rows, chunk);
   return int(cudaGetLastError());
 }
 
@@ -786,11 +918,17 @@ extern "C" int part_crop_head(int dtype, const void* feats, const void* wy, cons
   }
 }
 
-// bf16: the tensor-core kernel; wpack is `pack_head_weights`' (K, npad,
-// 9 * cpad) tile. Returns a cudaError_t.
+// The channel chunk `part_crop_head_bf16` takes for this shape (see
+// bf16_chunk); the wrapper packs the weights to match.
+extern "C" int part_crop_head_bf16_chunk(int H, int W, int C, int S, int O) {
+  return bf16_chunk(H, W, C, S, O);
+}
+
+// bf16: the tensor-core kernel; wpack is `pack_head_weights`' (K, chunks,
+// npad, 9 * chunk) tile for `chunk`. Returns a cudaError_t.
 extern "C" int part_crop_head_bf16(const void* feats, const void* wy, const void* wx,
                                    const void* wpack, const void* bias, void* out, int B, int H,
-                                   int W, int C, int S, int K, int O, void* stream) {
-  return launch_bf16(feats, wy, wx, wpack, bias, out, B, H, W, C, S, K, O,
+                                   int W, int C, int S, int K, int O, int chunk, void* stream) {
+  return launch_bf16(feats, wy, wx, wpack, bias, out, B, H, W, C, S, K, O, chunk,
                      static_cast<cudaStream_t>(stream));
 }

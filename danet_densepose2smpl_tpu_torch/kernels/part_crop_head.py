@@ -8,9 +8,11 @@ H100 and how its design answers is set out at the top of the CUDA source.
 `fused_part_predict` dispatches on the device of `feats`: a CPU tensor goes
 to the plain version, a CUDA tensor to a kernel, which launches or raises.
 On the card the dtype alone picks the kernel: bf16 runs the conv on the
-tensor cores, from the weights `pack_head_weights` lays out; fp32 and f64
-run the scalar kernel. `fused_part_predict.launches` counts kernel
-launches. The kernels have no backward (nor had the TPU kernel), so on
+tensor cores, from the weights `pack_head_weights` lays out (in channel
+chunks where the features are too wide for one block's shared memory, as
+the ResNet backbone's 256 channels are: `bf16_chunk`); fp32 and f64 run the
+scalar kernel, which chunks its channels alike. `fused_part_predict.launches`
+counts kernel launches. The kernels have no backward (nor had the TPU kernel), so on
 every device the result carries a `grad_fn` whose backward raises: a
 gradient is never dropped silently.
 """
@@ -50,18 +52,30 @@ def part_crop_head_plain(feats, wy, wx, kernel, bias, out_size: int) -> torch.Te
     return out.reshape(b, k, o, s, s).permute(0, 1, 3, 4, 2).to(dt)
 
 
-def pack_head_weights(kernel: torch.Tensor, num_parts: int) -> torch.Tensor:
+def pack_head_weights(kernel: torch.Tensor, num_parts: int, chunk: int | None = None) -> torch.Tensor:
     """The bf16 kernel's B operand: (3, 3, C, K*O) HWIO grouped-conv weights
     -> (K, Npad, 9 * Cpad), for each part the (dy, dx, c)-ordered GEMM depth
     of each output channel, contiguous. C is padded to a multiple of
-    MMA_DEPTH and O to a multiple of MMA_WIDTH, with zeros."""
+    MMA_DEPTH and O to a multiple of MMA_WIDTH, with zeros.
+
+    With `chunk` (a multiple of MMA_DEPTH), the channels are packed chunk by
+    chunk, as the kernel takes them where all of C does not fit in shared
+    memory: (K, chunks, Npad, 9 * chunk), each chunk's depth in (dy, dx, c)
+    order, C padded with zeros to chunks * chunk. A chunk of Cpad gives the
+    bytes of the unchunked layout."""
     c, ko = kernel.shape[2], kernel.shape[3]
     k, o = num_parts, ko // num_parts
     cpad = -(-c // MMA_DEPTH) * MMA_DEPTH
     npad = -(-o // MMA_WIDTH) * MMA_WIDTH
+    width = chunk or cpad
+    if width % MMA_DEPTH:
+        raise ValueError(f"pack_head_weights: chunk {width} is not a multiple of {MMA_DEPTH}")
+    n = -(-c // width)
     w = kernel.reshape(3, 3, c, k, o).permute(3, 4, 0, 1, 2)          # (K, O, 3, 3, C)
-    w = F.pad(w, (0, cpad - c)).reshape(k, o, 9 * cpad)
-    return F.pad(w, (0, 0, 0, npad - o)).contiguous()
+    w = F.pad(w, (0, n * width - c)).reshape(k, o, 9, n, width)
+    w = w.permute(0, 3, 1, 2, 4).reshape(k, n, o, 9 * width)
+    w = F.pad(w, (0, 0, 0, npad - o)).contiguous()
+    return w if chunk else w.reshape(k, npad, 9 * cpad)
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,9 +84,22 @@ def load_library():
     (library, compiler report)."""
     lib, log = build("part_crop_head.cu")
     lib.part_crop_head.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.part_crop_head_bf16_chunk.argtypes = [ctypes.c_int] * 5
     lib.part_crop_head.restype = lib.part_crop_head_bf16.restype = ctypes.c_int
+    lib.part_crop_head_bf16_chunk.restype = ctypes.c_int
     return lib, log
+
+
+def bf16_chunk(h: int, w: int, c: int, s: int, o: int) -> int:
+    """The channels the bf16 kernel takes at a time at this shape: all of C
+    padded to MMA_DEPTH where its shared memory holds them (C=48 at 56x56),
+    else a chunk of 32 (the ResNet backbone's C=256). Asks the library, on
+    the card."""
+    chunk = load_library()[0].part_crop_head_bf16_chunk(h, w, c, s, o)
+    if chunk <= 0:
+        raise RuntimeError(f"part_crop_head: no tile of the bf16 kernel fits (H, W, C, S, O) = {(h, w, c, s, o)}")
+    return chunk
 
 
 def _check(feats, wy, wx, kernel, bias, out_size):
@@ -142,10 +169,11 @@ def _fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Ten
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         if feats.dtype == torch.bfloat16:
-            wpack = pack_head_weights(kernel, k)
+            chunk = bf16_chunk(h, w, c, s, o)
+            wpack = pack_head_weights(kernel, k, chunk)
             err = lib.part_crop_head_bf16(
                 feats.data_ptr(), wy.data_ptr(), wx.data_ptr(), wpack.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), b, h, w, c, s, k, o, stream,
+                out.data_ptr(), b, h, w, c, s, k, o, chunk, stream,
             )
         else:
             kern = kernel.reshape(3, 3, c, k, o).permute(3, 0, 1, 2, 4).contiguous()  # (K,3,3,C,O)

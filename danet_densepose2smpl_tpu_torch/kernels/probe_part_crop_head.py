@@ -32,8 +32,8 @@ def _tick(i: int) -> str:
     return f"c1 = clock64(); if (tid == 0) atomicAdd(&g_phase[{i}], c1 - c0); c0 = c1;\n"
 
 
-_STEP_TOP = "      cp_async_wait<0>();\n      __syncthreads();\n      if (i + 1 < n_items) issue(i + 1);\n"
-_LAST = "    cp_async_wait<0>();   // the weight tile, when no row had a tap\n    __syncthreads();\n"
+_STEP_TOP = "        cp_async_wait<0>();\n        __syncthreads();\n        if (i + 1 < n_items) issue(i + 1, cbase);\n"
+_LAST = "      cp_async_wait<0>();   // the weight tile, when no row had a tap\n      __syncthreads();\n"
 _STORE_END = ("    for (int e = head + n_vec * 8 + tid; e < total; e += kThreads) dst[e] = ostage[mis + e];\n"
               "    __syncthreads();\n")
 # (text of the source, what replaces it), in order; each text occurs once.
@@ -44,10 +44,10 @@ _EDITS = (
      "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n  long long c0 = clock64(), c1;\n"),
     ("    const int y0 = t * rows, rv = min(rows, S - y0);\n",
      "    const int y0 = t * rows, rv = min(rows, S - y0);\n    " + _tick(0)),
-    ("    // Crop build, a row a step", "    " + _tick(1) + "    // Crop build, a row a step"),
-    (_STEP_TOP, "      " + _tick(4) + "      cp_async_wait<0>();\n      __syncthreads();\n      " + _tick(2)
-     + "      if (i + 1 < n_items) issue(i + 1);\n      " + _tick(3)),
-    (_LAST, "    " + _tick(4) + _LAST + "    " + _tick(5)),
+    ("      // Crop build, a row a step", "      " + _tick(1) + "      // Crop build, a row a step"),
+    (_STEP_TOP, "        " + _tick(4) + "        cp_async_wait<0>();\n        __syncthreads();\n        " + _tick(2)
+     + "        if (i + 1 < n_items) issue(i + 1, cbase);\n        " + _tick(3)),
+    (_LAST, "      " + _tick(4) + _LAST + "      " + _tick(5)),
     ("    // The tile's rows are one contiguous span", "    " + _tick(6) + "    // The tile's rows are one contiguous span"),
     (_STORE_END, _STORE_END + "    " + _tick(7)),
 )
@@ -71,7 +71,7 @@ def main(batch: int = 64, seed: int = 2) -> None:
     subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src_path)], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
-    lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
     rng = np.random.RandomState(seed)
     b, h, c, s, k, o = batch, 56, 48, 56, 24, 21
@@ -86,10 +86,10 @@ def main(batch: int = 64, seed: int = 2) -> None:
     wpack = K1.pack_head_weights(args[3], k)
     out = torch.empty((b, k, s, s, o), dtype=torch.bfloat16, device=dev)
 
-    def launch():
+    def launch():   # the chunk argument c: all of C at once, as the wrapper has it at C=48
         err = lib.part_crop_head_bf16(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
                                       wpack.data_ptr(), args[4].data_ptr(), out.data_ptr(),
-                                      b, h, h, c, s, k, o, torch.cuda.current_stream().cuda_stream)
+                                      b, h, h, c, s, k, o, c, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"probe kernel launch failed: cudaError {err}")
 

@@ -1,12 +1,14 @@
 """DaNet in 'iuv' mode: image -> IUV -> SMPL parameters (port of the JAX
-`models/danet.py::DaNet`), for serving (eval) and training.
+`models/danet.py::DaNet`), for serving (eval) and training, with either IUV
+backbone (HRNet-W48, PoseResNet), the decomposed regressor under each
+refinement strategy or the GlobalPredictor (`decomposed=False`).
 
 In train mode the model draws PartDrop and STN jitter noise (or takes it
 injected, see `draw_noise`), drops patches from the regressor's inputs, and
 returns the JAX train outputs: `iuv_clean`, `part_iuv_clean` and the
-regressor's `joint_rotation` / `joint_position` lists. Configurations
-outside the slice raise `NotImplementedError` naming the ROADMAP item that
-will port them.
+regressor's `joint_rotation` / `joint_position` lists. The input-mode
+ablations raise `NotImplementedError` naming the ROADMAP item that will port
+them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.models.iuv_estimator import IUVEstimator
 from danet_densepose2smpl_tpu_torch.models.smpl_regressor import (
     DecomposedPredictor,
+    GlobalPredictor,
     MeanParams,
     default_mean_params,
 )
@@ -28,13 +31,9 @@ from danet_densepose2smpl_tpu_torch.ops.structure import DP2SMPL_MAPPING
 def check_config(cfg: DaNetConfig) -> None:
     """Raise for configurations this port does not run yet."""
     unported = (
-        (cfg.iuv_regressor != "hrnet", f"iuv_regressor='{cfg.iuv_regressor}'", 20),
-        (cfg.input_mode != "iuv", f"input_mode='{cfg.input_mode}'", 20),
-        (cfg.refine_strategy != "gcn", f"refine_strategy='{cfg.refine_strategy}'", 20),
-        (not cfg.decomposed, "decomposed=False (GlobalPredictor)", 20),
+        (cfg.input_mode != "iuv", f"input_mode='{cfg.input_mode}'",
+         "20 (its second half: the input-mode ablations)"),
         (cfg.hrnet_pad_channels, "hrnet_pad_channels", "'Deliberately not ported'"),
-        (not cfg.refinement.refine_on or not cfg.refinement.pos_intersupv,
-         "refinement without refine_on/pos_intersupv", 20),
     )
     for bad, what, item in unported:
         if bad:
@@ -112,9 +111,9 @@ class DaNet(nn.Module):
     """Full model. `forward(image_nhwc)` returns the JAX output dict: para
     (B, 229), pred_cam (B, 3), pred_shape (B, 10), pred_rotmat
     (B, 24, 3, 3), the estimator's maps under iuv_raw, the cleaned maps
-    under iuv_clean and part_iuv_clean, and the joint_rotation and
-    joint_position lists (filled in train mode). A new model is in eval
-    mode."""
+    under iuv_clean and part_iuv_clean (decomposed only), and the
+    joint_rotation and joint_position lists of the decomposed regressor
+    (filled in train mode). A new model is in eval mode."""
 
     def __init__(self, cfg: DaNetConfig | None = None, mean_params: MeanParams | None = None):
         super().__init__()
@@ -122,7 +121,9 @@ class DaNet(nn.Module):
         check_config(cfg)
         self.cfg = cfg
         self.img2iuv = IUVEstimator(cfg)
-        self.iuv2smpl = _SMPLRegressor(DecomposedPredictor(cfg, mean_params or default_mean_params()))
+        self.iuv2smpl = _SMPLRegressor(
+            DecomposedPredictor(cfg, mean_params or default_mean_params()) if cfg.decomposed
+            else GlobalPredictor(cfg))
         super().train(False)
 
     def train(self, mode: bool = True):
@@ -146,22 +147,28 @@ class DaNet(nn.Module):
         x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         est = self.img2iuv(x, noise)
         u, v, index, ann = est["u"], est["v"], est["index"], est["ann"]
-        part_iuv = est["part_iuv"]
+        part_iuv = est.get("part_iuv")
         if self.training and c.partdrop_rate > 0:
             drop = noise["partdrop"] < c.partdrop_rate
             u, v, index = apply_partdrop_global(u, v, index, drop)
-            part_iuv = apply_partdrop_partial(part_iuv, drop)
+            if part_iuv is not None:
+                part_iuv = apply_partdrop_partial(part_iuv, drop)
 
         u_cl, v_cl, index_cl, ann_cl = iuvmap_clean(u, v, index, ann)
         out = {"iuv_raw": est, "iuv_clean": (u_cl, v_cl, index_cl, ann_cl)}
         if pretrain_mode:
             return out
         iuv_map = torch.cat([u_cl, v_cl, index_cl], dim=-1).permute(0, 3, 1, 2)  # (B, 75, S, S)
-        part_map = clean_part_stacks(part_iuv)
-        out["part_iuv_clean"] = part_map
-        smpl_out = self.iuv2smpl.smpl_para_Outs(iuv_map, part_map)
+        if c.decomposed:
+            part_map = clean_part_stacks(part_iuv)
+            out["part_iuv_clean"] = part_map
+            smpl_out = self.iuv2smpl.smpl_para_Outs(iuv_map, part_map)
+        else:
+            smpl_out = self.iuv2smpl.smpl_para_Outs(iuv_map)
         out.update(smpl_out)
-        para = smpl_out["para"]
+        # at least fp32, as the serving contract has it (the decomposed
+        # regressor's constant tables promote it already)
+        para = out["para"] = smpl_out["para"].to(torch.promote_types(smpl_out["para"].dtype, torch.float32))
         out["pred_cam"] = para[:, :3]
         out["pred_shape"] = para[:, 3:13]
         out["pred_rotmat"] = para[:, 13:].reshape(-1, 24, 3, 3)

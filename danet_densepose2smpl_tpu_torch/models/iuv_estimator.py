@@ -1,11 +1,14 @@
 """IUV estimator: image -> global IUV maps + 24 partial IUV stacks (port
 of the JAX `models/iuv_estimator.py`).
 
-HRNet-W48 -> IUV heads (global U/V/Index/Ann + 24 joint heatmaps) ->
+HRNet-W48 (or, with `iuv_regressor='resnet'`, the PoseResNet backbone:
+256 channels) -> IUV heads (global U/V/Index/Ann + 24 joint heatmaps) ->
 soft-argmax joint centres -> (train: centre jitter) -> part visibility ->
 STN scales with the learned per-joint ratio/offset (train: scale jitter,
 twice, as the reference) -> 24 part crops + grouped partial-IUV head. The
-STN theta and scale are detached, as in JAX's 'iuv' mode.
+STN theta and scale are detached, as in JAX's 'iuv' mode. Without
+`decomposed` (the GlobalPredictor model) it stops after the heads: no STN,
+no part crops, no K1.
 
 At eval the crop + head runs through `PartialIUVHead.fused`, whatever
 `fused_part_head` says: on a CUDA tensor the hand-written kernel (K1), on a
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES, PoseHighResolutionNet
 from danet_densepose2smpl_tpu_torch.nn.iuv_head import IUVPredictHead, nhwc
+from danet_densepose2smpl_tpu_torch.nn.resnet import PoseResNet
 from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights, separable_crop_concat
 from danet_densepose2smpl_tpu_torch.ops.keypoints import soft_argmax_2d
 from danet_densepose2smpl_tpu_torch.ops.structure import SMPL_CHILD2, SMPL_PARENT, smpl2dp_channel_mask
@@ -118,12 +122,16 @@ class IUVEstimator(nn.Module):
     def __init__(self, cfg: DaNetConfig):
         super().__init__()
         self.cfg = cfg
-        self.register_buffer("learned_ratio", torch.as_tensor(LEARNED_RATIO.copy()))
-        self.register_buffer("learned_offset", torch.as_tensor(LEARNED_OFFSET.copy()))
-        self.iuv_est = PoseHighResolutionNet(HRNET_W48_STAGES)
+        if cfg.decomposed:
+            self.register_buffer("learned_ratio", torch.as_tensor(LEARNED_RATIO.copy()))
+            self.register_buffer("learned_offset", torch.as_tensor(LEARNED_OFFSET.copy()))
+        if cfg.iuv_regressor == "hrnet":
+            self.iuv_est = PoseHighResolutionNet(HRNET_W48_STAGES)
+        else:
+            self.iuv_est = PoseResNet(cfg.msres_num_layers)
         # the reference checkpoint keeps the heads inside the backbone's
         # namespace: img2iuv.iuv_est.final_pred.*
-        self.iuv_est.final_pred = IUVPredictHead(self.iuv_est.out_channels, decomposed=True)
+        self.iuv_est.final_pred = IUVPredictHead(self.iuv_est.out_channels, decomposed=cfg.decomposed)
         self.register_buffer(
             "part_mask_t", torch.as_tensor(smpl2dp_channel_mask().T.copy()), persistent=False,
         )
@@ -134,13 +142,16 @@ class IUVEstimator(nn.Module):
         u/v/index (B, S, S, 25); ann (B, S, S, 15); heatmaps (B, S, S, 24);
         stn_centers (B, 24, 2) (before jitter); part_vis_scores (B, 24);
         stn_theta (B, 24, 2, 3); stn_scale (B, 24); part_iuv
-        (B, 24, S, S, 3, 7); feats (B, S, S, C)."""
+        (B, 24, S, S, 3, 7); feats (B, S, S, C). Without `decomposed`, the
+        maps of the heads and feats only."""
         c = self.cfg
         feats = self.iuv_est(image)
         out = self.iuv_est.final_pred(feats)
         # the kernel takes dense NHWC; a free view of the channels_last output
         feats_nhwc = nhwc(feats).contiguous()
         out["feats"] = feats_nhwc
+        if not c.decomposed:
+            return out
 
         hm = out["heatmaps"]
         s = hm.shape[1]

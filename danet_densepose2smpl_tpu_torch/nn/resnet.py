@@ -1,5 +1,5 @@
-"""SmplResNet regressors and the grouped LimbResLayers (port of the JAX
-`nn/resnet.py` serving pieces)."""
+"""ResNet variants (port of the JAX `nn/resnet.py`): the PoseResNet IUV
+backbone, the SmplResNet regressors and the grouped LimbResLayers."""
 
 from __future__ import annotations
 
@@ -8,6 +8,41 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from danet_densepose2smpl_tpu_torch.nn.layers import RESNET_SPEC, ResLayer, bn, conv, max_pool_3x3_s2
+
+
+def deconv_layer(cin: int, cout: int) -> list:
+    """ConvTranspose k=4 s=2 p=1 (doubles H and W) + BN + ReLU, as three
+    modules of the reference's `deconv_layers` Sequential."""
+    return [nn.ConvTranspose2d(cin, cout, 4, 2, 1, bias=False), bn(cout), nn.ReLU(inplace=True)]
+
+
+class PoseResNet(nn.Module):
+    """ResNet trunk (Bottleneck ResNet-50 by default; BasicBlock for 18/34)
+    + 3 deconv layers -> a 256-channel stride-4 feature map (56x56 for a 224
+    input). Names follow the reference checkpoint: conv1/bn1/layer1-4 and
+    `deconv_layers.{0,3,6}` (convs), `{1,4,7}` (BatchNorms). The IUV heads
+    attach as `final_pred`, as for the HRNet backbone."""
+
+    def __init__(self, resnet_nums: int = 50, deconv_filters: tuple = (256, 256, 256)):
+        super().__init__()
+        block, layers = RESNET_SPEC[resnet_nums]
+        self.conv1 = conv(3, 64, 7, 2)
+        self.bn1 = bn(64)
+        self.layer1 = ResLayer(block, 64, 64, layers[0])
+        self.layer2 = ResLayer(block, self.layer1.out_channels, 128, layers[1], stride=2)
+        self.layer3 = ResLayer(block, self.layer2.out_channels, 256, layers[2], stride=2)
+        self.layer4 = ResLayer(block, self.layer3.out_channels, 512, layers[3], stride=2)
+        ch, deconvs = self.layer4.out_channels, []
+        for f in deconv_filters:
+            deconvs += deconv_layer(ch, f)
+            ch = f
+        self.deconv_layers = nn.Sequential(*deconvs)
+        self.out_channels = ch
+
+    def forward(self, x):
+        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        return self.deconv_layers(x)
 
 
 class SmplResNet(nn.Module):

@@ -36,9 +36,10 @@ SERVING_DTYPES = (torch.float32, torch.bfloat16)
 def random_init_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights and BatchNorm statistics for every layer.
 
-    Conv, Linear and GraphConv weights are N(0, 1/fan_in) (activations of
-    the full backbone stay in the hundreds, and the outputs vary with the
-    image); biases N(0, 0.01); BN
+    Conv, Linear, GraphConv and LSTM weights are N(0, 1/fan_in) (a
+    transposed conv's fan-in counts the inputs one output sees; activations
+    of the full backbone stay in the hundreds, and the outputs vary with
+    the image); biases N(0, 0.01); BN
     scale in [0.5, 1], shift N(0, 0.01), running mean N(0, 0.01), running
     variance in [0.5, 1]. Draws come from one `torch.Generator` on the CPU,
     in module order, so a seed gives the same weights on every device.
@@ -49,11 +50,17 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
         t.copy_(values.to(t.dtype))
 
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             fan_in = m.weight[0].numel()
+            if isinstance(m, nn.ConvTranspose2d):   # weight (I, O, kh, kw), stride s: I kh kw / s^2
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel() // (m.stride[0] * m.stride[1])
             fill(m.weight, torch.randn(m.weight.shape, generator=g) / fan_in ** 0.5)
             if m.bias is not None:
                 fill(m.bias, torch.randn(m.bias.shape, generator=g) * 0.01)
+        elif isinstance(m, nn.LSTM):
+            for name, p in m.named_parameters():
+                scale = p.shape[1] ** -0.5 if name.startswith("weight") else 0.01
+                fill(p, torch.randn(p.shape, generator=g) * scale)
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             n = m.num_features
             fill(m.weight, 0.5 + 0.5 * torch.rand(n, generator=g))

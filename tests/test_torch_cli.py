@@ -28,6 +28,7 @@ from danet_densepose2smpl_tpu_torch.cli import train as cli_train
 from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig
 from danet_densepose2smpl_tpu_torch.core.checkpoint import CheckpointManager, ResumePoint
 from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+from danet_densepose2smpl_tpu_torch.nn.hmr import HMR
 from danet_densepose2smpl_tpu_torch.serve import random_init_
 from danet_densepose2smpl_tpu_torch.smpl.loader import save_smpl_npz, synthetic_smpl_model
 from danet_densepose2smpl_tpu_torch.train.step import create_train_state
@@ -150,7 +151,8 @@ def test_build_model_loads_reference_and_trainer_checkpoints(workdir, capsys):
     DataParallel 'module.' prefixes, one key the port lacks) loads
     strictly and reports the extra key; a file missing a key raises.
     --checkpoint: the trainer's checkpoint directory restores. --regressor
-    hmr raises."""
+    hmr builds the HMR baseline and loads a reference SPIN file, whose
+    `init_*` mean-parameter buffers it reports unused."""
     cfg = Config(danet=DaNetConfig(img_size=64, heatmap_size=16))
     src = random_init_(DaNet(cfg.danet), seed=5)
     sd = {"module." + k: v for k, v in src.state_dict().items()} | {"module.extra.weight": torch.zeros(1)}
@@ -169,5 +171,11 @@ def test_build_model_loads_reference_and_trainer_checkpoints(workdir, capsys):
     assert model.training
     for k, v in src.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="item 20"):
-        common.build_model_and_params(_args(regressor="hmr"), cfg, "cpu")
+    hmr = random_init_(HMR(), seed=5)
+    sd = {"module." + k: v for k, v in hmr.state_dict().items()} | {"module.init_pose": torch.zeros(1, 144)}
+    torch.save({"model": sd}, workdir / "hmr.pt")
+    model = common.build_model_and_params(_args(regressor="hmr", torch_checkpoint=str(workdir / "hmr.pt")), cfg, "cpu")
+    assert isinstance(model, HMR) and not model.training
+    assert "1 keys of the file unused, e.g. ['init_pose']" in capsys.readouterr().out
+    for k, v in hmr.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k

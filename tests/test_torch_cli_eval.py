@@ -11,7 +11,9 @@ Bars: MPJPE and PA-MPJPE per sample within 0.5 mm (README.md's bar for
 the port against the reference); the LSP scores and the COCO AP table
 within 1e-3. The exact agreement lives in the f64 harness tests
 (`tests/test_torch_eval.py`, `test_torch_ingest.py`, `test_torch_coco.py`).
-The refusals: no card without --cpu, --regressor hmr."""
+The refusals: no card without --cpu, `cli.eval_coco --regressor hmr`
+(the JAX CLI fails there; `cli.eval --regressor hmr` is
+`tests/test_torch_archs_train.py`)."""
 
 import re
 import shutil
@@ -123,11 +125,12 @@ def test_cli_eval_coco_matches_jax(files, capsys):
 
 def test_eval_clis_refuse(files, monkeypatch):
     """Without a card and without --cpu both CLIs raise before they build
-    anything; --regressor hmr raises (ROADMAP item 20)."""
+    anything; `cli.eval_coco --regressor hmr` raises (the HMR baseline runs
+    in `cli.eval` only, as in the JAX package, whose COCO CLI fails on it)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     no_cpu = [a for a in _argv(files, "pose") if a != "--cpu"]
     for main in (cli_eval.main, cli_eval_coco.main):
         with pytest.raises(RuntimeError, match="pass --cpu"):
             main(no_cpu)
-        with pytest.raises(NotImplementedError, match="item 20"):
-            main(_argv(files, "pose") + ["--regressor", "hmr"])
+    with pytest.raises(ValueError, match="runs DaNet only"):
+        cli_eval_coco.main(_argv(files, "pose") + ["--regressor", "hmr"])
