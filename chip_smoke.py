@@ -7,9 +7,9 @@ sources in the checkout and drives the serving slice (full HRNet-W48 DaNet
 + SMPL, seeded random weights), the training slice (the full DaNet
 training step), the eval path, the training CLI and the eval CLIs on the
 card, then the demo, the training visualization and the offline
-preprocessing, and last the other architectures (the ResNet-50 backbone,
+preprocessing, then the other architectures (the ResNet-50 backbone,
 whose 256 channels K1 takes in chunks, the other refinements, the
-GlobalPredictor and the HMR baseline). The synthetic raw batches get 2D
+GlobalPredictor and the HMR baseline), and last the input-mode ablations. The synthetic raw batches get 2D
 keypoints that their poses explain (`posed_keypoints`), so the fitted
 cameras frame body-sized silhouettes. In phases:
 
@@ -178,6 +178,25 @@ cameras frame body-sized silhouettes. In phases:
      `decomposed`); (e) `cli.eval --regressor hmr` on h36m-p2 and lsp, B=16
      over 64 synthetic rows, fp32: finite metrics, imgs/s, no K1 launch,
      one raster a batch for lsp; and `cli.eval_coco --regressor hmr`
+     refuses;
+ 13. the input-mode ablations on HRNet-W48 at 224 px, seeded random
+     weights: (a) the eval forward of 'iuv_gt', 'iuv_feat', 'iuv_gt_feat',
+     'feat' and 'seg' (the GT modes given a synthetic GT IUV image and GT
+     keypoints) in f64 at B=2, card against CPU (para atol 1e-6, rtol
+     1e-9; K1 once for 'seg', never for the others); (b) one bf16
+     `Predictor` request of B=64 for 'iuv' (the comparison), 'iuv_feat',
+     'feat' and 'seg' after a warm-up request: finite, K1 once for 'iuv'
+     and 'seg' and never for the feature modes, its host ms; `Predictor`
+     refuses the two GT modes; (c) for 'iuv' and each ablation, a warm-up
+     and 2 timed bf16 steps of B=64 on the closed atlas with culling:
+     finite losses, `rasterize_flat_masked` once a step, a finite non-zero
+     `stn_ratio` gradient in 'iuv_gt', ms/step and the peak GiB; (d) one
+     f64 'iuv_gt' step at 224 px, B=4, card against CPU, the render cast to
+     f64: every loss term and the `stn_ratio` gradient within 1e-9
+     relative; (e) `cli.train` in-process with a YAML of `INPUT_MODE:
+     'iuv_gt_feat'` (4 steps, B=64, bf16, the synthetic SPIN rows,
+     `--vis_interval 4`): finite losses, `rasterize_flat` once a step, the
+     vis step's one skip line and no PNG; `cli.eval` with an 'iuv_gt' YAML
      refuses.
 
 Any failed check raises and the exit code is non-zero. The last three lines
@@ -192,8 +211,10 @@ counts in phase 11 (b) and (c), and `rasterize_flat` has `shaded`, phase
 11 (a)'s numbers; phase 12 adds `resnet` to `part_crop_head` (K1 at
 C=256: its launches on the ResNet-50 serving path and (a)'s numbers) with
 `arch_launches` (d), `resnet_cli_launches` and `hmr_lsp_launches` to
-`rasterize_flat`, and `resnet_launches` to `rasterize_flat_masked`), and
-`{"ok": true, "device": {...}}`.
+`rasterize_flat`, and `resnet_launches` to `rasterize_flat_masked`; phase
+13 adds `input_mode_launches` to `part_crop_head` (b) and to
+`rasterize_flat_masked` (c), and `input_mode_cli_launches` to
+`rasterize_flat` (e)), and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2074,6 +2095,209 @@ def phase12_models(dev, card) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+INPUT_MODES = ("iuv_gt", "iuv_feat", "iuv_gt_feat", "feat", "seg")
+GT_INPUT_MODES = ("iuv_gt", "iuv_gt_feat")
+
+
+def gt_render_inputs(b: int, s: int, seed: int):
+    """A synthetic GT IUV image (B, S, S, 3) and GT SMPL keypoints
+    (B, 24, 3) in [-0.8, 0.8], f64, for the GT modes' forward."""
+    rng = np.random.RandomState(seed)
+    part = rng.randint(0, 25, (b, s, s)).astype(np.float64)
+    uv = np.stack([part / 24, rng.rand(b, s, s) * (part > 0), rng.rand(b, s, s) * (part > 0)], -1)
+    kps = np.concatenate([rng.uniform(-0.8, 0.8, (b, 24, 2)), np.ones((b, 24, 1))], -1)
+    return torch.from_numpy(uv), torch.from_numpy(kps)
+
+
+def gt_forward_kwargs(mode: str, uv, kps) -> dict:
+    if mode == "iuv_gt":
+        return {"uv_image_gt": uv, "smpl_kps_gt": kps}
+    return {"uv_image_gt": uv} if mode == "iuv_gt_feat" else {}
+
+
+def phase13_input_modes(dev, card) -> dict:
+    """The input-mode ablations at full size (HRNet-W48, 224 px): the eval
+    forward card vs CPU, bf16 serving, the culled bf16 train step, an f64
+    'iuv_gt' step card vs CPU and `cli.train` in 'iuv_gt_feat' (see the
+    module docstring, phase 13)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from danet_densepose2smpl_tpu_torch.cli import eval as cli_eval
+    from danet_densepose2smpl_tpu_torch.cli import train as cli_train
+    from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import Predictor, random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import closed_synthetic_atlas, synthetic_densepose_atlas
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device, create_train_state, make_train_step
+
+    out = {"forward": {}, "serve": {}, "train": {}}
+    # (a) each mode's eval forward in f64, card against CPU
+    x = torch.from_numpy(np.random.RandomState(3).rand(2, 224, 224, 3))
+    uv, kps = gt_render_inputs(2, 56, seed=4)
+    for mode in INPUT_MODES:
+        cpu_model = random_init_(DaNet(DaNetConfig(input_mode=mode)), seed=2).double()
+        gpu_model = copy.deepcopy(cpu_model).to(dev, memory_format=torch.channels_last)
+        kw = gt_forward_kwargs(mode, uv, kps)
+        with torch.inference_mode():
+            ref = cpu_model(x, **kw)["para"]
+            got, counts = launch_counts(
+                lambda: gpu_model(x.to(dev), **{k: v.to(dev) for k, v in kw.items()})["para"].cpu())
+        err = (got - ref).abs().max().item()
+        print(f"phase 13: (a) {mode}: f64 B=2 224 px eval para card vs CPU max abs err {err!r} (max|cpu| "
+              f"{ref.abs().max().item()!r}; bar atol 1e-6, rtol 1e-9); launches {counts}")
+        check(torch.allclose(got, ref, atol=1e-6, rtol=1e-9), f"{mode}: f64 card vs CPU")
+        check(counts["part_crop_head"] == (1 if mode == "seg" else 0), f"{mode}: K1 launches {counts}")
+        out["forward"][mode] = {"err": err, "k1": counts["part_crop_head"]}
+        del cpu_model, gpu_model
+
+    # (b) one bf16 serving request of B=64 per servable mode ('iuv' for comparison)
+    images = torch.from_numpy(np.random.RandomState(6).rand(SERVE_BATCH, 224, 224, 3).astype(np.float32)
+                              ).to(dev, torch.bfloat16)
+    for mode in ("iuv", "iuv_feat", "feat", "seg"):
+        predictor = Predictor(dev, torch.bfloat16, cfg=DaNetConfig(input_mode=mode), seed=2)
+        predictor.predict(images)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, counts = launch_counts(lambda: predictor.predict(images))
+        ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(res["para"].shape) == (SERVE_BATCH, 229)
+              and all(bool(torch.isfinite(v).all()) for v in res.values()), f"{mode}: bf16 request finite")
+        check(counts["part_crop_head"] == (1 if mode in ("iuv", "seg") else 0), f"{mode}: K1 launches {counts}")
+        print(f"phase 13: (b) {mode}: bf16 request of B={SERVE_BATCH}: {ms!r} ms (host clock, after a warm-up "
+              f"request, ends in synchronize); launches {counts}; card {card}")
+        out["serve"][mode] = {"ms": ms, "k1": counts["part_crop_head"]}
+        del predictor, res
+        torch.cuda.empty_cache()
+    del images
+    for mode in GT_INPUT_MODES:
+        try:
+            Predictor(dev, torch.bfloat16, cfg=DaNetConfig(input_mode=mode))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and f"input_mode='{mode}'" in refused, f"Predictor {mode}: {refused}")
+        print(f"phase 13: (b) Predictor refuses {mode}: {refused}")
+
+    # (c) two culled bf16 B=64 steps of each mode on the closed atlas ('iuv' for comparison)
+    smpl = synthetic_smpl_model()
+    atlas, template = closed_synthetic_atlas(smpl.num_verts)
+    renderer = R.IUVRenderer(atlas, 224, 56, cull_verts=template)
+    base = Config(danet=DaNetConfig(compute_dtype="bfloat16"))
+    batches = [batch_to_device(posed_keypoints(base, smpl, synthetic_raw_batch(base, TRAIN_BATCH, seed=50 + i),
+                                               seed=60 + i), dev) for i in range(3)]
+    for mode in ("iuv",) + INPUT_MODES:
+        tcfg = Config(danet=DaNetConfig(input_mode=mode, compute_dtype="bfloat16"))
+        model = random_init_(DaNet(tcfg.danet), seed=0).to(dev, memory_format=torch.channels_last)
+        state = create_train_state(model, tcfg)
+        step = make_train_step(model, smpl, tcfg, renderer=renderer)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step(state, batches[0], gen)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        metrics, counts = launch_counts(lambda: [step(state, b, gen)[1] for b in batches[1:]])
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(all(bool(torch.isfinite(v)) for m in metrics for v in m.values()), f"{mode} bf16 step: finite losses")
+        check(counts["rasterize_flat_masked"] == 2 and counts["part_crop_head"] == 0,
+              f"{mode} bf16 step: launches {counts} in 2 steps")
+        ratio_grad = None
+        if mode == "iuv_gt":
+            g = model.img2iuv.learned_ratio.grad
+            ratio_grad = g.abs().sum().item()
+            check(bool(torch.isfinite(g).all()) and ratio_grad > 0, f"iuv_gt: stn_ratio gradient {ratio_grad}")
+        print(f"phase 13: (c) {mode}: 2 culled bf16 steps of B={TRAIN_BATCH}: {dt / 2 * 1e3!r} ms/step (host "
+              f"clock, ends in synchronize), peak {peak!r} GiB; loss_total "
+              f"{[m['loss_total'].item() for m in metrics]}; launches {counts}"
+              + (f"; sum |d loss / d stn_ratio| {ratio_grad!r}" if ratio_grad is not None else "")
+              + f"; card {card}")
+        out["train"][mode] = {"ms_per_step": dt / 2 * 1e3, "peak_gib": peak,
+                              "launches": counts["rasterize_flat_masked"]}
+        del model, state, step, metrics
+        torch.cuda.empty_cache()
+    del batches
+
+    # (d) one f64 'iuv_gt' step, card against CPU; the render's fp32 texture
+    # values cast to f64 (exact: the flat raster copies them), so the oracle's
+    # maps and crops run in f64, as tests/test_torch_input_modes*.py have them
+    cfg = Config(danet=DaNetConfig(input_mode="iuv_gt", partdrop_rate=0.0, stn_center_jitter=0.0,
+                                   stn_scale_jitter=0.0))
+    raw = posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, 4, seed=2), seed=3)
+    base_model = random_init_(DaNet(cfg.danet), seed=0).double()
+    soup = R.IUVRenderer(synthetic_densepose_atlas(smpl), 224, 56)
+    res = {}
+    for where, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        model = copy.deepcopy(base_model).to(d)
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, smpl, cfg, renderer=lambda verts, cam: soup(verts, cam).double())
+        state, metrics = step(state, batch_to_device(raw, d, torch.float64))
+        res[where] = ({k: v.item() for k, v in metrics.items()}, model.img2iuv.learned_ratio.grad.cpu())
+    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc if lc[k] != 0)
+    ratio_err = (gg - gc).abs().max().item() / gc.abs().max().item()
+    print(f"phase 13: (d) f64 iuv_gt step 224 px B=4: {len(lc)} loss terms, max rel err card vs CPU {loss_err!r} "
+          f"(tolerance 1e-9); stn_ratio gradient max rel err {ratio_err!r} (max|grad| {gc.abs().max().item()!r})")
+    check(lc.keys() == lg.keys() and all(lg[k] == 0 for k in lc if lc[k] == 0), "iuv_gt f64: the same loss terms")
+    check(loss_err <= 1e-9, f"iuv_gt f64 losses card vs CPU: {loss_err}")
+    check(gc.abs().max().item() > 0 and ratio_err <= 1e-9, f"iuv_gt f64 stn_ratio gradient: {ratio_err}")
+    out["f64_loss_err"] = loss_err
+    del base_model, state, step
+
+    # (e) cli.train in 'iuv_gt_feat' (4 steps, one vis interval); cli.eval refuses 'iuv_gt'
+    root = os.path.join(REPO, "build", "chip_smoke_modes")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, root     # the CLI writes its dataset there
+    try:
+        yamls = {}
+        for mode in GT_INPUT_MODES:
+            yamls[mode] = os.path.join(root, f"{mode}.yaml")
+            with open(yamls[mode], "w") as f:
+                f.write(f"DANET:\n  INPUT_MODE: '{mode}'\n")
+        steps = 4
+        argv = ["--cfg", yamls["iuv_gt_feat"], "--synthetic-data", "--num_samples", str(steps * TRAIN_BATCH),
+                "--batch_size", str(TRAIN_BATCH), "--bf16", "--pretr_step", "1", "--num_epochs", "1",
+                "--summary_steps", "1", "--vis_interval", str(steps), "--log_dir", root, "--name", "gt_feat"]
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            trainer, counts = launch_counts(lambda: cli_train.main(argv))
+        wall = time.perf_counter() - t0
+        print(log.getvalue(), end="")
+        with open(os.path.join(root, "gt_feat", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        check(trainer.cfg.danet.input_mode == "iuv_gt_feat", f"cli.train mode {trainer.cfg.danet.input_mode}")
+        check(trainer.state.step == steps and len(rows) == steps, f"cli.train iuv_gt_feat: {len(rows)} rows")
+        check(all(np.isfinite(v) for r in rows for v in r.values()), "cli.train iuv_gt_feat: every value finite")
+        check(counts["rasterize_flat"] == steps, f"cli.train iuv_gt_feat: raster launches {counts}")
+        check(log.getvalue().count("vis skipped: input_mode='iuv_gt_feat'") == 1
+              and not os.path.exists(os.path.join(root, "gt_feat", "vis")), "cli.train iuv_gt_feat: the vis skip")
+        print(f"phase 13: (e) cli.train {' '.join(argv)}: {steps} steps in {wall!r} s of command; loss_total "
+              f"{[r['loss_total'] for r in rows]}; imgs/s by window {[r['imgs_per_sec'] for r in rows]}; launches "
+              f"{counts}; card {card}")
+        out["cli_train"] = counts
+        del trainer
+        try:
+            cli_eval.main(["--cfg", yamls["iuv_gt"], "--dataset", "h36m-p2", "--synthetic-data", "--num_samples",
+                           "4", "--batch_size", "2"])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "input_mode='iuv_gt'" in refused, f"cli.eval iuv_gt: {refused}")
+        print(f"phase 13: (e) cli.eval with INPUT_MODE 'iuv_gt' refuses: {refused}")
+        return out
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
@@ -2098,6 +2322,7 @@ def main():
     evals = timed(10, lambda: phase10_eval_cli(dev, card, cli))
     demo = timed(11, lambda: phase11_demo_vis(dev, card))
     archs = timed(12, lambda: phase12_archs(dev, card))
+    modes = timed(13, lambda: phase13_input_modes(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
                 f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
@@ -2143,6 +2368,12 @@ def main():
             k["hmr_lsp_launches"] = archs["hmr"]["lsp"]["launches"]["rasterize_flat"]
         if k["name"] == "rasterize_flat_masked":                  # phase 12 (c)
             k["resnet_launches"] = archs["train_step"]["rasterize_flat_masked"]
+        if k["name"] == "part_crop_head":                         # phase 13 (b): one request each
+            k["input_mode_launches"] = {m: v["k1"] for m, v in modes["serve"].items()}
+        if k["name"] == "rasterize_flat_masked":                  # phase 13 (c): 2 steps each
+            k["input_mode_launches"] = {m: v["launches"] for m, v in modes["train"].items()}
+        if k["name"] == "rasterize_flat":                         # phase 13 (e): 4 steps
+            k["input_mode_cli_launches"] = {"iuv_gt_feat": modes["cli_train"]["rasterize_flat"]}
     print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -85,13 +85,14 @@ def main(argv=None) -> list:
     from danet_densepose2smpl_tpu_torch.data.image_io import read_rgb
     from danet_densepose2smpl_tpu_torch.data.transforms import demo_frame
     from danet_densepose2smpl_tpu_torch.kernels.rasterizer import IUVRenderer
-    from danet_densepose2smpl_tpu_torch.serve import Predictor
+    from danet_densepose2smpl_tpu_torch.serve import Predictor, refuse_gt_modes
     from danet_densepose2smpl_tpu_torch.utils import vis
 
     args = build_parser().parse_args(argv)
     refuse_hmr(args, "cli.demo")
     device = resolve_device(args)
     cfg = load_config(args.cfg)
+    refuse_gt_modes(cfg.danet, "cli.demo")
     smpl, atlas, _, _, _, _ = load_assets(args)
     model = build_model_and_params(args, cfg, device)
     predictor = Predictor(device, torch.bfloat16 if args.bf16 else torch.float32, smpl=smpl, model=model)

@@ -101,11 +101,13 @@ def main(argv=None) -> dict:
     from danet_densepose2smpl_tpu_torch.eval.harness import run_pose_eval
     from danet_densepose2smpl_tpu_torch.eval.lsp import run_lsp_eval
     from danet_densepose2smpl_tpu_torch.kernels.part_renderer import face_parts_from_assets
-    from danet_densepose2smpl_tpu_torch.serve import Predictor
+    from danet_densepose2smpl_tpu_torch.serve import Predictor, refuse_gt_modes
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args)
     cfg = load_config(args.cfg)
+    if args.regressor == "danet":
+        refuse_gt_modes(cfg.danet, "cli.eval")
     if args.synthetic_data:
         args.synthetic_assets = True
     smpl, _, jreg, _, smpl_male, smpl_female = load_assets(args)

@@ -64,12 +64,13 @@ def main(argv=None) -> tuple[dict, np.ndarray]:
     from danet_densepose2smpl_tpu_torch.data.dataset import NpzDataset
     from danet_densepose2smpl_tpu_torch.data.loader import ResumableLoader
     from danet_densepose2smpl_tpu_torch.eval.coco_harness import run_coco_eval
-    from danet_densepose2smpl_tpu_torch.serve import Predictor
+    from danet_densepose2smpl_tpu_torch.serve import Predictor, refuse_gt_modes
 
     args = build_parser().parse_args(argv)
     refuse_hmr(args, "cli.eval_coco")
     device = resolve_device(args)
     cfg = load_config(args.cfg)
+    refuse_gt_modes(cfg.danet, "cli.eval_coco")
     if args.synthetic_data:
         args.synthetic_assets = True
     smpl = load_assets(args)[0]

@@ -6,14 +6,18 @@ HRNet-W48 (or, with `iuv_regressor='resnet'`, the PoseResNet backbone:
 soft-argmax joint centres -> (train: centre jitter) -> part visibility ->
 STN scales with the learned per-joint ratio/offset (train: scale jitter,
 twice, as the reference) -> 24 part crops + grouped partial-IUV head. The
-STN theta and scale are detached, as in JAX's 'iuv' mode. Without
-`decomposed` (the GlobalPredictor model) it stops after the heads: no STN,
-no part crops, no K1.
+STN theta and scale are detached, as in JAX. Without `decomposed` (the
+GlobalPredictor model) it stops after the heads: no STN, no part crops, no
+K1.
 
-At eval the crop + head runs through `PartialIUVHead.fused`, whatever
-`fused_part_head` says: on a CUDA tensor the hand-written kernel (K1), on a
-CPU tensor its plain version. In train mode it is the JAX train path, the
-separable crop + grouped conv as autograd ops (K1 has no backward).
+In the feature input modes ('iuv_feat', 'iuv_gt_feat', 'feat') the part
+crops of the backbone features are an output of their own (`part_feats`,
+for the regressor), and the partial head runs on them as autograd ops in
+eval too, as JAX does. Otherwise, at eval the crop + head runs through
+`PartialIUVHead.fused`, whatever `fused_part_head` says: on a CUDA tensor
+the hand-written kernel (K1), on a CPU tensor its plain version; in train
+mode it is the JAX train path, the separable crop + grouped conv as
+autograd ops (K1 has no backward).
 Jitter noise comes in as uniforms in [0, 1) (`noise['center']` (B, 24, 2),
 `noise['scale']` (2, B, 24)), so tests can hand both packages the same
 numbers.
@@ -30,9 +34,13 @@ from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES, PoseHighResolutionNet
 from danet_densepose2smpl_tpu_torch.nn.iuv_head import IUVPredictHead, nhwc
 from danet_densepose2smpl_tpu_torch.nn.resnet import PoseResNet
-from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights, separable_crop_concat
+from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights, separable_crop, separable_crop_concat
 from danet_densepose2smpl_tpu_torch.ops.keypoints import soft_argmax_2d
 from danet_densepose2smpl_tpu_torch.ops.structure import SMPL_CHILD2, SMPL_PARENT, smpl2dp_channel_mask
+
+# the input modes whose regressor takes the backbone features and their
+# part crops
+FEAT_MODES = ("iuv_feat", "iuv_gt_feat", "feat")
 
 # Shipped STN crop parameters (reference learned_ratio.pkl), buffers in
 # 'iuv' mode.
@@ -87,13 +95,16 @@ def crop_theta(center: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def stn_affine_params(centers, ratio, offset, part_hidden=None, scale_jitter: float = 0.0,
                       scale_noise=None):
-    """Per-part STN (theta, scale) from joint centres, both detached.
+    """Per-part STN (theta, scale) from joint centres.
 
     Part 0 scales to the keypoint bounding box; the others to 2x the larger
     half-distance to parent/child; then the learned ratio/offset; hidden
     parts (except the root) fall back to 0.8x the box scale. With
     `scale_jitter` > 0, scale *= 1 + jitter * (u - 0.5) before and again
-    after the fallback, u = scale_noise[0] and [1] (each (B, 24)).
+    after the fallback, u = scale_noise[0] and [1] (each (B, 24)). The
+    centres and the kinematic scale are detached before the ratio/offset,
+    as JAX stops them, so a trainable ratio/offset ('iuv_gt') gets the
+    gradient of theta.
     """
     centers = centers.detach()
     box_diag = centers.amax(dim=1) - centers.amin(dim=1)          # (B, 2)
@@ -103,7 +114,7 @@ def stn_affine_params(centers, ratio, offset, part_hidden=None, scale_jitter: fl
     d_child = torch.linalg.vector_norm(centers[:, child] - centers, dim=-1) / 2.0
     d_parent = torch.linalg.vector_norm(centers[:, parent] - centers, dim=-1) / 2.0
     scale = 2.0 * torch.maximum(d_child, d_parent)                # (B, 24)
-    scale = torch.cat([scale_box[:, None], scale[:, 1:]], dim=1)
+    scale = torch.cat([scale_box[:, None], scale[:, 1:]], dim=1).detach()
     scale = scale * F.relu(ratio)[None, :] + F.relu(offset)[None, :]
     jitter = scale_jitter > 0
     if jitter:
@@ -114,8 +125,19 @@ def stn_affine_params(centers, ratio, offset, part_hidden=None, scale_jitter: fl
         scale = torch.where(hide, 0.8 * scale_box[:, None], scale)
     if jitter:
         scale = scale * (1 + scale_jitter * (scale_noise[1] - 0.5))
-    scale = scale.detach()
     return crop_theta(centers, scale), scale
+
+
+def feat_crops_and_head(head, feats_nhwc: torch.Tensor, theta: torch.Tensor, s: int):
+    """The feature modes' part crops and partial head: (part_feats
+    (B, 24, S, S, C), part_iuv (B, 24, S, S, 3, 7)). The crops feed the
+    regressor too, so they are a tensor of their own (autograd ops, the
+    features keep their gradient); the head takes them in its grouped
+    channel order, part-major (channel k*C + c), as JAX's
+    `transpose(0, 2, 3, 1, 4)` gives them."""
+    crops = separable_crop(feats_nhwc, theta[..., :, 2], theta[..., 0, 0], s)
+    b = crops.shape[0]
+    return crops, head(crops.permute(0, 2, 3, 1, 4).reshape(b, s, s, -1).permute(0, 3, 1, 2))
 
 
 class IUVEstimator(nn.Module):
@@ -142,12 +164,14 @@ class IUVEstimator(nn.Module):
         u/v/index (B, S, S, 25); ann (B, S, S, 15); heatmaps (B, S, S, 24);
         stn_centers (B, 24, 2) (before jitter); part_vis_scores (B, 24);
         stn_theta (B, 24, 2, 3); stn_scale (B, 24); part_iuv
-        (B, 24, S, S, 3, 7); feats (B, S, S, C). Without `decomposed`, the
-        maps of the heads and feats only."""
+        (B, 24, S, S, 3, 7); feats (B, S, S, C); in the feature modes
+        part_feats (B, 24, S, S, C). Without `decomposed`, the maps of the
+        heads and feats only."""
         c = self.cfg
         feats = self.iuv_est(image)
         out = self.iuv_est.final_pred(feats)
-        # the kernel takes dense NHWC; a free view of the channels_last output
+        # the kernel and the crops take dense NHWC; a free view of the
+        # channels_last output
         feats_nhwc = nhwc(feats).contiguous()
         out["feats"] = feats_nhwc
         if not c.decomposed:
@@ -176,11 +200,14 @@ class IUVEstimator(nn.Module):
             scale_jitter=c.stn_scale_jitter if self.training else 0.0,
             scale_noise=noise["scale"] if self.training and c.stn_scale_jitter > 0 else None,
         )
+        theta, scale = theta.detach(), scale.detach()
         out["stn_theta"] = theta
         out["stn_scale"] = scale
 
         head = self.iuv_est.final_pred.predict_partial_iuv
-        if self.training:
+        if c.input_mode in FEAT_MODES:
+            out["part_feats"], out["part_iuv"] = feat_crops_and_head(head, feats_nhwc, theta, s)
+        elif self.training:
             crops = separable_crop_concat(feats_nhwc, theta[..., :, 2], theta[..., 0, 0], s)
             out["part_iuv"] = head(crops.permute(0, 3, 1, 2))
         else:

@@ -1,7 +1,8 @@
 """SMPL parameter regressors (port of the JAX `models/smpl_regressor.py`).
 
 `DecomposedPredictor`: body net (cam + shape) over the 75-ch global IUV
-map; limb net over the 24 partial IUV stacks; grouped layer4 -> per-part
+map; limb net over the 24 partial IUV stacks (other inputs in the
+ablation modes, see `input_channels`); grouped layer4 -> per-part
 rotation features; then the refinement strategy, as the JAX package has it:
   - 'gcn': rot2pos GCN, learned-edge refinement GCN, pos2rot GCN;
   - 'gcn_direct': the refinement GCN alone on the rotation features;
@@ -17,8 +18,8 @@ heads feed the train-only `joint_rotation` and `joint_position` outputs
 (at eval they are not computed), except 'lstm_direct', which emits its
 first head's rotations in eval mode too, as the JAX package does.
 
-`GlobalPredictor` (`decomposed=False`): one ResNet on the 75-ch IUV map ->
-229 params.
+`GlobalPredictor` (`decomposed=False`): one ResNet on the body net's input
+(the 75-ch IUV map in 'iuv') -> 229 params.
 
 Names follow the reference checkpoint (`iuv2smpl.smpl_para_Outs.*`); the
 GlobalPredictor, whose reference names are not known, is named after the
@@ -147,29 +148,54 @@ class MLP1x1(nn.Sequential):
         return super().forward(x.reshape(b * n, c, 1, 1)).reshape(b, n, -1)
 
 
+def input_channels(input_mode: str, feat_channels: int) -> tuple[int, int]:
+    """The (body net, limb net) input channels of an input mode, with
+    `feat_channels` the backbone's width: the IUV maps (75) and the 3x7
+    part stacks (21); with the backbone features and their part crops
+    after them in the *_feat modes; the features alone in 'feat'; the
+    cleaned index map (25) and index stacks (7) in 'seg'."""
+    c = feat_channels
+    return {"iuv": (75, 21), "iuv_gt": (75, 21), "iuv_feat": (75 + c, 21 + c),
+            "iuv_gt_feat": (75 + c, 21 + c), "feat": (c, c), "seg": (25, 7)}[input_mode]
+
+
+def _concat(parts, dim: int, weight: torch.Tensor) -> torch.Tensor:
+    """The given inputs concatenated along `dim`, in at least the dtype of
+    the adapter's `weight`, as JAX promotes them (the GT render's fp32
+    maps reach an f64 model)."""
+    parts = [t for t in parts if t is not None]
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+    return x.to(torch.promote_types(x.dtype, weight.dtype))
+
+
 class GlobalPredictor(nn.Module):
-    """One ResNet on the 75-ch IUV map -> para (B, 229) = [cam 3, shape 10,
+    """One ResNet on the body input -> para (B, 229) = [cam 3, shape 10,
     rotmats 216] read as they come (no mean params, no 6D), as the JAX
     package's. Modules named after its flax tree: `Conv1x1BNRelu_0`,
     `conv_body`."""
 
-    def __init__(self, cfg: DaNetConfig):
+    def __init__(self, cfg: DaNetConfig, feat_channels: int = 0):
         super().__init__()
-        self.Conv1x1BNRelu_0 = Conv1x1BNRelu(75, 64)
+        self.Conv1x1BNRelu_0 = Conv1x1BNRelu(input_channels(cfg.input_mode, feat_channels)[0], 64)
         self.conv_body = SmplResNet(cfg.glo_num_layers, in_channels=64, num_classes=229)
 
-    def forward(self, iuv_map: torch.Tensor) -> dict:
-        """iuv_map: (B, 75, S, S) channels_last. Returns {'para'}."""
-        para, _ = self.conv_body(self.Conv1x1BNRelu_0(iuv_map))
+    def forward(self, iuv_map: torch.Tensor | None, global_feats: torch.Tensor | None = None) -> dict:
+        """iuv_map: (B, 75, S, S) channels_last (the index map (B, 25, S, S)
+        in 'seg', None in 'feat'); global_feats: the backbone features
+        (B, C, S, S) in the feature modes, after the IUV channels. Returns
+        {'para'}."""
+        adapter = self.Conv1x1BNRelu_0
+        para, _ = self.conv_body(adapter(_concat((iuv_map, global_feats), 1, adapter[0].weight)))
         return {"para": para}
 
 
 class DecomposedPredictor(nn.Module):
     CONSTANTS = ("mean_cam_shape", "mean_pose", "r2p_A", "p2r_A", "A_mask")
 
-    def __init__(self, cfg: DaNetConfig, mean_params: MeanParams):
+    def __init__(self, cfg: DaNetConfig, mean_params: MeanParams, feat_channels: int = 0):
         super().__init__()
         r = cfg.refinement
+        body_cin, limb_cin = input_channels(cfg.input_mode, feat_channels)
         f = r.feat_dim
         self.strategy = cfg.refine_strategy
         self.refine_on = r.refine_on
@@ -177,11 +203,11 @@ class DecomposedPredictor(nn.Module):
         self.position_heads = (cfg.joint_position_weights > 0 and r.pos_intersupv
                                and self.strategy in ("gcn", "lstm"))
         self.body_net = nn.Sequential(
-            *Conv1x1BNRelu(75, 64),
+            *Conv1x1BNRelu(body_cin, 64),
             SmplResNet(cfg.glo_num_layers, in_channels=64, num_classes=13),
         )
         self.limb_net = nn.Sequential(
-            *Conv1x1BNRelu(21, 64),
+            *Conv1x1BNRelu(limb_cin, 64),
             SmplResNet(cfg.limb_num_layers, in_channels=64, num_classes=0, truncate=1),
         )
         self.limb_reslayer = LimbResLayers(
@@ -247,19 +273,28 @@ class DecomposedPredictor(nn.Module):
         pose = pose6d.reshape(b, 144) + self.mean_pose
         return rot6d_to_rotmat(pose.reshape(b * 24, 6)).reshape(b, 216)
 
-    def forward(self, iuv_map: torch.Tensor, part_iuv_map: torch.Tensor) -> dict:
-        """iuv_map: (B, 75, S, S) channels_last; part_iuv_map:
-        (B, 24, S, S, 3, 7). Returns {'para': (B, 229) = [cam 3, shape 10,
-        rotmats 216], 'joint_rotation': [...], 'joint_position': [...]}; the
-        two lists are filled in train mode only (and 'lstm_direct''s first
-        rotations at eval too)."""
-        b = iuv_map.shape[0]
+    def forward(self, iuv_map: torch.Tensor | None, part_iuv_map: torch.Tensor | None,
+                global_feats: torch.Tensor | None = None, part_feats: torch.Tensor | None = None) -> dict:
+        """iuv_map: (B, 75, S, S) channels_last (the cleaned index map
+        (B, 25, S, S) in 'seg', None in 'feat'); part_iuv_map:
+        (B, 24, S, S, 3, 7) (the index stacks (B, 24, S, S, 7) in 'seg', None
+        in 'feat'); global_feats (B, C, S, S) and part_feats
+        (B, 24, S, S, C): the backbone features and their part crops in the
+        feature modes, after the IUV channels. Returns {'para': (B, 229) =
+        [cam 3, shape 10, rotmats 216], 'joint_rotation': [...],
+        'joint_position': [...]}; the two lists are filled in train mode only
+        (and 'lstm_direct''s first rotations at eval too)."""
+        body_in = _concat((iuv_map, global_feats), 1, self.body_net[0].weight)
+        b = body_in.shape[0]
         out = {"joint_rotation": [], "joint_position": []}
-        global_para, _ = self.body_net(iuv_map)
+        global_para, _ = self.body_net(body_in)
         global_para = global_para + self.mean_cam_shape
 
-        s = part_iuv_map.shape[2]
-        limb_in = part_iuv_map.reshape(b * 24, s, s, -1).permute(0, 3, 1, 2)
+        if part_iuv_map is not None:
+            part_iuv_map = part_iuv_map.reshape(*part_iuv_map.shape[:4], -1)
+        part_in = _concat((part_iuv_map, part_feats), -1, self.limb_net[0].weight)   # (B, 24, S, S, Cin)
+        s = part_in.shape[2]
+        limb_in = part_in.reshape(b * 24, s, s, -1).permute(0, 3, 1, 2)
         _, limb_feat = self.limb_net(limb_in)
         hs = limb_feat.shape[-1]
         rot_feats = self.limb_reslayer(limb_feat.reshape(b, -1, hs, hs))   # (B, 24, F)

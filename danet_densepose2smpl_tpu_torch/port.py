@@ -286,21 +286,30 @@ def pose_resnet_rules(tp: str, fp: tuple, depth: int) -> list:
 
 
 def danet_rules(cfg: DaNetConfig) -> list:
-    """Every parameter and BatchNorm statistic of the DaNet for `cfg`."""
-    rules = []
-    if cfg.decomposed:
-        rules += [
-            ("img2iuv.learned_ratio", ("params", "img2iuv", "stn_ratio"), None),
-            ("img2iuv.learned_offset", ("params", "img2iuv", "stn_offset"), None),
-        ]
-    if cfg.iuv_regressor == "hrnet":
-        rules += hrnet_rules(HRNET_W48_STAGES, "img2iuv.iuv_est", ("img2iuv", "backbone"))
+    """Every parameter and BatchNorm statistic of the DaNet for `cfg`. The
+    input modes change the regressor's adapter shapes only, except
+    'iuv_gt', whose JAX model has no estimator: its trainable STN
+    ratio/offset sit at the top of the flax tree and keep the estimator's
+    torch names."""
+    if cfg.input_mode == "iuv_gt":
+        rules = [("img2iuv.learned_ratio", ("params", "stn_ratio"), None),
+                 ("img2iuv.learned_offset", ("params", "stn_offset"), None)]
     else:
-        rules += pose_resnet_rules("img2iuv.iuv_est", ("img2iuv", "backbone"), cfg.msres_num_layers)
-    rules += iuv_head_rules("img2iuv.iuv_est.final_pred", ("img2iuv", "iuv_head"))
+        rules = []
+        if cfg.decomposed:
+            rules += [
+                ("img2iuv.learned_ratio", ("params", "img2iuv", "stn_ratio"), None),
+                ("img2iuv.learned_offset", ("params", "img2iuv", "stn_offset"), None),
+            ]
+        if cfg.iuv_regressor == "hrnet":
+            rules += hrnet_rules(HRNET_W48_STAGES, "img2iuv.iuv_est", ("img2iuv", "backbone"))
+        else:
+            rules += pose_resnet_rules("img2iuv.iuv_est", ("img2iuv", "backbone"), cfg.msres_num_layers)
+        rules += iuv_head_rules("img2iuv.iuv_est.final_pred", ("img2iuv", "iuv_head"))
+        if cfg.decomposed:
+            rules += conv_rules("img2iuv.iuv_est.final_pred.predict_partial_iuv",
+                                ("img2iuv", "partial_head", "predict_partial_iuv"), bias=True)
     if cfg.decomposed:
-        rules += conv_rules("img2iuv.iuv_est.final_pred.predict_partial_iuv",
-                            ("img2iuv", "partial_head", "predict_partial_iuv"), bias=True)
         rules += decomposed_rules(cfg, "iuv2smpl.smpl_para_Outs", ("iuv2smpl",))
     else:
         rules += global_rules(cfg, "iuv2smpl.smpl_para_Outs", ("iuv2smpl",))

@@ -23,7 +23,7 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.config import DaNetConfig
-from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+from danet_densepose2smpl_tpu_torch.models.danet import GT_MODES, DaNet
 from danet_densepose2smpl_tpu_torch.nn.gcn import GraphConv
 from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, synthetic_smpl_model, to_torch
@@ -73,6 +73,15 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+def refuse_gt_modes(cfg: DaNetConfig, entry: str) -> None:
+    """Raise for the input modes whose forward takes the GT IUV render:
+    serving has none (the JAX package's eval and demo call the model
+    without it and fail on an AssertionError)."""
+    if cfg.input_mode in GT_MODES:
+        raise ValueError(f"{entry} serves without ground truth, and input_mode='{cfg.input_mode}' takes the GT "
+                         "IUV render in the forward: it trains (cli.train) but does not serve")
+
+
 class Predictor:
     """DaNet + SMPL on one device.
 
@@ -81,7 +90,8 @@ class Predictor:
     to serve (the eval CLIs pass the one `cli/common.build_model_and_params`
     loaded; it is moved and cast in place), else one built from `cfg` with
     `state_dict`'s weights (e.g. from `port.state_dict_from_flax`), else
-    seeded random weights from `seed`.
+    seeded random weights from `seed`. The GT input modes ('iuv_gt',
+    'iuv_gt_feat') raise (`refuse_gt_modes`).
     """
 
     def __init__(self, device, dtype: torch.dtype = torch.float32, cfg: DaNetConfig | None = None,
@@ -91,6 +101,9 @@ class Predictor:
             raise ValueError(f"serving dtype must be one of {SERVING_DTYPES}, got {dtype}")
         self.device = torch.device(device)
         self.dtype = dtype
+        model_cfg = getattr(model, "cfg", None) if model is not None else cfg or DaNetConfig()
+        if model_cfg is not None:   # HMR has no input mode
+            refuse_gt_modes(model_cfg, "Predictor")
         if model is None:
             model = DaNet(cfg)
             if state_dict is not None:

@@ -48,10 +48,12 @@ def _part_selection_tables():
 _PART_SEL_M, _PART_SEL_CNT = _part_selection_tables()
 
 
-def part_iuv_gt_crops(u_gt, v_gt, index_gt, theta):
-    """The 24-part simplified GT IUV crops with the predictor's (detached)
-    STN thetas: per part its 6 mapped patch channels, a background channel
-    (index stack only), cropped with the separable crop.
+def part_iuv_gt_crops(u_gt, v_gt, index_gt, theta, stop_grad: bool = True):
+    """The 24-part simplified GT IUV crops with the predictor's STN thetas:
+    per part its 6 mapped patch channels, a background channel (index stack
+    only), cropped with the separable crop. The thetas are detached unless
+    `stop_grad` is False (the 'iuv_gt' oracle's crops, through which the
+    partial UV losses reach the trainable STN ratio/offset).
 
     u/v/index_gt: (B, S, S, 25); theta: (B, 24, 2, 3). Returns
     (B, 24, S, S, 3, 7)."""
@@ -65,7 +67,8 @@ def part_iuv_gt_crops(u_gt, v_gt, index_gt, theta):
     gi_sum = torch.einsum("bhwc,ck->bhwk", index_gt, cnt_m)
     bg = (gi_sum < 0.5).to(dt)
     sel = torch.cat([sel[..., :14], bg[..., None], sel[..., 15:]], dim=-1)
-    theta = theta.detach()
+    if stop_grad:
+        theta = theta.detach()
     centers = torch.stack([theta[..., 0, 2], theta[..., 1, 2]], dim=-1)
     crops = separable_crop_pixel_major(sel, centers, theta[..., 0, 0], s)
     return crops.reshape(b, n_parts, s, s, 3, 7)

@@ -33,6 +33,7 @@ from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.config import Config
 from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess_train
+from danet_densepose2smpl_tpu_torch.models.danet import GT_MODES
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.train.objective import compute_losses
 from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
@@ -112,11 +113,15 @@ def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, render
     tensors. A batch with `raw_img` and `pixel_noise` (raw frames) gets its
     `img` from `device_preprocess_train` at `cfg.danet.img_size` first.
     When the batch carries raw GT (`opt_pose`, no `opt_rotmat`), the step
-    then runs `prepare_targets`, GT IUV raster included. In
+    then runs `prepare_targets`, GT IUV raster included. In the input
+    modes 'iuv_gt' and 'iuv_gt_feat' the forward takes that render
+    (`uv_image_gt`) and the GT SMPL keypoints (`target_smpl_kps`); a batch
+    without the render (a step built without a renderer) raises. In
     `pretrain_mode` the regressor does not run; its parameters still take
     an optimizer step with zero gradients, as optax applies one."""
     schedule = make_lr_schedule(cfg)
     mixed = cfg.danet.compute_dtype == "bfloat16"
+    mode = cfg.danet.input_mode
     smpl_on = {}
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
@@ -135,12 +140,18 @@ def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, render
             with record_function("train.prepare_targets"):
                 batch = prepare_targets(cfg, smpl_t, batch, renderer=renderer, is_itw=is_itw)
 
+        gt = {}
+        if mode in GT_MODES:
+            if "uv_image_gt" not in batch:
+                raise ValueError(f"input_mode='{mode}' trains on the GT IUV render, and the batch has no "
+                                 "uv_image_gt: build the step with a renderer")
+            gt = {"uv_image_gt": batch["uv_image_gt"], "smpl_kps_gt": batch["target_smpl_kps"]}
         net.train()
         opt.zero_grad(set_to_none=True)
         autocast = (torch.autocast(device.type, dtype=torch.bfloat16) if mixed
                     else contextlib.nullcontext())
         with record_function("train.forward"), autocast:
-            out = net(batch["img"], pretrain_mode=pretrain_mode, generator=generator)
+            out = net(batch["img"], pretrain_mode=pretrain_mode, generator=generator, **gt)
         with record_function("train.losses"):
             total, losses = compute_losses(
                 cfg.danet, smpl_t, _to_fp32(out), batch, pretrain_mode=pretrain_mode,

@@ -7,7 +7,8 @@ pretrain step, later steps the full one; a checkpoint every
 `checkpoint_steps`, scalar summaries every `summary_steps`, and a
 wall-clock budget (`time_to_run`) that checkpoints and returns, for
 requeue environments; every `vis_interval` steps, two PNGs of panels
-(`_save_vis`). The host runs the input pipeline and the fits lookup; the
+(`_save_vis`; in the GT input modes, whose eval forward needs a GT render,
+one printed line instead). The host runs the input pipeline and the fits lookup; the
 step runs on the model's device.
 
 The step's noise (STN jitter, PartDrop) comes from a `torch.Generator` on
@@ -27,7 +28,7 @@ import torch
 from danet_densepose2smpl_tpu_torch.config import Config
 from danet_densepose2smpl_tpu_torch.core.checkpoint import CheckpointManager, MetricLogger, ResumePoint
 from danet_densepose2smpl_tpu_torch.data.loader import PrefetchLoader, ResumableLoader
-from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+from danet_densepose2smpl_tpu_torch.models.danet import GT_MODES, DaNet
 from danet_densepose2smpl_tpu_torch.serve import random_init_
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.train.fits_dict import FitsDict
@@ -155,7 +156,14 @@ class Trainer:
                     self.ckpt.save(self.state, ResumePoint(epoch, b_idx + 1, step_count))
 
                 if cfg.train.vis_interval and step_count % cfg.train.vis_interval == 0:
-                    self._save_vis(batch, step_count)
+                    if cfg.danet.input_mode in GT_MODES:
+                        # the vis forward runs the eval model, which has no
+                        # GT render to take (JAX's vis fails there, and its
+                        # Trainer swallows the failure)
+                        print(f"step {step_count}: vis skipped: input_mode='{cfg.danet.input_mode}' needs the GT "
+                              "IUV render in the forward, and the vis step runs the model without GT")
+                    else:
+                        self._save_vis(batch, step_count)
 
                 if self._out_of_time():
                     print("time budget exceeded; checkpointing and exiting")

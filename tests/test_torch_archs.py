@@ -3,8 +3,7 @@ the PoseResNet IUV backbone (its transposed convs alone in f64 to 1e-12),
 the GlobalPredictor (`decomposed=False`) and its names, the 'gcn_direct',
 'lstm' and 'lstm_direct' refinements and refinement without `refine_on` /
 `pos_intersupv`, the HMR baseline, the kinematic tables the LSTM strategies
-walk, the input modes that still raise, and K1's plain version at the
-ResNet backbone's 256 channels.
+walk, and K1's plain version at the ResNet backbone's 256 channels.
 
 Each model is the JAX one with seeded numpy variables (`test_torch_nn.
 randomize`), converted by `port.state_dict_from_flax` (or
@@ -296,13 +295,6 @@ def test_demo_without_decomposed_and_hmr_refusals(tmp_path, capsys):
     for main in (demo.main, cli_eval_coco.main, cli_train.main):
         with pytest.raises(ValueError, match="runs DaNet only"):
             main(argv[:1] + ["--regressor", "hmr"])
-
-
-@pytest.mark.parametrize("mode", ["iuv_gt", "iuv_feat", "iuv_gt_feat", "feat", "seg"])
-def test_input_modes_still_raise(mode):
-    """The input-mode ablations are the second half of ROADMAP item 20."""
-    with pytest.raises(NotImplementedError, match="item 20"):
-        DaNet(DaNetConfig(input_mode=mode))
 
 
 def test_k1_plain_at_256_channels_matches_jax_kernel_interpret():

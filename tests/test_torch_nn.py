@@ -43,13 +43,14 @@ NARROW_STAGES = (
 )
 
 
-def randomize(module, *args, seed=0):
+def randomize(module, *args, seed=0, **kwargs):
     """Seeded numpy variables for a flax module, shaped by `eval_shape` of
-    its init (no compile): weights N(0, 1/fan_in), biases and BN
-    shifts/means N(0, 0.1^2), BN scales and variances and edge importances
-    in [0.5, 1.5); the STN ratio/offset keep their shipped values."""
+    its init (no compile; `kwargs` go to the call as they are): weights
+    N(0, 1/fan_in), biases and BN shifts/means N(0, 0.1^2), BN scales and
+    variances and edge importances in [0.5, 1.5); the STN ratio/offset keep
+    their shipped values."""
     rng = np.random.RandomState(seed)
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+    shapes = jax.eval_shape(lambda key, *a: module.init(key, *a, **kwargs), jax.random.PRNGKey(0), *args)
     shipped = {"stn_ratio": LEARNED_RATIO, "stn_offset": LEARNED_OFFSET}
 
     def leaf(path, x):

@@ -113,9 +113,8 @@ def test_predictor_on_cpu_never_launches_the_kernel(flax_variables):
 
 
 def test_unported_configs_raise():
-    for kw in ({"input_mode": "seg"}, {"hrnet_pad_channels": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DaNet(DaNetConfig(**kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DaNet(DaNetConfig(hrnet_pad_channels=True))
     # the other backbone and regressors are ported (tests/test_torch_archs.py)
     for kw in ({"iuv_regressor": "resnet"}, {"refine_strategy": "lstm"}, {"decomposed": False}):
         DaNet(DaNetConfig(**kw))
