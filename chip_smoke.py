@@ -9,7 +9,8 @@ training step), the eval path, the training CLI and the eval CLIs on the
 card, then the demo, the training visualization and the offline
 preprocessing, then the other architectures (the ResNet-50 backbone,
 whose 256 channels K1 takes in chunks, the other refinements, the
-GlobalPredictor and the HMR baseline), and last the input-mode ablations. The synthetic raw batches get 2D
+GlobalPredictor and the HMR baseline), the input-mode ablations, and last
+the chunked crop + head in training and data parallel. The synthetic raw batches get 2D
 keypoints that their poses explain (`posed_keypoints`), so the fitted
 cameras frame body-sized silhouettes. In phases:
 
@@ -197,7 +198,26 @@ cameras frame body-sized silhouettes. In phases:
      'iuv_gt_feat'` (4 steps, B=64, bf16, the synthetic SPIN rows,
      `--vis_interval 4`): finite losses, `rasterize_flat` once a step, the
      vis step's one skip line and no PNG; `cli.eval` with an 'iuv_gt' YAML
-     refuses.
+     refuses;
+ 14. the last two modules: (a) `cli.train --cfg configs/danet_tpu_b128.yaml
+     --raster_cull` in-process as in phase 9 (a) (B=128, bf16,
+     part_head_chunks 3, 4 steps; the synthetic soup atlas cannot be
+     culled, so `rasterize_flat` renders once a step), then the culled
+     bf16 B=128 step on the closed atlas with part_head_chunks 3 and 1
+     (a warm-up and 2 timed steps each: ms/step, peak GiB, K4 once a
+     step), then the chunked f64 step (W48, 64 px, B=4, the closed atlas
+     culled) on the card against the CPU and against the one-shot step on
+     the card; (b) data parallel at one NCCL rank: `cli.train
+     --data_parallel` at B=64 bf16 (4 steps), the culled bf16 B=64 step
+     plain and data-parallel in turns (ms/step), the f64 step at one rank
+     against the plain one; (c) two processes on cuda:0 in a gloo process
+     group (CUDA tensors): the data-parallel f64 step (W48, 64 px, PartDrop
+     and jitter on) of a global batch of 8 whose masks differ between the
+     halves against one process's step on the card, the ranks' parameters
+     bit-equal after Adam, K4 once per rank, and `make_eval_step(mesh=)`
+     against one rank. f64 bars: losses rtol 1e-9, gradients 1e-9 of each
+     tensor's largest entry (+1e-12), BatchNorm statistics rtol 1e-9, atol
+     1e-10.
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
@@ -214,7 +234,10 @@ C=256: its launches on the ResNet-50 serving path and (a)'s numbers) with
 `rasterize_flat`, and `resnet_launches` to `rasterize_flat_masked`; phase
 13 adds `input_mode_launches` to `part_crop_head` (b) and to
 `rasterize_flat_masked` (c), and `input_mode_cli_launches` to
-`rasterize_flat` (e)), and `{"ok": true, "device": {...}}`.
+`rasterize_flat` (e); phase 14 adds `b128_cli_launches` and
+`dp_cli_launches` to `rasterize_flat` (a), (b), and
+`b128_chunks_launches` and `dp_launches` to `rasterize_flat_masked`), and
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2298,6 +2321,335 @@ def phase13_input_modes(dev, card) -> dict:
         torch.cuda.empty_cache()
 
 
+B128_CFG = "configs/danet_tpu_b128.yaml"
+B128_BATCH = 128
+DP_GLOBAL_BATCH, DP_RANKS = 8, 2
+F64_QUIET = dict(partdrop_rate=0.0, stn_center_jitter=0.0, stn_scale_jitter=0.0)
+
+
+def f64_case(batch: int, seed: int, **cfg_kw):
+    """The f64 step checks' case: W48 at 64 px (heatmap 16), `batch` posed
+    synthetic raw samples, the closed atlas with culling (K4 on the card),
+    seeded random weights on the CPU. Returns (cfg, raw, smpl, renderer,
+    base model)."""
+    from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import closed_synthetic_atlas
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+
+    cfg = Config(danet=DaNetConfig(img_size=64, heatmap_size=16, **cfg_kw))
+    smpl = synthetic_smpl_model()
+    atlas, template = closed_synthetic_atlas(smpl.num_verts)
+    renderer = R.IUVRenderer(atlas, 64, 16, cull_verts=template)
+    check(renderer.cull, "culling is on for the closed atlas")
+    raw = posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, batch, seed=seed), seed=seed + 1)
+    return cfg, raw, smpl, renderer, random_init_(DaNet(cfg.danet), seed=0).double()
+
+
+def f64_step(cfg, raw, smpl, renderer, base, device, mesh=None, gen_seed=None) -> dict:
+    """One f64 step of `base`'s weights under `cfg` on `device` (this rank's
+    rows of `raw` with `mesh`): metrics, gradients, parameters after Adam
+    and BatchNorm statistics on the CPU, and the launch counts of the step."""
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.parallel import replicate, shard_batch
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device, create_train_state, make_train_step
+
+    model = DaNet(cfg.danet).double()
+    model.load_state_dict(base.state_dict())
+    model = model.to(device)
+    if mesh is not None:
+        replicate(model, mesh)
+        raw = shard_batch(raw, mesh)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, smpl, cfg, renderer=renderer, mesh=mesh)
+    batch = batch_to_device(raw, device, torch.float64)
+    gen = None if gen_seed is None else torch.Generator(device=device).manual_seed(gen_seed)
+    (state, metrics), counts = launch_counts(lambda: step(state, batch, gen))
+    return {"metrics": {k: v.item() for k, v in metrics.items()},
+            "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "stats": {n: b.detach().cpu() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))},
+            "launches": counts}
+
+
+def f64_errors(got: dict, ref: dict) -> dict:
+    """The worst error of each kind over its bar (at most 1 passes): losses
+    rtol 1e-9; gradients 1e-9 of their tensor's largest entry + 1e-12 (the
+    heatmap head's bias has an exact gradient of 0); BatchNorm statistics
+    rtol 1e-9, atol 1e-10."""
+    check(got["metrics"].keys() == ref["metrics"].keys(), "the same loss terms")
+    return {
+        "losses": max(abs(got["metrics"][k] - v) / (1e-9 * abs(v) + 1e-300) for k, v in ref["metrics"].items()),
+        "gradients": max(((got["grads"][n] - g).abs().max() / (1e-9 * g.abs().max() + 1e-12)).item()
+                         for n, g in ref["grads"].items()),
+        "statistics": max(((got["stats"][n] - b).abs() / (1e-9 * b.abs() + 1e-10)).max().item()
+                          for n, b in ref["stats"].items()),
+    }
+
+
+def dp_eval_case(device, mesh=None):
+    """The pose eval step of an eval-mode f64 W48 model at 64 px on a
+    global batch of 8 (each rank's rows with `mesh`): (mpjpe, pa, para) on
+    the CPU."""
+    from danet_densepose2smpl_tpu_torch.config import DaNetConfig
+    from danet_densepose2smpl_tpu_torch.eval.harness import make_eval_step, synthetic_h36m_regressor
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+
+    model = random_init_(DaNet(DaNetConfig(img_size=64, heatmap_size=16)), seed=1).double().to(device)
+    smpl = synthetic_smpl_model()
+    rng = np.random.RandomState(3)
+    b = DP_GLOBAL_BATCH
+    args = (rng.rand(b, 64, 64, 3), rng.randn(b, 72) * 0.2, rng.randn(b, 10) * 0.3, np.zeros(b, np.int32),
+            np.concatenate([rng.randn(b, 24, 3) * 0.3, np.ones((b, 24, 1))], -1))
+    step = make_eval_step(lambda img: model(torch.as_tensor(img, device=device))["para"], smpl,
+                          synthetic_h36m_regressor(smpl.num_verts, seed=1), np.arange(14), np.arange(14), False,
+                          mesh=mesh)
+    (mpjpe, pa), para = step(*args)
+    return mpjpe.cpu(), pa.cpu(), para.cpu()
+
+
+def dp_case():
+    """Phase 14 (c)'s global batch: W48 f64 at 64 px, default PartDrop and
+    STN jitter, 8 rows whose masks differ between the two ranks' halves."""
+    case = f64_case(DP_GLOBAL_BATCH, seed=30)
+    raw = case[1]
+    raw["has_smpl"] = np.array([1, 1, 1, 1, 1, 0, 0, 1], np.float32)
+    raw["has_dp"] = np.array([0, 1, 0, 0, 1, 1, 0, 1], np.float32)
+    raw["is_dp_dataset"] = np.array([0, 0, 0, 0, 1, 0, 1, 0], np.float32)
+    raw["has_pose_3d"] = np.array([1, 0, 1, 1, 0, 0, 1, 0], np.float32)
+    return case
+
+
+def phase14_rank(rank: int, world: int, port: int, out_dir: str, device: str) -> None:
+    """Phase 14 (c), one rank: a process on `device` (cuda:0 for every rank)
+    in a gloo process group (the environment torchrun would give it), the
+    data-parallel f64 step on its rows of `dp_case()` and the data-parallel
+    eval."""
+    from danet_densepose2smpl_tpu_torch.parallel import make_mesh
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    dev = torch.device(device)
+    mesh = make_mesh(dev, backend="gloo")
+    try:
+        out = f64_step(*dp_case(), dev, mesh=mesh, gen_seed=7)
+        out["eval"] = dp_eval_case(dev, mesh)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        mesh.close()
+
+
+def timed_steps(step, state, batches, gen, dev) -> tuple[float, float, list]:
+    """A warm-up step on batches[0], then the others timed (host clock, ends
+    in synchronize) with the peak memory: (ms/step, peak GiB, metrics)."""
+    step(state, batches[0], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    metrics = [step(state, b, gen)[1] for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dt / (len(batches) - 1) * 1e3, torch.cuda.max_memory_allocated(dev) / 2**30, metrics
+
+
+def phase14_chunks_dp(dev, card) -> dict:
+    """The last two modules (see the module docstring, phase 14): the
+    chunked crop + head in training (`configs/danet_tpu_b128.yaml`) and
+    data-parallel training and eval."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from danet_densepose2smpl_tpu_torch.cli import train as cli_train
+    from danet_densepose2smpl_tpu_torch.config import load_config
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.parallel import make_mesh
+    from danet_densepose2smpl_tpu_torch.serve import random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import closed_synthetic_atlas
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device, create_train_state, make_train_step
+
+    out = {}
+    root = os.path.join(REPO, "build", "chip_smoke_chunks_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, root     # the CLI writes its dataset there
+
+    def cli_run(name, argv, steps, batch):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer, counts = launch_counts(lambda: cli_train.main(argv + ["--name", name, "--log_dir", root]))
+        wall = time.perf_counter() - t0
+        with open(os.path.join(root, name, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        check(trainer.state.step == steps and len(rows) == steps, f"{name}: {len(rows)} rows in {steps} steps")
+        check(all(np.isfinite(v) for r in rows for v in r.values()), f"{name}: every logged value finite")
+        check(counts["rasterize_flat"] + counts["rasterize_flat_masked"] == steps and counts["part_crop_head"] == 0,
+              f"{name}: launches {counts} in {steps} steps")
+        check(os.path.isfile(os.path.join(root, name, "checkpoints", f"ckpt_{steps:09d}.pt")), f"{name}: checkpoint")
+        rates = [r["imgs_per_sec"] for r in rows]
+        print(f"phase 14: cli.train {' '.join(argv)}: {steps} steps in {wall!r} s of command; loss_total "
+              f"{[r['loss_total'] for r in rows]}; imgs/s by window {rates}; peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30!r} GiB; launches {counts}; card {card}")
+        return trainer, counts, rates
+
+    try:
+        # (a) the chunked crop + head: cli.train on the repo's B=128 config,
+        # in-process (the synthetic soup atlas cannot be culled: --raster_cull
+        # switches itself off with a warning and K2 renders)
+        steps = 4
+        cfg_path = os.path.join(REPO, B128_CFG)
+        argv = ["--cfg", cfg_path, "--raster_cull", "--synthetic-data", "--num_samples", str(steps * B128_BATCH),
+                "--batch_size", str(B128_BATCH), "--pretr_step", "1", "--num_epochs", "1", "--summary_steps", "1",
+                "--vis_interval", "0"]
+        trainer, counts, rates = cli_run("b128", argv, steps, B128_BATCH)
+        d = trainer.cfg.danet
+        check(d.part_head_chunks == 3 and d.compute_dtype == "bfloat16" and trainer.cfg.train.batch_size == 128,
+              f"{B128_CFG}: chunks {d.part_head_chunks}, {d.compute_dtype}, B={trainer.cfg.train.batch_size}")
+        out["b128_cli"] = {"launches": counts, "imgs_per_sec": rates}
+        del trainer
+        torch.cuda.empty_cache()
+
+        # the culled bf16 B=128 step (closed atlas) with 3 chunks and in one shot
+        smpl = synthetic_smpl_model()
+        atlas, template = closed_synthetic_atlas(smpl.num_verts)
+        renderer = R.IUVRenderer(atlas, 224, 56, cull_verts=template)
+        base_cfg = load_config(cfg_path)
+        batches = [batch_to_device(posed_keypoints(base_cfg, smpl, synthetic_raw_batch(base_cfg, B128_BATCH,
+                                                                                       seed=70 + i), seed=80 + i), dev)
+                   for i in range(3)]
+        out["b128_step"] = {}
+        for chunks in (3, 1):
+            cfg = load_config(cfg_path, overrides={"danet.part_head_chunks": chunks})
+            model = random_init_(DaNet(cfg.danet), seed=0).to(dev, memory_format=torch.channels_last)
+            state = create_train_state(model, cfg)
+            step = make_train_step(model, smpl, cfg, renderer=renderer)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            (ms, peak, metrics), counts = launch_counts(lambda: timed_steps(step, state, batches, gen, dev))
+            check(all(bool(torch.isfinite(v)) for m in metrics for v in m.values()), f"chunks {chunks}: finite")
+            check(counts["rasterize_flat_masked"] == 3 and counts["part_crop_head"] == 0,
+                  f"chunks {chunks}: launches {counts} in 3 steps")
+            print(f"phase 14: (a) culled bf16 step, B={B128_BATCH}, part_head_chunks={chunks}: {ms!r} ms/step "
+                  f"(2 steps after a warm-up, host clock, ends in synchronize), peak {peak!r} GiB; loss_total "
+                  f"{[m['loss_total'].item() for m in metrics]}; launches {counts} (warm-up included); card {card}")
+            out["b128_step"][chunks] = {"ms_per_step": ms, "peak_gib": peak, "launches": counts}
+            del model, state, step, metrics
+            torch.cuda.empty_cache()
+        del batches
+
+        # the chunked f64 step: card vs CPU, and chunked vs one-shot on the card
+        case = f64_case(4, seed=2, part_head_chunks=3, **F64_QUIET)
+        cfg3, raw, smpl64, renderer64, base = case
+        one_cfg = load_config(None, overrides={"danet.img_size": 64, "danet.heatmap_size": 16,
+                                               **{f"danet.{k}": v for k, v in F64_QUIET.items()}})
+        t0 = time.perf_counter()
+        cpu3 = f64_step(*case, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        card3 = f64_step(*case, dev)
+        card1 = f64_step(one_cfg, raw, smpl64, renderer64, base, dev)
+        vs_cpu, vs_one = f64_errors(card3, cpu3), f64_errors(card3, card1)
+        print(f"phase 14: (a) f64 step W48 64 px B=4, part_head_chunks=3 (CPU step {cpu_s:.1f} s): card vs CPU "
+              f"worst error / bar {vs_cpu}; chunked vs one-shot on the card {vs_one}; launches {card3['launches']}")
+        check(max(vs_cpu.values()) <= 1 and max(vs_one.values()) <= 1, "f64 chunked step bars")
+        check(card3["launches"]["rasterize_flat_masked"] == 1, f"f64 chunked step: {card3['launches']}")
+        out["f64_chunks"] = {"vs_cpu": vs_cpu, "vs_one_shot": vs_one}
+
+        # (b) data parallel at one rank over NCCL: cli.train --data_parallel
+        steps = 4
+        argv = ["--data_parallel", "--synthetic-data", "--num_samples", str(steps * TRAIN_BATCH), "--batch_size",
+                str(TRAIN_BATCH), "--bf16", "--pretr_step", "1", "--num_epochs", "1", "--summary_steps", "1",
+                "--vis_interval", "0"]
+        trainer, counts, rates = cli_run("dp", argv, steps, TRAIN_BATCH)
+        check(trainer.mesh is not None and trainer.mesh.size == 1 and trainer.mesh.backend == "nccl",
+              f"cli.train --data_parallel: mesh {trainer.mesh}")
+        out["dp_cli"] = {"launches": counts, "imgs_per_sec": rates}
+        del trainer
+        torch.cuda.empty_cache()
+
+        # the culled bf16 B=64 step, plain and at one NCCL rank, in turns
+        mesh = make_mesh(dev)
+        try:
+            cfg = load_config(None, overrides={"danet.compute_dtype": "bfloat16"})
+            batches = [batch_to_device(posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, TRAIN_BATCH, seed=90 + i),
+                                                       seed=95 + i), dev) for i in range(3)]
+            model = random_init_(DaNet(cfg.danet), seed=0).to(dev, memory_format=torch.channels_last)
+            state = create_train_state(model, cfg)
+            steps_by = {"plain": make_train_step(model, smpl, cfg, renderer=renderer),
+                        "dp": make_train_step(model, smpl, cfg, renderer=renderer, mesh=mesh)}
+            gen = torch.Generator(device=dev).manual_seed(0)
+            turns = {"plain": [], "dp": []}
+            for name in ("plain", "dp", "dp", "plain"):
+                ms, peak, metrics = timed_steps(steps_by[name], state, batches, gen, dev)
+                check(all(bool(torch.isfinite(v)) for m in metrics for v in m.values()), f"{name}: finite")
+                turns[name].append(ms)
+            print(f"phase 14: (b) culled bf16 step B={TRAIN_BATCH}, plain vs data-parallel at one NCCL rank, in "
+                  f"turns (ms/step, 2 steps after a warm-up each): {turns}; card {card}")
+            out["world1_ms"] = turns
+            del model, state, steps_by, batches
+            torch.cuda.empty_cache()
+
+            # the f64 step at one NCCL rank vs the plain one (B=4, noise on)
+            case = f64_case(4, seed=40)
+            plain = f64_step(*case, dev, gen_seed=7)
+            dp = f64_step(*case, dev, mesh=mesh, gen_seed=7)
+            err = f64_errors(dp, plain)
+            print(f"phase 14: (b) f64 step W48 64 px B=4 at one NCCL rank vs plain: worst error / bar {err}; "
+                  f"launches {dp['launches']}")
+            check(max(err.values()) <= 1, "f64 step at one rank vs plain")
+            check(dp["launches"]["rasterize_flat_masked"] == 1, f"world-1 f64 step: {dp['launches']}")
+            out["world1_f64"] = {"err": err, "launches": dp["launches"]}
+        finally:
+            mesh.close()
+
+        # (c) two ranks over gloo on the one card, against one process
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = mp.spawn(phase14_rank, args=(DP_RANKS, port, root, str(dev)), nprocs=DP_RANKS, join=False)
+        try:
+            single = f64_step(*dp_case(), dev, gen_seed=7)
+            single_eval = dp_eval_case(dev)
+            deadline = time.monotonic() + 400
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline, "the two ranks finished within 400 s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(10)
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(DP_RANKS)]
+        errs = [f64_errors(r, single) for r in ranks]
+        equal = all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in single["params"])
+        eval_err = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+                       for r in ranks for g, w in zip(r["eval"], single_eval))
+        print(f"phase 14: (c) {DP_RANKS} gloo ranks on cuda:0, f64 W48 64 px, global B={DP_GLOBAL_BATCH} (noise on, "
+              f"masks differ between the halves) vs one process: worst error / bar by rank {errs}; parameters "
+              f"bit-equal across ranks {equal}; eval (mpjpe, pa, para) max rel err {eval_err!r}; launches by rank "
+              f"{[r['launches'] for r in ranks]}; {time.perf_counter() - t0:.1f} s")
+        check(all(max(e.values()) <= 1 for e in errs), "two-rank f64 step vs one process")
+        check(equal, "the ranks' parameters are bit-equal after the step")
+        check(eval_err <= 1e-12 and all(r["eval"][2].shape == (DP_GLOBAL_BATCH, 229) for r in ranks),
+              f"two-rank eval vs one rank: {eval_err}")
+        check(all(r["launches"]["rasterize_flat_masked"] == 1 for r in ranks), "K4 once per rank per step")
+        out["two_ranks"] = {"errs": errs, "launches": [r["launches"] for r in ranks], "eval_err": eval_err}
+        return out
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
@@ -2323,6 +2675,7 @@ def main():
     demo = timed(11, lambda: phase11_demo_vis(dev, card))
     archs = timed(12, lambda: phase12_archs(dev, card))
     modes = timed(13, lambda: phase13_input_modes(dev, card))
+    last = timed(14, lambda: phase14_chunks_dp(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
                 f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
@@ -2374,6 +2727,15 @@ def main():
             k["input_mode_launches"] = {m: v["launches"] for m, v in modes["train"].items()}
         if k["name"] == "rasterize_flat":                         # phase 13 (e): 4 steps
             k["input_mode_cli_launches"] = {"iuv_gt_feat": modes["cli_train"]["rasterize_flat"]}
+        if k["name"] == "rasterize_flat":                         # phase 14 (a), (b): the CLIs' 4 steps
+            k["b128_cli_launches"] = last["b128_cli"]["launches"]["rasterize_flat"]
+            k["dp_cli_launches"] = last["dp_cli"]["launches"]["rasterize_flat"]
+        if k["name"] == "rasterize_flat_masked":                  # phase 14: the chunked and data-parallel steps
+            k["b128_chunks_launches"] = {f"chunks{c}": v["launches"]["rasterize_flat_masked"]
+                                         for c, v in last["b128_step"].items()}
+            k["dp_launches"] = {
+                "one_nccl_rank_f64": last["world1_f64"]["launches"]["rasterize_flat_masked"],
+                "two_gloo_ranks_f64": [n["rasterize_flat_masked"] for n in last["two_ranks"]["launches"]]}
     print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

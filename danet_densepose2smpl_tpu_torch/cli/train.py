@@ -15,8 +15,14 @@ Fixture run on the CPU:
 Runs on cuda:0 unless --cpu is given. With --device_preprocess the host
 only decodes the frames (of one size) and augments the labels; the crop,
 rotation, flip, channel noise and normalization run on the card inside the
-step (`data/pipeline.device_preprocess_train`). --data_parallel (item 19)
-raises until its ROADMAP item is ported.
+step (`data/pipeline.device_preprocess_train`).
+
+--data_parallel runs the data-parallel step (`parallel/`): launched by
+torchrun, one rank per card, the batch size is the global batch:
+  torchrun --nproc_per_node 4 -m danet_densepose2smpl_tpu_torch.cli.train \
+      --data_parallel --batch_size 128 ...
+Launched plainly, it is a world of one rank (NCCL on cuda:0; gloo with
+--cpu). Only rank 0 writes checkpoints, metrics and the run config.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-data", action="store_true")
     p.add_argument("--num_samples", type=int, default=16)
     p.add_argument("--img_size", type=int, default=None)
-    p.add_argument("--data_parallel", action="store_true", help="shard the batch over all devices (not ported)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard the global batch over the ranks of a torchrun launch (one rank without one)")
     p.add_argument("--device_preprocess", action="store_true",
                    help="decode-only host path: raw frames go to the card, where crop, rotation, flip, "
                         "noise and normalization run inside the train step (uniform frame sizes required)")
@@ -74,8 +81,6 @@ def build_parser() -> argparse.ArgumentParser:
 def setup(args):
     """Everything a run needs before its Trainer, from parsed flags:
     (device, cfg, train dataset, SMPL model, GT IUV renderer, fits)."""
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not ported to PyTorch yet (ROADMAP.md queue 1, item 19)")
     refuse_hmr(args, "cli.train")
     device = resolve_device(args)
 
@@ -159,16 +164,24 @@ def setup(args):
 
 def main(argv=None):
     """Parse `argv`, train, and return the Trainer."""
+    from danet_densepose2smpl_tpu_torch.parallel.mesh import make_mesh
     from danet_densepose2smpl_tpu_torch.train.trainer import Trainer
 
     args = build_parser().parse_args(argv)
-    device, cfg, train_ds, smpl, renderer, fits = setup(args)
-    workdir = os.path.join(args.log_dir, args.name)
-    dump_run_config(args, cfg, workdir)
-    trainer = Trainer(cfg, train_ds, smpl, renderer, fits, workdir, device=device,
-                      time_to_run=args.time_to_run)
-    state = trainer.train()
-    print(f"training done at step {int(state.step)}; checkpoints in {workdir}/checkpoints")
+    mesh = make_mesh("cpu" if args.cpu else None) if args.data_parallel else None
+    try:
+        device, cfg, train_ds, smpl, renderer, fits = setup(args)
+        workdir = os.path.join(args.log_dir, args.name)
+        if mesh is None or mesh.rank == 0:
+            dump_run_config(args, cfg, workdir)
+        trainer = Trainer(cfg, train_ds, smpl, renderer, fits, workdir, device=device, mesh=mesh,
+                          time_to_run=args.time_to_run)
+        state = trainer.train()
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if trainer.lead:
+        print(f"training done at step {int(state.step)}; checkpoints in {workdir}/checkpoints")
     return trainer
 
 

@@ -82,7 +82,7 @@ class DaNetConfig:
     remat_backbone: bool = False     # not ported: the port raises when it is set
     remat_scope: str = "backbone"    # 'backbone' | 'modules' | 'early' (JAX package only)
     fused_part_head: bool = False    # the port's eval path always runs the K1 kernel
-    part_head_chunks: int = 1        # 24 % N == 0; the port accepts only 1 in training
+    part_head_chunks: int = 1        # 24 % N == 0; training crops + heads N part chunks in turn
 
     def __post_init__(self):
         supported_modes = ("iuv", "iuv_gt", "iuv_feat", "iuv_gt_feat", "feat", "seg")

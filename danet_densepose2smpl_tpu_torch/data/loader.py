@@ -49,12 +49,17 @@ class ResumableLoader:
 
     dataset: indexable with `__getitem__(i, rng=...)` and `__len__`.
     `shard_id` / `num_shards` slice each batch for one of several hosts.
+    `rows` (a slice of a batch's slots) keeps only those samples of each
+    batch, each assembled as it is in the whole batch (the same sample and
+    RNG): a data-parallel rank's rows of the global batch, bit for bit.
     """
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, shuffle: bool = True,
-                 drop_last: bool = True, shard_id: int = 0, num_shards: int = 1):
+                 drop_last: bool = True, shard_id: int = 0, num_shards: int = 1,
+                 rows: slice | None = None):
         if batch_size % num_shards:
             raise ValueError(f"batch_size {batch_size} is not a multiple of num_shards {num_shards}")
+        self.rows = rows
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -88,6 +93,8 @@ class ResumableLoader:
             return self.dataset.__getitem__(int(i), rng=rng)
 
         pairs = list(enumerate(ids))
+        if self.rows is not None:
+            pairs = pairs[self.rows]
         items = list(pool.map(get, pairs)) if pool is not None else [get(p) for p in pairs]
         return _collate(items)
 

@@ -9,6 +9,11 @@ batches are dicts of numpy arrays, as the JAX harness takes them. With
 (`data/pipeline.device_preprocess`) runs on `device`, the model's device,
 before `infer_fn`. The stages carry `record_function` ranges pose.crop /
 infer / metrics / read for torch.profiler.
+
+With `mesh` (`parallel.make_mesh`) the eval is data-parallel, as JAX's with
+batch-sharded inputs and outputs: every rank is handed the global batch,
+runs its rows, and returns the global per-sample arrays (each rank's rows
+written into a zero buffer and summed over the ranks: exact).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from danet_densepose2smpl_tpu_torch.constants import H36M_TO_J14, H36M_TO_J17, J
 from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess as crop_on_device
 from danet_densepose2smpl_tpu_torch.eval.metrics import compute_mpjpe
 from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
+from danet_densepose2smpl_tpu_torch.parallel.mesh import all_gather_rows
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward, smpl_forward_aa
 
@@ -66,11 +72,9 @@ def h36m_action_of(imgname: str) -> str:
     return imgname.split("/")[-1].split(".")[0].split("_")[1]
 
 
-def _check_options(device_preprocess: bool, device, mesh) -> None:
+def _check_options(device_preprocess: bool, device) -> None:
     if device_preprocess and device is None:
         raise ValueError("device_preprocess crops on the model's device: pass device=")
-    if mesh is not None:
-        raise NotImplementedError("mesh: data-parallel eval is not ported yet (ROADMAP item 19)")
 
 
 def make_eval_step(
@@ -92,8 +96,10 @@ def make_eval_step(
     `para`'s device and dtype, and moves the SMPL arrays, the regressor and
     the GT there (once per device and dtype). With `device_preprocess`,
     `images` are the raw (B, H, W, 3) uint8 frames, and `centers` /
-    `scales` place each crop; the crop runs on `device`."""
-    _check_options(device_preprocess, device, mesh)
+    `scales` place each crop; the crop runs on `device`. With `mesh`, each
+    rank takes its rows of the global batch it is handed and returns the
+    global results."""
+    _check_options(device_preprocess, device)
     on = {}
 
     def tables(dev, dtype):
@@ -110,6 +116,14 @@ def make_eval_step(
 
     @torch.inference_mode()
     def step(images, gt_pose, gt_betas, gender, pose_3d, centers=None, scales=None):
+        if mesh is None:
+            return local_step(images, gt_pose, gt_betas, gender, pose_3d, centers, scales)
+        rows = mesh.rows(len(images))
+        (mpjpe, pa), para = local_step(*(None if a is None else a[rows] for a in (
+            images, gt_pose, gt_betas, gender, pose_3d, centers, scales)))
+        return (all_gather_rows(mpjpe, mesh), all_gather_rows(pa, mesh)), all_gather_rows(para, mesh)
+
+    def local_step(images, gt_pose, gt_betas, gender, pose_3d, centers, scales):
         if device_preprocess:
             with record_function("pose.crop"):
                 images = crop_on_device(torch.as_tensor(np.asarray(images)).to(device),
@@ -161,8 +175,10 @@ def run_pose_eval(
     with img (B, H, W, 3) normalized, pose (B, 72), betas (B, 10), gender
     (B,), pose_3d (B, 24, 4) and sample_index (B,), numpy arrays; with
     `device_preprocess`, raw_img (B, H, W, 3) uint8, center (B, 2) and
-    scale (B,) in place of img, cropped on `device` (the model's)."""
-    _check_options(device_preprocess, device, mesh)
+    scale (B,) in place of img, cropped on `device` (the model's). With
+    `mesh`, every rank iterates the same global batches, runs its rows and
+    returns the whole result."""
+    _check_options(device_preprocess, device)
     is_mpi = dataset_name == "mpi-inf-3dhp"
     mapper_h36m = H36M_TO_J17 if is_mpi else H36M_TO_J14
     mapper_gt = J24_TO_J17 if is_mpi else J24_TO_J14
@@ -171,7 +187,7 @@ def run_pose_eval(
     step = make_eval_step(
         infer_fn, smpl_neutral, j_regressor, mapper_h36m, mapper_gt,
         use_gt_verts, smpl_male or smpl_neutral, smpl_female or smpl_neutral,
-        device_preprocess=device_preprocess, device=device,
+        device_preprocess=device_preprocess, mesh=mesh, device=device,
     )
 
     all_mpjpe, all_pa, all_idx = [], [], []

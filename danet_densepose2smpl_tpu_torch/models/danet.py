@@ -43,6 +43,7 @@ from danet_densepose2smpl_tpu_torch.models.smpl_regressor import (
 )
 from danet_densepose2smpl_tpu_torch.ops.iuvmap import iuv_img2map, iuvmap_clean
 from danet_densepose2smpl_tpu_torch.ops.structure import DP2SMPL_MAPPING
+from danet_densepose2smpl_tpu_torch.parallel.mesh import active_mesh
 from danet_densepose2smpl_tpu_torch.train.objective import part_iuv_gt_crops
 
 # the input modes whose forward takes the GT IUV render
@@ -57,30 +58,34 @@ def check_config(cfg: DaNetConfig) -> None:
 
 
 def check_train_config(cfg: DaNetConfig) -> None:
-    """Raise for train-mode options this port does not run yet."""
-    for bad, what in ((cfg.remat_backbone, "remat_backbone=True"),
-                      (cfg.part_head_chunks > 1, f"part_head_chunks={cfg.part_head_chunks}")):
-        if bad:
-            raise NotImplementedError(
-                f"{what} in train mode is not ported to PyTorch yet: port activation "
-                "checkpointing or the chunked crop only if H100 memory calls for it "
-                "(ROADMAP.md queue 1, item 13)")
+    """Raise for train-mode options this port does not run."""
+    if cfg.remat_backbone:
+        raise NotImplementedError(
+            "remat_backbone=True in train mode is not ported to PyTorch: port activation checkpointing "
+            "only if H100 memory calls for it (ROADMAP.md queue 1, 'Deliberately not ported')")
 
 
 def draw_noise(cfg: DaNetConfig, batch: int, generator: torch.Generator, device) -> dict:
     """The train-mode uniforms in [0, 1), fp32, drawn from `generator` on
     its own device: 'center' (B, 24, 2) and 'scale' (2, B, 24) for the STN
-    jitter, 'partdrop' (B, 24). Only the ones the config uses."""
+    jitter, 'partdrop' (B, 24). Only the ones the config uses. Inside
+    `parallel.data_parallel(mesh)`, `batch` is this rank's rows: the global
+    batch's uniforms are drawn and this rank's rows kept, so the ranks
+    together see the single-process step's noise."""
+    mesh = active_mesh()
+    total = batch if mesh is None else batch * mesh.size
+    rows = slice(None) if mesh is None else mesh.rows(total)
+
     def uniform(*shape):
         return torch.rand(shape, generator=generator, device=generator.device).to(device)
 
     noise = {}
     if cfg.stn_center_jitter > 0:
-        noise["center"] = uniform(batch, 24, 2)
+        noise["center"] = uniform(total, 24, 2)[rows]
     if cfg.stn_scale_jitter > 0:
-        noise["scale"] = uniform(2, batch, 24)
+        noise["scale"] = uniform(2, total, 24)[:, rows]
     if cfg.partdrop_rate > 0:
-        noise["partdrop"] = uniform(batch, 24)
+        noise["partdrop"] = uniform(total, 24)[rows]
     return noise
 
 

@@ -17,7 +17,8 @@ eval too, as JAX does. Otherwise, at eval the crop + head runs through
 `PartialIUVHead.fused`, whatever `fused_part_head` says: on a CUDA tensor
 the hand-written kernel (K1), on a CPU tensor its plain version; in train
 mode it is the JAX train path, the separable crop + grouped conv as
-autograd ops (K1 has no backward).
+autograd ops (K1 has no backward); with `part_head_chunks` N > 1 they run
+on N chunks of 24/N parts in turn (`chunked_crops_and_head`).
 Jitter noise comes in as uniforms in [0, 1) (`noise['center']` (B, 24, 2),
 `noise['scale']` (2, B, 24)), so tests can hand both packages the same
 numbers.
@@ -140,6 +141,23 @@ def feat_crops_and_head(head, feats_nhwc: torch.Tensor, theta: torch.Tensor, s: 
     return crops, head(crops.permute(0, 2, 3, 1, 4).reshape(b, s, s, -1).permute(0, 3, 1, 2))
 
 
+def chunked_crops_and_head(head, feats_nhwc: torch.Tensor, theta: torch.Tensor, s: int, chunks: int):
+    """The train path's crop + partial head on `chunks` chunks of 24/N parts
+    in turn, concatenated on the part axis (JAX's chunked branch, whose
+    `optimization_barrier` orders the chunks; eager PyTorch runs them in
+    loop order). Each chunk's crop intermediates are freed before the next
+    chunk's are made; the crops the grouped conv keeps for the backward
+    stay. The numbers are the one-shot path's; only the summation order of
+    the features' gradient differs. Returns (B, 24, S, S, 3, 7)."""
+    pc = head.num_parts // chunks
+    outs = []
+    for g in range(chunks):
+        th = theta[:, g * pc:(g + 1) * pc]
+        crops = separable_crop_concat(feats_nhwc, th[..., :, 2], th[..., 0, 0], s)
+        outs.append(head(crops.permute(0, 3, 1, 2), start=g * pc, count=pc))
+    return torch.cat(outs, dim=1)
+
+
 class IUVEstimator(nn.Module):
     def __init__(self, cfg: DaNetConfig):
         super().__init__()
@@ -207,6 +225,8 @@ class IUVEstimator(nn.Module):
         head = self.iuv_est.final_pred.predict_partial_iuv
         if c.input_mode in FEAT_MODES:
             out["part_feats"], out["part_iuv"] = feat_crops_and_head(head, feats_nhwc, theta, s)
+        elif self.training and c.part_head_chunks > 1:
+            out["part_iuv"] = chunked_crops_and_head(head, feats_nhwc, theta, s, c.part_head_chunks)
         elif self.training:
             crops = separable_crop_concat(feats_nhwc, theta[..., :, 2], theta[..., 0, 0], s)
             out["part_iuv"] = head(crops.permute(0, 3, 1, 2))

@@ -4,6 +4,13 @@ JAX `models/losses.py`, every function).
 Maps are channels-last (B, H, W, C); validity flags are {0, 1} float masks
 of shape (B,), and each loss keeps the reference's normalization with the
 valid-sample restriction expressed as weights.
+
+Inside `parallel.data_parallel(mesh)` each rank holds rows of the global
+batch and every loss here is this rank's *share* of the global batch's
+loss: a masked mean divides this rank's numerator by the denominator summed
+over the ranks (`_safe_div`), a mean or a per-sample average divides by the
+global count (`_mean`, `_global_batch`). The shares sum to the
+single-process loss of the global batch, and so do their gradients.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.ops.imwarp import grid_sample_bilinear
 from danet_densepose2smpl_tpu_torch.ops.keypoints import gaussian_heatmaps
 from danet_densepose2smpl_tpu_torch.ops.projection import perspective_projection
+from danet_densepose2smpl_tpu_torch.parallel.mesh import global_sum, world_size
 
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -22,7 +30,18 @@ def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
 
 
 def _safe_div(num, den):
-    return num / torch.clamp_min(den, 1e-12)
+    """num / den, den summed over the ranks of a data-parallel step."""
+    return num / torch.clamp_min(global_sum(den), 1e-12)
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the global batch (this rank's share of it)."""
+    return x.sum() / (x.numel() * world_size())
+
+
+def _global_batch(x: torch.Tensor) -> int:
+    """The number of samples in the global batch of per-sample `x`."""
+    return x.shape[0] * world_size()
 
 
 def cross_entropy_int(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -40,7 +59,7 @@ def body_uv_losses(u_pred, v_pred, index_pred, ann_pred, u_gt, v_gt, index_gt, a
     """Dense IUV losses against the rendered GT: U/V smooth-l1 summed over
     foreground pixels of valid samples / full batch size; index and ann CE
     averaged over all pixels of valid samples. `index_gt` is one-hot."""
-    b = u_pred.shape[0]
+    b = _global_batch(u_pred)
     wpix = has_iuv.to(u_pred.dtype)[:, None, None]
     fg = (index_gt > 0).to(u_pred.dtype)
     loss_u = (smooth_l1(u_pred - u_gt) * fg * wpix[..., None]).sum() / b
@@ -104,7 +123,7 @@ def stn_losses(stn_centers, smpl_kps_gt, cfg: DaNetConfig):
     GT SMPL 2D keypoints (both in [-1, 1]), summed / batch size."""
     conf = smpl_kps_gt[..., 2]
     diff = smooth_l1(stn_centers - smpl_kps_gt[..., :2]).sum(-1)
-    return (conf * diff).sum() / stn_centers.shape[0] * cfg.stn_kps_weights
+    return (conf * diff).sum() / _global_batch(stn_centers) * cfg.stn_kps_weights
 
 
 def stn_heatmap_loss(hm_pred, smpl_kps_gt, cfg: DaNetConfig):
@@ -112,7 +131,7 @@ def stn_heatmap_loss(hm_pred, smpl_kps_gt, cfg: DaNetConfig):
     GT SMPL keypoints. hm_pred (B, H, W, 24); smpl_kps_gt (B, 24, 3)."""
     kps01 = smpl_kps_gt[..., :2].detach() * 0.5 + 0.5
     hm_gt, _ = gaussian_heatmaps(kps01, hm_pred.shape[1])
-    return smooth_l1(hm_pred - hm_gt).mean() * cfg.stn_hm_weights
+    return _mean(smooth_l1(hm_pred - hm_gt)) * cfg.stn_hm_weights
 
 
 def _masked_mean_elems(err, mask_b):
@@ -140,7 +159,7 @@ def keypoint_2d_loss(pred_kp2d, gt_kp2d, openpose_weight, gt_weight):
     are scaled by their weights."""
     conf = gt_kp2d[..., 2:3]
     conf = torch.cat([conf[:, :25] * openpose_weight, conf[:, 25:] * gt_weight], dim=1)
-    return (conf * (pred_kp2d - gt_kp2d[..., :2]) ** 2).mean()
+    return _mean(conf * (pred_kp2d - gt_kp2d[..., :2]) ** 2)
 
 
 def keypoint_3d_loss(pred_joints49, gt_kp3d, has_kp3d):
@@ -160,7 +179,7 @@ def vertex_loss(pred_verts, gt_verts, has_smpl):
 def cam_losses(pred_cam, gt_cam, has_smpl):
     """L1 camera fit + positive-depth penalty."""
     loss_cam = _l1_sum_over_samples(pred_cam - gt_cam, has_smpl)
-    loss_depth = (torch.exp(-pred_cam[:, 0] * 10.0) ** 2).mean()
+    loss_depth = _mean(torch.exp(-pred_cam[:, 0] * 10.0) ** 2)
     return loss_cam, loss_depth
 
 
@@ -169,7 +188,7 @@ def orthogonal_loss(pred_rotmat, cfg: DaNetConfig):
     r = pred_rotmat.reshape(-1, 3, 3)
     rrt = torch.einsum("bij,bkj->bik", r, r)
     eye = torch.eye(3, dtype=rrt.dtype, device=rrt.device)
-    return ((rrt - eye) ** 2).mean() * cfg.orthogonal_weights
+    return _mean((rrt - eye) ** 2) * cfg.orthogonal_weights
 
 
 def aux_rotation_loss(pred_rot_flat, gt_rotmat_flat, has_smpl, cfg: DaNetConfig):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from danet_densepose2smpl_tpu_torch.constants import ANN_CHANNELS, IUV_CHANNELS
 from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import fused_part_predict
@@ -25,7 +26,8 @@ class PartialIUVHead(nn.Conv2d):
     """Grouped partial-IUV head: one groups=24 3x3 conv over the 24 part
     crops, mapping each part's C channels to 3 x part_dim.
 
-    `forward` takes the crops concatenated along channels (B, 24*C, S, S);
+    `forward` takes the crops concatenated along channels (B, 24*C, S, S),
+    or those of a chunk of parts;
     `fused` takes the backbone features and the crop interpolation matrices
     and runs crop + conv in one kernel, so the crops never reach device
     memory. Both return (B, 24, S, S, 3, part_dim) and share the weights.
@@ -37,13 +39,21 @@ class PartialIUVHead(nn.Conv2d):
         self.part_dim = part_dim
         self.num_parts = num_parts
 
-    def _regroup(self, out: torch.Tensor) -> torch.Tensor:
+    def _regroup(self, out: torch.Tensor, parts: int) -> torch.Tensor:
         # (B, K*3*D, S, S) -> (B, K, S, S, 3, D)
         b, _, s, _ = out.shape
-        return out.reshape(b, self.num_parts, 3, self.part_dim, s, s).permute(0, 1, 4, 5, 2, 3)
+        return out.reshape(b, parts, 3, self.part_dim, s, s).permute(0, 1, 4, 5, 2, 3)
 
-    def forward(self, part_feats: torch.Tensor) -> torch.Tensor:
-        return self._regroup(super().forward(part_feats))
+    def forward(self, part_feats: torch.Tensor, start: int = 0, count: int | None = None) -> torch.Tensor:
+        """`part_feats` holds the crops of parts start .. start+count-1
+        (all 24 by default); the conv takes those parts' slice of the
+        weights and bias (JAX `PartialIUVHead(part_slice=(start, count))`)."""
+        if count is None or count == self.num_parts:
+            return self._regroup(super().forward(part_feats), self.num_parts)
+        oc = 3 * self.part_dim
+        rows = slice(start * oc, (start + count) * oc)
+        out = F.conv2d(part_feats, self.weight[rows], self.bias[rows], padding=self.padding, groups=count)
+        return self._regroup(out, count)
 
     def fused(self, feats_nhwc: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
         """feats_nhwc (B, H, W, C); wy (B, 24, S, H); wx (B, 24, S, W)."""

@@ -4,14 +4,19 @@ Module and attribute names follow the reference checkpoint's state_dict
 (conv1/bn1/conv2/bn2[/conv3/bn3], downsample.{0,1}, blocks of a layer as
 `{i}`), so a released state_dict loads name for name. BatchNorm eps is
 1e-5, as flax's default; in train mode its running variance takes the
-biased batch variance, as flax's does (see `FlaxRunningVar`).
+biased batch variance, as flax's does (see `FlaxRunningVar`), and inside
+`parallel.data_parallel(mesh)` its statistics are the global batch's
+(`GlobalBatchNorm`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from danet_densepose2smpl_tpu_torch.parallel.mesh import active_mesh
 
 BN_EPS = 1e-5
 
@@ -30,13 +35,23 @@ class FlaxRunningVar:
 
     F.batch_norm writes (1-m)*rv + m*var*n/(n-1); handing it rv/k,
     k = (n-1)/n, and keeping k times its result turns that into
-    (1-m)*rv + m*var without another pass over the activations."""
+    (1-m)*rv + m*var without another pass over the activations.
+
+    Inside `parallel.data_parallel(mesh)` of more than one rank, a
+    train-mode forward normalizes with the statistics of the global batch
+    (`GlobalBatchNorm`), as the JAX step's BatchNorm does on a sharded
+    batch, and updates the running statistics with them: the same on every
+    rank. At one rank the global batch is this one, and the forward is the
+    plain one, bit for bit."""
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             if x.dtype != self.weight.dtype and not torch.is_autocast_enabled(x.device.type):
                 return _eval_bn_promoted(self, x)
             return super().forward(x)
+        mesh = active_mesh()
+        if mesh is not None and mesh.size > 1:
+            return self._global_forward(x, mesh.size)
         n = x.numel() // x.shape[1]
         if n < 2:
             raise ValueError(f"BatchNorm in train mode needs more than one value per channel, got {n}")
@@ -49,6 +64,67 @@ class FlaxRunningVar:
             self.running_var.copy_(running_var * k)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x, ranks: int):
+        if (x.numel() // x.shape[1]) * ranks < 2:
+            raise ValueError("BatchNorm in train mode needs more than one value per channel over the global batch")
+        y, mean, var = GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * mean + (1 - m) * self.running_mean)
+            self.running_var.copy_(m * var + (1 - m) * self.running_var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a data-parallel step,
+    each rank holding its rows: (y, mean, biased var), with y in x's dtype
+    and the statistics in at least fp32 (bf16 activations under autocast
+    are reduced in fp32).
+
+    Forward: one all-reduce of the per-channel sums and the row count, then
+    one of the squared deviations from the global mean (two passes, so the
+    variance does not cancel as E[x^2] - E[x]^2 would). Backward: one
+    all-reduce of sum(dy) and sum(dy * xhat), the terms through which every
+    rank's rows reach the global statistics. The gradients of the scale and
+    shift are this rank's own: the step sums them over the ranks with the
+    other parameters' (`parallel.sum_gradients`). Only x is kept for the
+    backward, as cuDNN's BatchNorm keeps it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        sums = torch.cat([x.sum(dims, dtype=acc), x.new_full((1,), x.numel() // x.shape[1], dtype=acc)])
+        dist.all_reduce(sums)
+        count = sums[-1]
+        mean = sums[:-1] / count
+        xc = x.to(acc) - mean.view(shape)
+        var = (xc * xc).sum(dims)
+        dist.all_reduce(var)
+        var = var / count
+        invstd = torch.rsqrt(var + eps)
+        y = xc * (invstd * weight.to(acc)).view(shape) + bias.to(acc).view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        g = gy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean.view(shape)) * invstd.view(shape)
+        c = mean.numel()
+        local = torch.cat([g.sum(dims), (g * xhat).sum(dims)])
+        grad_bias, grad_weight = local[:c].clone(), local[c:].clone()
+        dist.all_reduce(local)
+        mean_g, mean_gx = local[:c] / count, local[c:] / count
+        gx = (g - mean_g.view(shape) - xhat * mean_gx.view(shape)) * (invstd * weight.to(mean.dtype)).view(shape)
+        return gx.to(x.dtype), grad_weight.to(weight.dtype), grad_bias.to(weight.dtype), None
 
 
 def _eval_bn_promoted(m, x):

@@ -19,6 +19,16 @@ normalized on the model's device, in fp32 and outside autocast
 `record_function` ranges (train.ingest, .prepare_targets, .forward,
 .losses, .backward, .optimizer) for `torch.profiler`; outside a profile
 they cost a few microseconds a step.
+
+With `mesh` (`parallel.make_mesh`) the step is data-parallel, as the JAX
+step with `mesh=` (a GSPMD `jit`, the single-device step on the global
+batch): the batch holds this rank's rows of the global batch
+(`parallel.shard_batch`), the forward and the losses run inside
+`parallel.data_parallel(mesh)` (global BatchNorm statistics, the global
+batch's noise, each loss this rank's share of the global one), the ranks'
+gradients are summed (one all-reduce per dtype) before the optimizer, and
+the metrics are the global losses, the same on every rank. Parameters
+start equal on every rank (`parallel.replicate`) and stay equal.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from torch.profiler import record_function
 from danet_densepose2smpl_tpu_torch.config import Config
 from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess_train
 from danet_densepose2smpl_tpu_torch.models.danet import GT_MODES
+from danet_densepose2smpl_tpu_torch.parallel.mesh import Mesh, data_parallel, sum_gradients
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.train.objective import compute_losses
 from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
@@ -106,7 +117,7 @@ def _to_fp32(tree):
 
 
 def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, renderer=None,
-                    pretrain_mode: bool = False, is_itw: bool = False) -> Callable:
+                    pretrain_mode: bool = False, is_itw: bool = False, mesh: Mesh | None = None) -> Callable:
     """Build step(state, batch, generator) -> (state, metrics).
 
     `smpl` holds numpy arrays (moved to the model's device at first use) or
@@ -118,7 +129,9 @@ def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, render
     (`uv_image_gt`) and the GT SMPL keypoints (`target_smpl_kps`); a batch
     without the render (a step built without a renderer) raises. In
     `pretrain_mode` the regressor does not run; its parameters still take
-    an optimizer step with zero gradients, as optax applies one."""
+    an optimizer step with zero gradients, as optax applies one. With
+    `mesh`, the step is data-parallel (see the module docstring) and
+    `batch` holds this rank's rows."""
     schedule = make_lr_schedule(cfg)
     mixed = cfg.danet.compute_dtype == "bfloat16"
     mode = cfg.danet.input_mode
@@ -150,23 +163,30 @@ def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, render
         opt.zero_grad(set_to_none=True)
         autocast = (torch.autocast(device.type, dtype=torch.bfloat16) if mixed
                     else contextlib.nullcontext())
-        with record_function("train.forward"), autocast:
-            out = net(batch["img"], pretrain_mode=pretrain_mode, generator=generator, **gt)
-        with record_function("train.losses"):
-            total, losses = compute_losses(
-                cfg.danet, smpl_t, _to_fp32(out), batch, pretrain_mode=pretrain_mode,
-                openpose_weight=cfg.train.openpose_train_weight, gt_weight=cfg.train.gt_train_weight)
-        with record_function("train.backward"):
-            total.backward()
+        with data_parallel(mesh) if mesh is not None else contextlib.nullcontext():
+            with record_function("train.forward"), autocast:
+                out = net(batch["img"], pretrain_mode=pretrain_mode, generator=generator, **gt)
+            with record_function("train.losses"):
+                total, losses = compute_losses(
+                    cfg.danet, smpl_t, _to_fp32(out), batch, pretrain_mode=pretrain_mode,
+                    openpose_weight=cfg.train.openpose_train_weight, gt_weight=cfg.train.gt_train_weight)
+            with record_function("train.backward"):
+                total.backward()
         with record_function("train.optimizer"):
             for group in opt.param_groups:
                 group["lr"] = schedule(state.step)
                 for p in group["params"]:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                sum_gradients([p for group in opt.param_groups for p in group["params"]], mesh)
             opt.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss_total"] = total.detach()
+        if mesh is not None:   # the shares -> the global losses
+            values = torch.stack(list(metrics.values()))
+            torch.distributed.all_reduce(values)
+            metrics = dict(zip(metrics, values.unbind()))
         state.step += 1
         return state, metrics
 

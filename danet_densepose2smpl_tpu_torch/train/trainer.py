@@ -15,6 +15,15 @@ The step's noise (STN jitter, PartDrop) comes from a `torch.Generator` on
 the model's device seeded from (train.seed + 1, step), as the JAX step
 folds the step into its key: a resumed run draws the same noise with no
 generator state in the checkpoint.
+
+With `mesh` (`parallel.make_mesh`; `cli.train --data_parallel`) the run is
+data-parallel: `train.batch_size` is the global batch; each rank's loader
+assembles only its rows of each global batch (bit for bit those of the
+single-process loader), the model starts from rank 0's weights
+(`parallel.replicate`) and steps through the data-parallel train step.
+Every rank restores the same checkpoint; only rank 0 writes checkpoints,
+metrics, vis PNGs and the summary lines. The time budget is checked
+collectively, so all ranks stop at the same step.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from danet_densepose2smpl_tpu_torch.config import Config
 from danet_densepose2smpl_tpu_torch.core.checkpoint import CheckpointManager, MetricLogger, ResumePoint
 from danet_densepose2smpl_tpu_torch.data.loader import PrefetchLoader, ResumableLoader
 from danet_densepose2smpl_tpu_torch.models.danet import GT_MODES, DaNet
+from danet_densepose2smpl_tpu_torch.parallel.mesh import replicate
 from danet_densepose2smpl_tpu_torch.serve import random_init_
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.train.fits_dict import FitsDict
@@ -60,21 +70,21 @@ class Trainer:
         mesh=None,
         time_to_run: float | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training (mesh=) is not ported to PyTorch yet (ROADMAP.md queue 1, item 19)")
         self.cfg = cfg
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0   # the rank that writes
         self.dataset = dataset
         self.smpl = smpl
         self.renderer = renderer
         self.fits = fits
         self.workdir = workdir
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.time_to_run = time_to_run
         self.start_time = time.time()
         self._vis_smpl = {}               # dtype -> the SMPL tables on the device, for the vis step
 
-        self.loader = ResumableLoader(dataset, cfg.train.batch_size, seed=cfg.train.seed)
+        rows = None if mesh is None else mesh.rows(cfg.train.batch_size)
+        self.loader = ResumableLoader(dataset, cfg.train.batch_size, seed=cfg.train.seed, rows=rows)
         if cfg.train.prefetch_workers != 0:
             workers = None if cfg.train.prefetch_workers < 0 else cfg.train.prefetch_workers
             self.loader = PrefetchLoader(self.loader, workers=workers)
@@ -83,21 +93,39 @@ class Trainer:
         self.state: TrainState = create_train_state(
             model.to(self.device, memory_format=torch.channels_last), cfg)
         is_itw = cfg.train.train_data == "h36m_coco_itw"
-        common = dict(renderer=renderer, is_itw=is_itw)
+        common = dict(renderer=renderer, is_itw=is_itw, mesh=mesh)
         self.step_pretrain = make_train_step(self.state.model, smpl, cfg, pretrain_mode=True, **common)
         self.step_full = make_train_step(self.state.model, smpl, cfg, pretrain_mode=False, **common)
 
         self.ckpt = CheckpointManager(f"{workdir}/checkpoints")
-        self.logger = MetricLogger(f"{workdir}/metrics.jsonl")
+        self.logger = MetricLogger(f"{workdir}/metrics.jsonl") if self.lead else None
         self.resume = ResumePoint(0, 0, 0)
 
         restored = self.ckpt.restore(self.state)
         if restored is not None:
             self.state, self.resume = restored
-            print(f"resumed from step {self.resume.step} (epoch {self.resume.epoch}, batch {self.resume.batch_idx})")
+            self._print(f"resumed from step {self.resume.step} (epoch {self.resume.epoch}, "
+                        f"batch {self.resume.batch_idx})")
+        elif mesh is not None:
+            replicate(self.state.model, mesh)
+
+    def _print(self, line: str) -> None:
+        if self.lead:
+            print(line)
+
+    def _save(self, resume: ResumePoint) -> None:
+        if self.lead:
+            self.ckpt.save(self.state, resume)
 
     def _out_of_time(self) -> bool:
-        return self.time_to_run is not None and (time.time() - self.start_time) > self.time_to_run
+        if self.time_to_run is None:
+            return False
+        late = (time.time() - self.start_time) > self.time_to_run
+        if self.mesh is None:
+            return late
+        flag = torch.tensor([float(late)], device=self.device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+        return bool(flag.item())
 
     def _device_batch(self, batch: dict) -> dict:
         names = batch.pop("dataset_name", ["" for _ in range(len(batch["sample_index"]))])
@@ -136,7 +164,7 @@ class Trainer:
                 step_count += 1
                 window_steps += 1
 
-                if step_count % cfg.train.summary_steps == 0:
+                if self.lead and step_count % cfg.train.summary_steps == 0:
                     # the read (one copy to the host, which waits for every
                     # step queued in this window) comes BEFORE the clock
                     names = list(metrics)
@@ -153,9 +181,9 @@ class Trainer:
                     window_steps = 0
 
                 if step_count % cfg.train.checkpoint_steps == 0:
-                    self.ckpt.save(self.state, ResumePoint(epoch, b_idx + 1, step_count))
+                    self._save(ResumePoint(epoch, b_idx + 1, step_count))
 
-                if cfg.train.vis_interval and step_count % cfg.train.vis_interval == 0:
+                if self.lead and cfg.train.vis_interval and step_count % cfg.train.vis_interval == 0:
                     if cfg.danet.input_mode in GT_MODES:
                         # the vis forward runs the eval model, which has no
                         # GT render to take (JAX's vis fails there, and its
@@ -166,11 +194,11 @@ class Trainer:
                         self._save_vis(batch, step_count)
 
                 if self._out_of_time():
-                    print("time budget exceeded; checkpointing and exiting")
-                    self.ckpt.save(self.state, ResumePoint(epoch, b_idx + 1, step_count))
+                    self._print("time budget exceeded; checkpointing and exiting")
+                    self._save(ResumePoint(epoch, b_idx + 1, step_count))
                     return self.state
 
-        self.ckpt.save(self.state, ResumePoint(epochs, 0, step_count))
+        self._save(ResumePoint(epochs, 0, step_count))
         return self.state
 
     @torch.no_grad()

@@ -1,9 +1,9 @@
 """The port's training CLI on the CPU: `python -m
 danet_densepose2smpl_tpu_torch.cli.train --cpu --synthetic-data` end to end
 at 64 px (metrics, config.json, a checkpoint; a second run on the same
-directory resumes) without JAX in the process; the options that are not
-ported raise and name their ROADMAP items; without a card and without
---cpu the CLI raises; and `cli/common.py`'s asset loading, strict load of
+directory resumes) without JAX in the process; --remat, which is not
+ported, raises and names its ROADMAP entry; without a card and without
+--cpu the CLI raises, --data_parallel too; and `cli/common.py`'s asset loading, strict load of
 a reference checkpoint and restore of the trainer's checkpoints.
 
 Checkpoints of the full W48 model are ~1.2 GB, so each test removes its
@@ -74,14 +74,17 @@ def test_cli_train_end_to_end_and_resume(workdir):
     assert CheckpointManager(os.path.join(run, "checkpoints")).steps() == [2, 4]
 
 
-@pytest.mark.parametrize("flag,message", [
-    (["--data_parallel"], "item 19"),
-    (["--remat"], "item 13"),
+@pytest.mark.parametrize("flag,error,message", [
+    (["--data_parallel"], RuntimeError, "no CUDA device"),
+    (["--cpu", "--remat"], NotImplementedError, "Deliberately not ported"),
 ], ids=["data_parallel", "remat"])
-def test_cli_unported_options_raise(flag, message, workdir, monkeypatch):
+def test_cli_unported_options_raise(flag, error, message, workdir, monkeypatch):
+    """--remat is deliberately not ported and raises. --data_parallel is
+    ported (`tests/test_torch_parallel.py` runs it): without --cpu and
+    without a card its mesh raises, as the CLI does."""
     monkeypatch.setattr("tempfile.tempdir", str(workdir))
-    with pytest.raises(NotImplementedError, match=message):
-        cli_train.main(["--cpu", *FIXTURE, "--log_dir", str(workdir), *flag])
+    with pytest.raises(error, match=message):
+        cli_train.main([*FIXTURE, "--log_dir", str(workdir), *flag])
 
 
 def test_cli_train_device_preprocess_and_resume(workdir, monkeypatch):

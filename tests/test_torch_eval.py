@@ -37,6 +37,7 @@ from danet_densepose2smpl_tpu_torch.data.transforms import get_transform, uncrop
 from danet_densepose2smpl_tpu_torch.eval import harness, metrics
 from danet_densepose2smpl_tpu_torch.eval.lsp import run_lsp_eval
 from danet_densepose2smpl_tpu_torch.ops import procrustes
+from danet_densepose2smpl_tpu_torch.parallel import Mesh
 from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
 
 from test_torch_config import jax_cfg
@@ -209,15 +210,21 @@ def test_run_pose_eval_per_action_matches_jax(x64_mode, capsys):
 
 
 def test_unported_eval_options_raise():
-    """mesh= (data-parallel eval, item 19) raises. device_preprocess
+    """mesh= (data-parallel eval, item 19) is ported
+    (`tests/test_torch_parallel.py`): a batch its ranks do not divide
+    raises before any collective. device_preprocess
     (item 16) is ported: it needs the device the crop runs on, and then
     the step takes raw uint8 frames with their centres and scales and
     hands the model normalized 224 px crops (`tests/test_torch_ingest.py`
     holds its results against JAX's)."""
-    with pytest.raises(NotImplementedError, match="item 19"):
-        harness.run_pose_eval(None, [], "h36m-p1", synthetic_smpl_model(NV), None, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 19"):
-        harness.make_eval_step(None, None, None, None, None, False, mesh=object())
+    two = Mesh(0, 2, torch.device("cpu"), "gloo")
+    odd = list(enumerate(_pose_batches(1, 3, 3)))
+    with pytest.raises(ValueError, match="does not divide over 2 ranks"):
+        harness.run_pose_eval(None, odd, "h36m-p1", synthetic_smpl_model(NV), np.zeros((17, NV)), mesh=two)
+    step = harness.make_eval_step(None, synthetic_smpl_model(NV), np.zeros((17, NV)), np.arange(14), np.arange(14),
+                                  False, mesh=two)
+    with pytest.raises(ValueError, match="does not divide over 2 ranks"):
+        step(*(odd[0][1][k] for k in ("img", "pose", "betas", "gender", "pose_3d")))
     with pytest.raises(ValueError, match="device="):
         harness.run_pose_eval(None, [], "h36m-p1", synthetic_smpl_model(NV), None, device_preprocess=True)
     with pytest.raises(ValueError, match="device="):

@@ -118,10 +118,11 @@ def test_unported_configs_raise():
     # the other backbone and regressors are ported (tests/test_torch_archs.py)
     for kw in ({"iuv_regressor": "resnet"}, {"refine_strategy": "lstm"}, {"decomposed": False}):
         DaNet(DaNetConfig(**kw))
-    # train mode is ported; its memory options are not
-    for kw in ({"part_head_chunks": 4}, {"remat_backbone": True}):
-        with pytest.raises(NotImplementedError, match="train mode"):
-            DaNet(DaNetConfig(**kw)).train()
+    # train mode is ported, the chunked crop + head too (tests/test_torch_chunks.py);
+    # backbone rematerialization deliberately is not
+    assert DaNet(DaNetConfig(part_head_chunks=4)).train().training
+    with pytest.raises(NotImplementedError, match="train mode"):
+        DaNet(DaNetConfig(remat_backbone=True)).train()
     assert DaNet(DaNetConfig()).train().training
 
 
@@ -129,8 +130,8 @@ def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port (serve, train, data, eval, the
     kernels, the training entry point with its ingest, loaders, trainer
     and checkpoints, the eval entry points, the COCO harness, the ingest
-    on the card, the demo, the training visualization and the offline
-    preprocessing included) from a directory that holds the port alone
+    on the card, the demo, the training visualization, the offline
+    preprocessing and the data-parallel mesh included) from a directory that holds the port alone
     works, and leaves jax, flax, optax, the JAX package, cv2 and
     matplotlib out of sys.modules."""
     (tmp_path / "danet_densepose2smpl_tpu_torch").symlink_to(REPO / "danet_densepose2smpl_tpu_torch")
@@ -147,6 +148,7 @@ def test_port_imports_no_jax(tmp_path):
         "import danet_densepose2smpl_tpu_torch.data.pipeline, danet_densepose2smpl_tpu_torch.eval.coco_harness\n"
         "import danet_densepose2smpl_tpu_torch.cli.demo, danet_densepose2smpl_tpu_torch.cli.preprocess\n"
         "import danet_densepose2smpl_tpu_torch.utils.vis, danet_densepose2smpl_tpu_torch.data.preprocess\n"
+        "import danet_densepose2smpl_tpu_torch.parallel, danet_densepose2smpl_tpu_torch.parallel.mesh\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"

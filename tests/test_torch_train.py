@@ -177,9 +177,10 @@ def test_train_mode_needs_noise_source_and_config_gates():
     model = DaNet(DaNetConfig(img_size=SIZE, heatmap_size=SIZE // 4)).train()
     with pytest.raises(ValueError, match="torch.Generator"):
         model(torch.zeros(1, SIZE, SIZE, 3))
-    for kw in ({"remat_backbone": True}, {"part_head_chunks": 4}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            DaNet(DaNetConfig(**kw)).train()
+    # the chunked crop + head trains (tests/test_torch_chunks.py); rematerialization is not ported
+    assert DaNet(DaNetConfig(part_head_chunks=4)).train().training
+    with pytest.raises(NotImplementedError, match="remat_backbone"):
+        DaNet(DaNetConfig(remat_backbone=True)).train()
 
 
 def test_train_forward_with_injected_noise_matches_jax(x64_mode, monkeypatch):

@@ -25,6 +25,7 @@ from danet_densepose2smpl_tpu_torch.data.dataset import NpzDataset
 from danet_densepose2smpl_tpu_torch.data.image_io import read_png
 from danet_densepose2smpl_tpu_torch.data.synthetic import write_synthetic_dataset
 from danet_densepose2smpl_tpu_torch.kernels.rasterizer import IUVRenderer
+from danet_densepose2smpl_tpu_torch.parallel import Mesh
 from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import synthetic_densepose_atlas
 from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
 from danet_densepose2smpl_tpu_torch.train.fits_dict import FitsDict
@@ -185,9 +186,13 @@ def test_step_generator_is_a_function_of_seed_and_step():
 
 
 def test_trainer_refuses_a_mesh(workdir):
+    """A mesh whose ranks do not divide the global batch is refused before
+    any collective (`tests/test_torch_parallel.py` trains on meshes that
+    do)."""
     cfg, ds, smpl, renderer, fits = _setup(workdir, n=2)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        Trainer(cfg, ds, smpl, renderer, fits, str(workdir / "w"), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="does not divide over 3 ranks"):
+        Trainer(cfg, ds, smpl, renderer, fits, str(workdir / "w"), device="cpu",
+                mesh=Mesh(0, 3, torch.device("cpu"), "gloo"))
 
 
 def _f64(tree):
