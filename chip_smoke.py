@@ -9,8 +9,10 @@ training step), the eval path, the training CLI and the eval CLIs on the
 card, then the demo, the training visualization and the offline
 preprocessing, then the other architectures (the ResNet-50 backbone,
 whose 256 channels K1 takes in chunks, the other refinements, the
-GlobalPredictor and the HMR baseline), the input-mode ablations, and last
-the chunked crop + head in training and data parallel. The synthetic raw batches get 2D
+GlobalPredictor and the HMR baseline), the input-mode ablations, the
+chunked crop + head in training and data parallel, and last backbone
+rematerialisation, the padded HRNet, the checkpoint preflight, the native
+RLE codec and the profiling module. The synthetic raw batches get 2D
 keypoints that their poses explain (`posed_keypoints`), so the fitted
 cameras frame body-sized silhouettes. In phases:
 
@@ -218,6 +220,32 @@ cameras frame body-sized silhouettes. In phases:
      against one rank. f64 bars: losses rtol 1e-9, gradients 1e-9 of each
      tensor's largest entry (+1e-12), BatchNorm statistics rtol 1e-9, atol
      1e-10.
+ 15. the last refusals: (a) backbone rematerialisation: the culled bf16
+     step at B=128 (default config, closed atlas) without remat and under
+     `remat_scope` 'backbone', 'modules' and 'early' (a warm-up and 2 timed
+     steps each: ms/step, peak GiB, K4 once a step, the CUDA RNG state
+     untouched), one B=384 step under 'modules' (finite losses, peak GiB),
+     the f64 step (W48, 64 px, B=4, noise on) under each scope against no
+     remat on the card (phase 14's bars, `num_batches_tracked` equal), two
+     gloo ranks on cuda:0 with 'modules' against one process without
+     remat, as phase 14 (c), and `cli.train --remat` in-process (4 steps,
+     B=64, bf16); (b) the padded HRNet (`hrnet_pad_channels`): K1 at C=64
+     against its plain version, bilinear and dense weights (B=64 bf16
+     within 2e-2 of max|ref|, B=16 fp32 within 1e-4 with TF32 off, B=2 f64
+     within 1e-10), its time at B=64 bf16 by CUDA events in turns beside
+     the plain version and the unfused route, its launch alone (weights
+     packed once) in the library's channel chunk and forced into chunks
+     of 32, and its bound;
+     the padded DaNet f64 B=2 on the card against the CPU (para atol 1e-6,
+     rtol 1e-9), 8 bf16 requests of B=64 padded and W48 in turns (imgs/s,
+     K1 once each), one culled bf16 B=64 step (ms, peak GiB); (c)
+     `cli.port --check` on a synthetic reference .pt (GO, then NO-GO with
+     a key dropped), the host ms to decode a B=64 batch's DensePose masks
+     with the C++ codec and with numpy (bit-equal), and
+     `utils.profiling.trace` around one request in a process of its own
+     (device kernels and the annotated range in its Chrome trace; late in
+     this process, after phase 14, the profiler recorded no device
+     events).
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
@@ -236,8 +264,10 @@ C=256: its launches on the ResNet-50 serving path and (a)'s numbers) with
 `rasterize_flat_masked` (c), and `input_mode_cli_launches` to
 `rasterize_flat` (e); phase 14 adds `b128_cli_launches` and
 `dp_cli_launches` to `rasterize_flat` (a), (b), and
-`b128_chunks_launches` and `dp_launches` to `rasterize_flat_masked`), and
-`{"ok": true, "device": {...}}`.
+`b128_chunks_launches` and `dp_launches` to `rasterize_flat_masked`;
+phase 15 adds `pad` to `part_crop_head` (K1 at C=64: its launches on the
+padded serving path and (b)'s numbers) and `remat_launches` to
+`rasterize_flat_masked` (a)), and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -1846,15 +1876,17 @@ def phase12_archs(dev, card) -> dict:
     return out
 
 
-def k1_launch(args, s):
+def k1_launch(args, s, chunk=None):
     """A function that launches the bf16 K1 kernel alone on `args` (the
-    wrapper's checks, chunk query and weight packing done once, here)."""
+    wrapper's checks, chunk query and weight packing done once, here),
+    in channel chunks of `chunk` if given (else the library's choice);
+    its output buffer is `.out`."""
     from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import bf16_chunk, load_library, pack_head_weights
 
     feats, wy, wx, kernel, bias = args
     b, h, w, c = feats.shape
     k, o = wy.shape[1], kernel.shape[-1] // wy.shape[1]
-    chunk = bf16_chunk(h, w, c, s, o)
+    chunk = chunk or bf16_chunk(h, w, c, s, o)
     wpack = pack_head_weights(kernel, k, chunk)
     out = torch.empty((b, k, s, s, o), dtype=feats.dtype, device=feats.device)
     lib = load_library()[0]
@@ -1865,6 +1897,7 @@ def k1_launch(args, s):
                                       torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"K1 launch: cudaError {err}")
 
+    launch.out = out
     return launch
 
 
@@ -2373,6 +2406,7 @@ def f64_step(cfg, raw, smpl, renderer, base, device, mesh=None, gen_seed=None) -
             "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
             "stats": {n: b.detach().cpu() for n, b in model.named_buffers()
                       if n.endswith(("running_mean", "running_var"))},
+            "tracked": {n: b.item() for n, b in model.named_buffers() if n.endswith("num_batches_tracked")},
             "launches": counts}
 
 
@@ -2414,10 +2448,11 @@ def dp_eval_case(device, mesh=None):
     return mpjpe.cpu(), pa.cpu(), para.cpu()
 
 
-def dp_case():
+def dp_case(**cfg_kw):
     """Phase 14 (c)'s global batch: W48 f64 at 64 px, default PartDrop and
-    STN jitter, 8 rows whose masks differ between the two ranks' halves."""
-    case = f64_case(DP_GLOBAL_BATCH, seed=30)
+    STN jitter (and `cfg_kw`), 8 rows whose masks differ between the two
+    ranks' halves."""
+    case = f64_case(DP_GLOBAL_BATCH, seed=30, **cfg_kw)
     raw = case[1]
     raw["has_smpl"] = np.array([1, 1, 1, 1, 1, 0, 0, 1], np.float32)
     raw["has_dp"] = np.array([0, 1, 0, 0, 1, 1, 0, 1], np.float32)
@@ -2426,11 +2461,11 @@ def dp_case():
     return case
 
 
-def phase14_rank(rank: int, world: int, port: int, out_dir: str, device: str) -> None:
+def phase14_rank(rank: int, world: int, port: int, out_dir: str, device: str, cfg_kw: dict | None = None) -> None:
     """Phase 14 (c), one rank: a process on `device` (cuda:0 for every rank)
     in a gloo process group (the environment torchrun would give it), the
-    data-parallel f64 step on its rows of `dp_case()` and the data-parallel
-    eval."""
+    data-parallel f64 step on its rows of `dp_case(**cfg_kw)` and the
+    data-parallel eval."""
     from danet_densepose2smpl_tpu_torch.parallel import make_mesh
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="localhost",
@@ -2438,7 +2473,7 @@ def phase14_rank(rank: int, world: int, port: int, out_dir: str, device: str) ->
     dev = torch.device(device)
     mesh = make_mesh(dev, backend="gloo")
     try:
-        out = f64_step(*dp_case(), dev, mesh=mesh, gen_seed=7)
+        out = f64_step(*dp_case(**(cfg_kw or {})), dev, mesh=mesh, gen_seed=7)
         out["eval"] = dp_eval_case(dev, mesh)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -2458,6 +2493,31 @@ def timed_steps(step, state, batches, gen, dev) -> tuple[float, float, list]:
     return dt / (len(batches) - 1) * 1e3, torch.cuda.max_memory_allocated(dev) / 2**30, metrics
 
 
+def cli_train_run(dev, card, root: str, name: str, argv: list, steps: int, label: str):
+    """`cli.train.main(argv)` in-process under `root/name`, the launch
+    counts zeroed just before it and read just after: `steps` metric rows,
+    every value finite, one raster a step and no K1, a checkpoint at the
+    last step. Returns (trainer, counts, imgs/s by window)."""
+    from danet_densepose2smpl_tpu_torch.cli import train as cli_train
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer, counts = launch_counts(lambda: cli_train.main(argv + ["--name", name, "--log_dir", root]))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, name, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check(trainer.state.step == steps and len(rows) == steps, f"{name}: {len(rows)} rows in {steps} steps")
+    check(all(np.isfinite(v) for r in rows for v in r.values()), f"{name}: every logged value finite")
+    check(counts["rasterize_flat"] + counts["rasterize_flat_masked"] == steps and counts["part_crop_head"] == 0,
+          f"{name}: launches {counts} in {steps} steps")
+    check(os.path.isfile(os.path.join(root, name, "checkpoints", f"ckpt_{steps:09d}.pt")), f"{name}: checkpoint")
+    rates = [r["imgs_per_sec"] for r in rows]
+    print(f"{label}: cli.train {' '.join(argv)}: {steps} steps in {wall!r} s of command; loss_total "
+          f"{[r['loss_total'] for r in rows]}; imgs/s by window {rates}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30!r} GiB; launches {counts}; card {card}")
+    return trainer, counts, rates
+
+
 def phase14_chunks_dp(dev, card) -> dict:
     """The last two modules (see the module docstring, phase 14): the
     chunked crop + head in training (`configs/danet_tpu_b128.yaml`) and
@@ -2468,7 +2528,6 @@ def phase14_chunks_dp(dev, card) -> dict:
 
     import torch.multiprocessing as mp
 
-    from danet_densepose2smpl_tpu_torch.cli import train as cli_train
     from danet_densepose2smpl_tpu_torch.config import load_config
     from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
     from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
@@ -2486,22 +2545,7 @@ def phase14_chunks_dp(dev, card) -> dict:
     saved_tempdir, tempfile.tempdir = tempfile.tempdir, root     # the CLI writes its dataset there
 
     def cli_run(name, argv, steps, batch):
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        trainer, counts = launch_counts(lambda: cli_train.main(argv + ["--name", name, "--log_dir", root]))
-        wall = time.perf_counter() - t0
-        with open(os.path.join(root, name, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        check(trainer.state.step == steps and len(rows) == steps, f"{name}: {len(rows)} rows in {steps} steps")
-        check(all(np.isfinite(v) for r in rows for v in r.values()), f"{name}: every logged value finite")
-        check(counts["rasterize_flat"] + counts["rasterize_flat_masked"] == steps and counts["part_crop_head"] == 0,
-              f"{name}: launches {counts} in {steps} steps")
-        check(os.path.isfile(os.path.join(root, name, "checkpoints", f"ckpt_{steps:09d}.pt")), f"{name}: checkpoint")
-        rates = [r["imgs_per_sec"] for r in rows]
-        print(f"phase 14: cli.train {' '.join(argv)}: {steps} steps in {wall!r} s of command; loss_total "
-              f"{[r['loss_total'] for r in rows]}; imgs/s by window {rates}; peak "
-              f"{torch.cuda.max_memory_allocated(dev) / 2**30!r} GiB; launches {counts}; card {card}")
-        return trainer, counts, rates
+        return cli_train_run(dev, card, root, name, argv, steps, "phase 14")
 
     try:
         # (a) the chunked crop + head: cli.train on the repo's B=128 config,
@@ -2650,6 +2694,397 @@ def phase14_chunks_dp(dev, card) -> dict:
         torch.cuda.empty_cache()
 
 
+REMAT_SCOPES = (None, "backbone", "modules", "early")
+REMAT_BATCH, REMAT_BIG_BATCH = 128, 384
+PAD_BATCH, PAD_REQUESTS = 64, 8
+DP_MASK_BATCH = 64
+
+
+def phase15_remat_pad(dev, card) -> dict:
+    """The last refusals (see the module docstring, phase 15): backbone
+    rematerialisation, the padded HRNet (K1 at C=64), and the checkpoint
+    preflight, the native RLE codec and the profiling module."""
+    import shutil
+    import tempfile
+
+    root = os.path.join(REPO, "build", "chip_smoke_remat_pad")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, root     # the CLI writes its dataset there
+    try:
+        out = {"remat": phase15_remat(dev, card, root)}
+        out["k1"] = phase15_k1_pad(dev, card)
+        out["pad"] = phase15_pad_models(dev, card)
+        out["small"] = phase15_small_modules(dev, card, root)
+        return out
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase15_remat(dev, card, root: str) -> dict:
+    """(a): the culled bf16 B=128 step under each remat scope, one B=384
+    step under 'modules', the f64 step per scope against no remat, two gloo
+    ranks with 'modules' against one process, `cli.train --remat`."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from danet_densepose2smpl_tpu_torch.config import load_config
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import closed_synthetic_atlas
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device, create_train_state, make_train_step
+
+    out = {}
+    smpl = synthetic_smpl_model()
+    atlas, template = closed_synthetic_atlas(smpl.num_verts)
+    renderer = R.IUVRenderer(atlas, 224, 56, cull_verts=template)
+
+    def remat_cfg(scope):
+        over = {"danet.compute_dtype": "bfloat16"}
+        if scope is not None:
+            over.update({"danet.remat_backbone": True, "danet.remat_scope": scope})
+        return load_config(None, overrides=over)
+
+    def batches(cfg, b, n, seed):
+        return [batch_to_device(posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, b, seed=seed + i), seed=seed + 50 + i),
+                                dev) for i in range(n)]
+
+    # the culled bf16 B=128 step without remat and under each scope
+    data = batches(remat_cfg(None), REMAT_BATCH, 3, seed=100)
+    out["b128"] = {}
+    for scope in REMAT_SCOPES:
+        cfg = remat_cfg(scope)
+        model = random_init_(DaNet(cfg.danet), seed=0).to(dev, memory_format=torch.channels_last)
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, smpl, cfg, renderer=renderer)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rng = torch.cuda.get_rng_state(dev)
+        (ms, peak, metrics), counts = launch_counts(lambda: timed_steps(step, state, data, gen, dev))
+        check(torch.equal(torch.cuda.get_rng_state(dev), rng), f"remat {scope}: the CUDA RNG is untouched")
+        check(all(bool(torch.isfinite(v)) for m in metrics for v in m.values()), f"remat {scope}: finite")
+        check(counts["rasterize_flat_masked"] == 3 and counts["part_crop_head"] == 0,
+              f"remat {scope}: launches {counts} in 3 steps")
+        print(f"phase 15: (a) culled bf16 step, B={REMAT_BATCH}, remat {scope or 'none'}: {ms!r} ms/step (2 steps "
+              f"after a warm-up, host clock, ends in synchronize), peak {peak!r} GiB; loss_total "
+              f"{[m['loss_total'].item() for m in metrics]}; launches {counts} (warm-up included); card {card}")
+        out["b128"][scope or "none"] = {"ms_per_step": ms, "peak_gib": peak, "launches": counts}
+        del model, state, step, metrics
+        torch.cuda.empty_cache()
+    del data
+
+    # one bf16 B=384 step under 'modules'
+    cfg = remat_cfg("modules")
+    big = batches(cfg, REMAT_BIG_BATCH, 1, seed=200)[0]
+    model = random_init_(DaNet(cfg.danet), seed=0).to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, smpl, cfg, renderer=renderer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    (_, metrics), counts = launch_counts(lambda: step(state, big, torch.Generator(device=dev).manual_seed(0)))
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()), "B=384 'modules' step: finite losses")
+    check(counts["rasterize_flat_masked"] == 1, f"B=384 step: launches {counts}")
+    print(f"phase 15: (a) culled bf16 step, B={REMAT_BIG_BATCH}, remat 'modules': one step {dt * 1e3!r} ms (the "
+          f"first at this batch, host clock), peak {peak!r} GiB; loss_total {metrics['loss_total'].item()!r}; "
+          f"launches {counts}; card {card}")
+    out["b384"] = {"ms": dt * 1e3, "peak_gib": peak, "launches": counts}
+    del model, state, step, big, metrics
+    torch.cuda.empty_cache()
+
+    # the f64 step under each scope against no remat, on the card
+    plain = f64_step(*f64_case(4, seed=60), dev, gen_seed=7)
+    out["f64"] = {}
+    for scope in REMAT_SCOPES[1:]:
+        got = f64_step(*f64_case(4, seed=60, remat_backbone=True, remat_scope=scope), dev, gen_seed=7)
+        err = f64_errors(got, plain)
+        same_stats = all(torch.equal(got["stats"][n], b) for n, b in plain["stats"].items())
+        print(f"phase 15: (a) f64 step W48 64 px B=4 (noise on), remat {scope} vs none on the card: worst error / "
+              f"bar {err}; BatchNorm statistics bit-equal {same_stats}; num_batches_tracked equal "
+              f"{got['tracked'] == plain['tracked']}; launches {got['launches']}")
+        check(max(err.values()) <= 1, f"f64 remat {scope} step bars")
+        check(got["tracked"] == plain["tracked"] and set(plain["tracked"].values()) == {1},
+              f"remat {scope}: each BatchNorm counted one batch")
+        check(got["launches"]["rasterize_flat_masked"] == 1, f"f64 remat {scope}: {got['launches']}")
+        out["f64"][scope] = {"err": err, "stats_bit_equal": same_stats}
+
+    # two gloo ranks on cuda:0 under 'modules' against one process without remat
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    remat_kw = {"remat_backbone": True, "remat_scope": "modules"}
+    ctx = mp.spawn(phase14_rank, args=(DP_RANKS, port, root, str(dev), remat_kw), nprocs=DP_RANKS, join=False)
+    try:
+        single = f64_step(*dp_case(), dev, gen_seed=7)
+        deadline = time.monotonic() + 400
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, "the two ranks finished within 400 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(DP_RANKS)]
+    errs = [f64_errors(r, single) for r in ranks]
+    equal = all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in single["params"])
+    print(f"phase 15: (a) {DP_RANKS} gloo ranks on cuda:0 with remat 'modules', f64 W48 64 px, global "
+          f"B={DP_GLOBAL_BATCH} (noise on) vs one process without remat: worst error / bar by rank {errs}; parameters "
+          f"bit-equal across ranks {equal}; num_batches_tracked equal "
+          f"{all(r['tracked'] == single['tracked'] for r in ranks)}; launches by rank "
+          f"{[r['launches'] for r in ranks]}; {time.perf_counter() - t0:.1f} s")
+    check(all(max(e.values()) <= 1 for e in errs), "two-rank remat f64 step vs one process")
+    check(equal and all(r["tracked"] == single["tracked"] for r in ranks), "the ranks agree")
+    check(all(r["launches"]["rasterize_flat_masked"] == 1 for r in ranks), "K4 once per rank per step")
+    out["two_ranks"] = {"errs": errs, "launches": [r["launches"] for r in ranks]}
+
+    # cli.train --remat in-process
+    steps = 4
+    argv = ["--remat", "--synthetic-data", "--num_samples", str(steps * TRAIN_BATCH), "--batch_size", str(TRAIN_BATCH),
+            "--bf16", "--pretr_step", "1", "--num_epochs", "1", "--summary_steps", "1", "--vis_interval", "0"]
+    trainer, counts, rates = cli_train_run(dev, card, root, "remat", argv, steps, "phase 15: (a)")
+    check(trainer.cfg.danet.remat_backbone and trainer.cfg.danet.remat_scope == "backbone",
+          f"cli.train --remat: {trainer.cfg.danet}")
+    out["cli"] = {"launches": counts, "imgs_per_sec": rates}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase15_k1_pad(dev, card) -> dict:
+    """(b): K1 at the padded HRNet's width (56x56x64) against its plain
+    version, and its time at B=64 bf16 beside the plain version and the
+    unfused route."""
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
+        bf16_chunk,
+        fused_part_predict,
+        part_crop_head_plain,
+    )
+    from danet_densepose2smpl_tpu_torch.nn.iuv_head import PartialIUVHead
+    from danet_densepose2smpl_tpu_torch.ops.imwarp import separable_crop_concat
+
+    c = 64
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for name, b, tol_rel in (("bfloat16", PAD_BATCH, 2e-2), ("float32", 16, None), ("float64", 2, None)):
+        dt = getattr(torch, name)
+        for dense in (False, True):
+            args = k1_inputs(b, 56, 56, c, 56, dt, dev, seed=4, dense=dense)
+            got = fused_part_predict(*args, 56)
+            torch.cuda.synchronize()
+            ref = part_crop_head_plain(*args, 56)
+            err, ref_max = (got.double() - ref.double()).abs().max().item(), ref.double().abs().max().item()
+            tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 1e-10}[name]
+            weights = "dense" if dense else "bilinear"
+            chunk = f", bf16 chunk {bf16_chunk(56, 56, c, 56, 21)}" if name == "bfloat16" else ""
+            print(f"phase 15: (b) K1 {name} B={b} 56x56x{c} S=56 O=21 {weights} weights: max abs err {err!r} "
+                  f"(max|ref| {ref_max!r}, tolerance {tol!r}{chunk})")
+            check(got.shape == (b, 24, 56, 56, 21) and bool(torch.isfinite(got).all()), f"K1 {name} C={c}: shape")
+            check(err <= tol, f"K1 {name} C={c} {weights}: {err} > {tol}")
+            if (name, dense) == ("bfloat16", False):
+                k1_err = err
+            del got, ref, args
+    args, centers, scales = k1_inputs(PAD_BATCH, 56, 56, c, 56, torch.bfloat16, dev, seed=2, boxes=True)
+    feats, _, _, kernel, bias = args
+    head = PartialIUVHead(c).to(dev, torch.bfloat16, memory_format=torch.channels_last)
+    head.weight.data.copy_(kernel.permute(3, 2, 0, 1))
+    head.bias.data.copy_(bias)
+    crops = separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)
+    calls = {
+        "kernel": lambda: fused_part_predict(*args, 56),
+        "plain": lambda: part_crop_head_plain(*args, 56),
+        "unfused": lambda: head(separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)),
+        "unfused conv": lambda: head(crops),
+    }
+    # a yardstick: the same call forced into two channel chunks of 32 (the
+    # chunked kernel C=256 runs), held to the plain version as well
+    launches = {"library chunk": k1_launch(args, 56), "chunks of 32": k1_launch(args, 56, chunk=32)}
+    times = {k: [] for k in [*calls, *launches]}
+    with torch.no_grad():
+        for name in ("plain", "kernel", "unfused", "unfused conv", "unfused conv", "unfused", "kernel", "plain"):
+            times[name].append(cuda_ms(calls[name], 5 if name == "plain" else 20))
+        for name in ("library chunk", "chunks of 32", "chunks of 32", "library chunk"):
+            times[name].append(cuda_ms(launches[name], 20))
+        ref = calls["plain"]().double()
+    err32, ref_max = (launches["chunks of 32"].out.double() - ref).abs().max().item(), ref.abs().max().item()
+    check(err32 <= 2e-2 * ref_max, f"K1 C={c} in chunks of 32: {err32} > {2e-2 * ref_max}")
+    bound_ms, bound_by = k1_bound(args, 56)
+    ms = {k: min(v) for k, v in times.items()}
+    alone = ms["library chunk"]
+    print(f"phase 15: (b) K1 B={PAD_BATCH} bf16 56x56x{c} (CUDA events, mean of 20 calls, plain 5, in turns; TF32 "
+          f"off): kernel {times['kernel']} ms, plain {times['plain']} ms, unfused route {times['unfused']} ms, its "
+          f"conv alone {times['unfused conv']} ms; the kernel alone (its launch on weights packed once, CUDA events, "
+          f"mean of 20) {times['library chunk']} ms (chunk {bf16_chunk(56, 56, c, 56, 21)}), forced into "
+          f"chunks of 32 {times['chunks of 32']} ms (max abs err {err32!r}); bound {bound_ms!r} ms ({bound_by}); "
+          f"card {card}")
+    del args, feats, kernel, bias, head, crops, calls, launches, ref
+    torch.cuda.empty_cache()
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "unfused_ms": ms["unfused"],
+            "unfused_conv_ms": ms["unfused conv"], "launch_ms": alone, "chunk32_ms": ms["chunks of 32"],
+            "device_ms": alone, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": k1_err,
+            "chunk": bf16_chunk(56, 56, c, 56, 21)}
+
+
+def phase15_pad_models(dev, card) -> dict:
+    """(b): the padded DaNet: f64 serving card vs CPU, bf16 requests beside
+    W48 in turns, one culled bf16 step."""
+    from danet_densepose2smpl_tpu_torch.config import Config, DaNetConfig
+    from danet_densepose2smpl_tpu_torch.data.synthetic import synthetic_raw_batch
+    from danet_densepose2smpl_tpu_torch.kernels import rasterizer as R
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import Predictor, random_init_
+    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import closed_synthetic_atlas
+    from danet_densepose2smpl_tpu_torch.smpl.loader import synthetic_smpl_model
+    from danet_densepose2smpl_tpu_torch.train.step import batch_to_device, create_train_state, make_train_step
+
+    out = {}
+    pad = DaNetConfig(hrnet_pad_channels=True)
+    # f64 serving: card vs CPU
+    model = random_init_(DaNet(pad), seed=3).double()
+    x = torch.from_numpy(np.random.RandomState(21).rand(2, 224, 224, 3))
+    with torch.no_grad():
+        ref = model(x)["para"]
+        model = model.to(dev)
+        got, counts = launch_counts(lambda: model(x.to(dev))["para"].cpu())
+    err = (got - ref).abs().max().item()
+    print(f"phase 15: (b) padded DaNet f64 B=2 224 px, card vs CPU: para max abs err {err!r}; launches {counts}")
+    check(torch.allclose(got, ref, atol=1e-6, rtol=1e-9), f"padded f64 serving: {err}")
+    check(counts["part_crop_head"] == 1, f"padded f64 serving: K1 once ({counts})")
+    del model
+    torch.cuda.empty_cache()
+
+    # bf16 requests, padded and W48 in turns
+    images = torch.from_numpy(np.random.RandomState(22).rand(PAD_BATCH, 224, 224, 3).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    predictors = {"padded": Predictor(dev, torch.bfloat16, cfg=pad, seed=0),
+                  "w48": Predictor(dev, torch.bfloat16, seed=0)}
+    rates, launches = {k: [] for k in predictors}, {}
+    for p in predictors.values():
+        p.predict(images)      # warm-up
+    for name in ("padded", "w48", "w48", "padded"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, counts = launch_counts(lambda: [predictors[name].predict(images) for _ in range(PAD_REQUESTS)])
+        dt = time.perf_counter() - t0
+        check(all(o["para"].shape == (PAD_BATCH, 229) and bool(torch.isfinite(o["vertices"]).all()) for o in outs),
+              f"{name} requests: shapes, finite")
+        check(counts["part_crop_head"] == PAD_REQUESTS, f"{name}: K1 once a request ({counts})")
+        rates[name].append(PAD_BATCH * PAD_REQUESTS / dt)
+        launches[name] = counts["part_crop_head"]
+    print(f"phase 15: (b) {PAD_REQUESTS} bf16 requests of B={PAD_BATCH}, padded vs W48 in turns (imgs/s, host clock, "
+          f"ends in synchronize): {rates}; K1 launches {launches}; card {card}")
+    out["serve"] = {"imgs_per_sec": rates, "launches": launches}
+    del predictors, images, outs
+    torch.cuda.empty_cache()
+
+    # one culled bf16 B=64 step of the padded model
+    cfg = Config(danet=DaNetConfig(hrnet_pad_channels=True, compute_dtype="bfloat16"))
+    smpl = synthetic_smpl_model()
+    atlas, template = closed_synthetic_atlas(smpl.num_verts)
+    renderer = R.IUVRenderer(atlas, 224, 56, cull_verts=template)
+    data = [batch_to_device(posed_keypoints(cfg, smpl, synthetic_raw_batch(cfg, PAD_BATCH, seed=300 + i),
+                                            seed=350 + i), dev) for i in range(3)]
+    model = random_init_(DaNet(cfg.danet), seed=0).to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, smpl, cfg, renderer=renderer)
+    (ms, peak, metrics), counts = launch_counts(
+        lambda: timed_steps(step, state, data, torch.Generator(device=dev).manual_seed(0), dev))
+    check(all(bool(torch.isfinite(v)) for m in metrics for v in m.values()), "padded step: finite")
+    check(counts["rasterize_flat_masked"] == 3, f"padded step: launches {counts}")
+    print(f"phase 15: (b) culled bf16 step of the padded DaNet, B={PAD_BATCH}: {ms!r} ms/step (2 steps after a "
+          f"warm-up), peak {peak!r} GiB; launches {counts}; card {card}")
+    out["step"] = {"ms_per_step": ms, "peak_gib": peak, "launches": counts}
+    del model, state, step, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase15_small_modules(dev, card, root: str) -> dict:
+    """(c): `cli.port --check` GO and NO-GO, the native RLE decode of a
+    batch's DensePose masks against numpy, `utils.profiling.trace` around
+    one request."""
+    from danet_densepose2smpl_tpu_torch.cli import port as cli_port
+    from danet_densepose2smpl_tpu_torch.data import rle
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import random_init_
+
+    out = {}
+    # the preflight on a synthetic reference .pt: intact, then a key dropped
+    sd = {"module." + k: v for k, v in random_init_(DaNet(), seed=0).state_dict().items()}
+    pt = os.path.join(root, "ckpt.pt")
+    torch.save({"model": sd}, pt)
+    t0 = time.perf_counter()
+    go = cli_port.main(["--check", pt, "--limit", "3"])
+    go_s = time.perf_counter() - t0
+    del sd["module.img2iuv.iuv_est.final_pred.predict_u.weight"]
+    torch.save({"model": sd}, pt)
+    nogo = cli_port.main(["--check", pt, "--limit", "3"])
+    print(f"phase 15: (c) cli.port --check: exit {go} on the intact file ({go_s:.2f} s), {nogo} with a key dropped")
+    check((go, nogo) == (0, 1), f"cli.port verdicts {go}, {nogo}")
+    out["port"] = {"go": go, "nogo": nogo}
+
+    # DensePose masks of a batch: the C++ codec against numpy
+    rng = np.random.RandomState(7)
+    yy, xx = np.mgrid[:256, :256]
+    anns = []
+    for a in range(DP_MASK_BATCH):
+        parts = []
+        for p in range(14):
+            cy, cx, r = rng.randint(40, 216), rng.randint(40, 216), rng.randint(8, 60)
+            enc = rle.encode_rle(((yy - cy) ** 2 + (xx - cx) ** 2 < r * r).astype(np.uint8))
+            parts.append(enc if (a + p) % 3 else {"size": enc["size"],
+                                                   "counts": rle.compress_counts(enc["counts"]).decode()})
+        anns.append(parts)
+    rle.decode_dp_masks(anns[0])       # builds the codec
+    times = {"native": [], "numpy": []}
+    labels = {}
+    for name, fn in (("native", rle.decode_dp_masks), ("numpy", rle.decode_dp_masks_plain)) * 2:
+        t0 = time.perf_counter()
+        labels[name] = [fn(m) for m in anns]
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    same = all(np.array_equal(a, b) for a, b in zip(labels["native"], labels["numpy"]))
+    print(f"phase 15: (c) decode_dp_masks of a B={DP_MASK_BATCH} batch (14 parts each; host ms, in turns): native "
+          f"{times['native']}, numpy {times['numpy']}; bit-equal {same}")
+    check(same, "native dp_masks decode equals numpy")
+    out["rle_ms"] = times
+
+    # a traced request, in a process of its own: late in this script's
+    # process (after phase 14's NCCL group and spawned ranks) the profiler
+    # recorded no device events (PERF.md §7)
+    log_dir = os.path.join(root, "trace")
+    code = ("import numpy as np, torch\n"
+            "from danet_densepose2smpl_tpu_torch.serve import Predictor\n"
+            "from danet_densepose2smpl_tpu_torch.utils.profiling import annotate, trace\n"
+            f"dev = torch.device({str(dev)!r})\n"
+            "predictor = Predictor(dev, torch.bfloat16, seed=0)\n"
+            f"images = torch.from_numpy(np.random.RandomState(23).rand({PAD_BATCH}, 224, 224, 3)"
+            ".astype(np.float32)).to(dev, torch.bfloat16)\n"
+            "predictor.predict(images)\n"
+            f"with trace({log_dir!r}):\n"
+            "    with annotate('chip_smoke.request'):\n"
+            "        predictor.predict(images)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"the traced request: {proc.stderr[-3000:]}")
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ranges = [e for e in events if e.get("name") == "chip_smoke.request"]
+    kernel_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    print(f"phase 15: (c) utils.profiling.trace of one B={PAD_BATCH} request (a process of its own, "
+          f"{time.perf_counter() - t0:.1f} s): {len(events)} events, {len(kernels)} device kernels ({kernel_ms!r} ms), "
+          f"the annotated range {len(ranges)} time(s); {os.path.getsize(os.path.join(log_dir, 'trace.json'))} bytes")
+    check(kernels and ranges, "the trace holds device kernels and the annotated range")
+    out["trace_kernels"] = len(kernels)
+    return out
+
+
 def main():
     k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
@@ -2676,6 +3111,7 @@ def main():
     archs = timed(12, lambda: phase12_archs(dev, card))
     modes = timed(13, lambda: phase13_input_modes(dev, card))
     last = timed(14, lambda: phase14_chunks_dp(dev, card))
+    final = timed(15, lambda: phase15_remat_pad(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                 "launches": k1_launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, "
                 f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
@@ -2736,6 +3172,14 @@ def main():
             k["dp_launches"] = {
                 "one_nccl_rank_f64": last["world1_f64"]["launches"]["rasterize_flat_masked"],
                 "two_gloo_ranks_f64": [n["rasterize_flat_masked"] for n in last["two_ranks"]["launches"]]}
+    for k in kernels:
+        if k["name"] == "part_crop_head":                         # phase 15 (b): K1 at C=64
+            k["pad"] = {"launches": final["pad"]["serve"]["launches"]["padded"], "path": f"serving the padded "
+                        f"HRNet: Predictor.predict, bf16, B={PAD_BATCH}, {PAD_REQUESTS} requests", "C": 64,
+                        **final["k1"], "library_ms": None}
+        if k["name"] == "rasterize_flat_masked":                  # phase 15 (a): 3 steps per scope
+            k["remat_launches"] = {scope: v["launches"]["rasterize_flat_masked"]
+                                   for scope, v in final["remat"]["b128"].items()}
     print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

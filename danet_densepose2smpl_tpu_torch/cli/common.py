@@ -95,15 +95,21 @@ def load_assets(args):
     return smpl, atlas, jreg, mean, gendered.get("male", smpl), gendered.get("female", smpl)
 
 
-def load_reference_checkpoint(model: torch.nn.Module, pt_path: str) -> list[str]:
-    """Load a released reference .pt ({'model': state_dict}, DataParallel
-    'module.' prefixes stripped) into `model`, whose names are the
-    reference's. Raises when a key of the model is missing from the file;
-    returns the file's keys the model does not have."""
+def read_reference_checkpoint(pt_path: str) -> dict:
+    """The state_dict of a released reference .pt ({'model': state_dict}
+    unwrapped, DataParallel 'module.' prefixes stripped), read on the CPU
+    with `weights_only=True`."""
     ckpt = torch.load(pt_path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt)
-    sd = {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
-    missing, unexpected = model.load_state_dict(sd, strict=False)
+    return {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
+
+
+def load_reference_checkpoint(model: torch.nn.Module, pt_path: str) -> list[str]:
+    """Load a released reference .pt (`read_reference_checkpoint`) into
+    `model`, whose names are the reference's. Raises when a key of the
+    model is missing from the file; returns the file's keys the model does
+    not have."""
+    missing, unexpected = model.load_state_dict(read_reference_checkpoint(pt_path), strict=False)
     if missing:
         raise KeyError(f"{pt_path} lacks {len(missing)} keys of the model, e.g. {missing[:5]}")
     return list(unexpected)

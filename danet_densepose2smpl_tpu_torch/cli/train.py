@@ -69,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     # NB: --bf16 comes from add_common_args; for training it means mixed
     # precision (bf16 forward, fp32 master params/BN stats/losses)
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize the IUV backbone in backward (not ported: raises)")
+                   help="rematerialize the IUV backbone in backward (danet.remat_backbone; the YAML's "
+                        "REMAT_SCOPE picks backbone / modules / early)")
     p.add_argument("--raster_cull", action="store_true",
                    help="backface-cull the GT IUV raster (exact on closed meshes like the real "
                         "SMPL; switches itself off with a warning if the atlas mesh is unorientable)")

@@ -75,12 +75,12 @@ class DaNetConfig:
     # backbone
     msres_num_layers: int = 50       # PoseResNet depth when iuv_regressor='resnet'
     hrnet_width: int = 48
-    hrnet_pad_channels: bool = False  # the JAX package's padded-branch experiment; not ported
+    hrnet_pad_channels: bool = False  # zero-pad the 48/96-ch HRNet branches to 64/128
 
     # numerics
     compute_dtype: str = "float32"   # 'bfloat16': mixed-precision training forward
-    remat_backbone: bool = False     # not ported: the port raises when it is set
-    remat_scope: str = "backbone"    # 'backbone' | 'modules' | 'early' (JAX package only)
+    remat_backbone: bool = False     # recompute the IUV backbone in the backward (train mode)
+    remat_scope: str = "backbone"    # 'backbone' (one checkpoint) | 'modules' (each HRNet module) | 'early' (not stage 4)
     fused_part_head: bool = False    # the port's eval path always runs the K1 kernel
     part_head_chunks: int = 1        # 24 % N == 0; training crops + heads N part chunks in turn
 

@@ -1,6 +1,7 @@
 """DaNet: image -> IUV -> SMPL parameters (port of the JAX
 `models/danet.py::DaNet`), for serving (eval) and training, with either IUV
-backbone (HRNet-W48, PoseResNet), the decomposed regressor under each
+backbone (HRNet-W48, its padded variant, PoseResNet; recomputed in the
+backward under `remat_backbone`), the decomposed regressor under each
 refinement strategy or the GlobalPredictor (`decomposed=False`), in every
 input mode of the JAX package:
 
@@ -48,21 +49,6 @@ from danet_densepose2smpl_tpu_torch.train.objective import part_iuv_gt_crops
 
 # the input modes whose forward takes the GT IUV render
 GT_MODES = ("iuv_gt", "iuv_gt_feat")
-
-
-def check_config(cfg: DaNetConfig) -> None:
-    """Raise for configurations this port does not run."""
-    if cfg.hrnet_pad_channels:
-        raise NotImplementedError(
-            "hrnet_pad_channels is not ported to PyTorch (ROADMAP.md queue 1, 'Deliberately not ported')")
-
-
-def check_train_config(cfg: DaNetConfig) -> None:
-    """Raise for train-mode options this port does not run."""
-    if cfg.remat_backbone:
-        raise NotImplementedError(
-            "remat_backbone=True in train mode is not ported to PyTorch: port activation checkpointing "
-            "only if H100 memory calls for it (ROADMAP.md queue 1, 'Deliberately not ported')")
 
 
 def draw_noise(cfg: DaNetConfig, batch: int, generator: torch.Generator, device) -> dict:
@@ -173,7 +159,6 @@ class DaNet(nn.Module):
     def __init__(self, cfg: DaNetConfig | None = None, mean_params: MeanParams | None = None):
         super().__init__()
         cfg = cfg or DaNetConfig()
-        check_config(cfg)
         self.cfg = cfg
         if cfg.input_mode == "iuv_gt":
             self.img2iuv = OracleSTN()
@@ -185,11 +170,6 @@ class DaNet(nn.Module):
             DecomposedPredictor(cfg, mean_params or default_mean_params(), feat_channels) if cfg.decomposed
             else GlobalPredictor(cfg, feat_channels))
         super().train(False)
-
-    def train(self, mode: bool = True):
-        if mode:
-            check_train_config(self.cfg)
-        return super().train(mode)
 
     def forward(self, image: torch.Tensor, pretrain_mode: bool = False,
                 generator: torch.Generator | None = None, noise: dict | None = None,

@@ -19,6 +19,12 @@ the hand-written kernel (K1), on a CPU tensor its plain version; in train
 mode it is the JAX train path, the separable crop + grouped conv as
 autograd ops (K1 has no backward); with `part_head_chunks` N > 1 they run
 on N chunks of 24/N parts in turn (`chunked_crops_and_head`).
+With `remat_backbone`, a train-mode forward recomputes the backbone in the
+backward (`nn.layers.remat`): per HRNet module under `remat_scope`
+'modules' and 'early' (`PoseHighResolutionNet(remat_modules=)`), else the
+whole backbone in one checkpoint (the ResNet backbone under every scope,
+as in JAX). `hrnet_pad_channels` builds the padded HRNet (64 output
+channels: the heads, K1 and the feature modes' adapters take 64).
 Jitter noise comes in as uniforms in [0, 1) (`noise['center']` (B, 24, 2),
 `noise['scale']` (2, B, 24)), so tests can hand both packages the same
 numbers.
@@ -32,8 +38,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from danet_densepose2smpl_tpu_torch.config import DaNetConfig
-from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES, PoseHighResolutionNet
+from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES, HRNET_W48_STAGES_PADDED, PoseHighResolutionNet
 from danet_densepose2smpl_tpu_torch.nn.iuv_head import IUVPredictHead, nhwc
+from danet_densepose2smpl_tpu_torch.nn.layers import remat
 from danet_densepose2smpl_tpu_torch.nn.resnet import PoseResNet
 from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights, separable_crop, separable_crop_concat
 from danet_densepose2smpl_tpu_torch.ops.keypoints import soft_argmax_2d
@@ -165,8 +172,14 @@ class IUVEstimator(nn.Module):
         if cfg.decomposed:
             self.register_buffer("learned_ratio", torch.as_tensor(LEARNED_RATIO.copy()))
             self.register_buffer("learned_offset", torch.as_tensor(LEARNED_OFFSET.copy()))
+        per_module = cfg.remat_backbone and cfg.iuv_regressor == "hrnet" and cfg.remat_scope in ("modules", "early")
+        # one checkpoint over the whole backbone: 'backbone', and the ResNet
+        # backbone under every scope
+        self.remat_whole = cfg.remat_backbone and not per_module
         if cfg.iuv_regressor == "hrnet":
-            self.iuv_est = PoseHighResolutionNet(HRNET_W48_STAGES)
+            self.iuv_est = PoseHighResolutionNet(
+                HRNET_W48_STAGES_PADDED if cfg.hrnet_pad_channels else HRNET_W48_STAGES,
+                remat_modules=per_module, remat_skip_stages=(4,) if cfg.remat_scope == "early" else ())
         else:
             self.iuv_est = PoseResNet(cfg.msres_num_layers)
         # the reference checkpoint keeps the heads inside the backbone's
@@ -186,7 +199,7 @@ class IUVEstimator(nn.Module):
         part_feats (B, 24, S, S, C). Without `decomposed`, the maps of the
         heads and feats only."""
         c = self.cfg
-        feats = self.iuv_est(image)
+        feats = remat(self.iuv_est, image) if self.remat_whole and self.training else self.iuv_est(image)
         out = self.iuv_est.final_pred(feats)
         # the kernel and the crops take dense NHWC; a free view of the
         # channels_last output

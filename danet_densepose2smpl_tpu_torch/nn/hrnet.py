@@ -6,6 +6,15 @@ highest-resolution branch (48 ch at stride 4 = 56x56 for a 224 input).
 Fusion upsampling is nearest. Names follow the reference checkpoint:
 conv1/bn1/conv2/bn2/layer1, transition{t}.{i}, stage{t}.{m}.branches.{b},
 stage{t}.{m}.fuse_layers.{i}.{j}.
+
+`HRNET_W48_STAGES_PADDED` (`hrnet_pad_channels`) widens the 48/96-channel
+branches to 64/128; a W48 checkpoint zero-padded into it gives the W48
+outputs (the extra channels carry zero weights and stay 0). With
+`remat_modules`, a train-mode forward checkpoints the stem's `layer1` and
+each `HRModule` on its own (`nn.layers.remat`), as the JAX package's
+`remat_scope` 'modules' does, and keeps the activations of the stages in
+`remat_skip_stages` ('early': (4,)); the stem convs and the transitions
+always keep theirs.
 """
 
 from __future__ import annotations
@@ -15,13 +24,20 @@ from typing import Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
-from danet_densepose2smpl_tpu_torch.nn.layers import BasicBlock, BNReLU, Bottleneck, ResLayer, bn, conv
+from danet_densepose2smpl_tpu_torch.nn.layers import BasicBlock, BNReLU, Bottleneck, ResLayer, bn, conv, remat
 
 # (num_modules, num_branches, num_blocks per branch, channels per branch)
 HRNET_W48_STAGES = (
     (1, 2, (4, 4), (48, 96)),
     (4, 3, (4, 4, 4), (48, 96, 192)),
     (3, 4, (4, 4, 4, 4), (48, 96, 192, 384)),
+)
+
+# the JAX package's padded variant: 48 -> 64 and 96 -> 128 channels
+HRNET_W48_STAGES_PADDED = (
+    (1, 2, (4, 4), (64, 128)),
+    (4, 3, (4, 4, 4), (64, 128, 192)),
+    (3, 4, (4, 4, 4, 4), (64, 128, 192, 384)),
 )
 
 
@@ -77,11 +93,15 @@ class PoseHighResolutionNet(nn.Module):
     """HRNet; returns the highest-resolution branch, (B, C0, H/4, W/4).
 
     `stages` takes the JAX package's spec tuples, so tests can build it
-    narrow."""
+    narrow. `remat_modules` and `remat_skip_stages` (stage numbers as in
+    the names, 2-4) act in train mode only."""
 
-    def __init__(self, stages: Sequence = HRNET_W48_STAGES):
+    def __init__(self, stages: Sequence = HRNET_W48_STAGES, remat_modules: bool = False,
+                 remat_skip_stages: Sequence = ()):
         super().__init__()
         self.stages = tuple(stages)
+        self.remat_modules = remat_modules
+        self.remat_skip_stages = tuple(remat_skip_stages)
         self.conv1 = conv(3, 64, 3, 2)
         self.bn1 = bn(64)
         self.conv2 = conv(64, 64, 3, 2)
@@ -111,13 +131,18 @@ class PoseHighResolutionNet(nn.Module):
         self.out_channels = self.stages[-1][3][0]
 
     def forward(self, x):
+        per_module = self.remat_modules and self.training
+
+        def run(block, stage, inputs):
+            return remat(block, inputs) if per_module and stage not in self.remat_skip_stages else block(inputs)
+
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
-        xs = [self.layer1(x)]
+        xs = [run(self.layer1, 1, x)]
         for s_idx, (_, num_branches, _, _) in enumerate(self.stages):
             t = s_idx + 1
             trans = getattr(self, f"transition{t}")
             xs = [trans[i](xs[i] if i < len(xs) else xs[-1]) for i in range(num_branches)]
             for module in getattr(self, f"stage{t + 1}"):
-                xs = module(xs)
+                xs = run(module, t + 1, xs)
         return xs[0]

@@ -6,19 +6,62 @@ Module and attribute names follow the reference checkpoint's state_dict
 1e-5, as flax's default; in train mode its running variance takes the
 biased batch variance, as flax's does (see `FlaxRunningVar`), and inside
 `parallel.data_parallel(mesh)` its statistics are the global batch's
-(`GlobalBatchNorm`).
+(`GlobalBatchNorm`). `remat` runs a block under activation
+checkpointing; a BatchNorm that its backward recomputes leaves its
+running statistics alone.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn as nn
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from danet_densepose2smpl_tpu_torch.parallel.mesh import active_mesh
+from danet_densepose2smpl_tpu_torch.parallel.mesh import active_mesh, data_parallel
 
 BN_EPS = 1e-5
+
+
+class _RecomputeFlag(threading.local):
+    active = False
+
+
+_RECOMPUTE = _RecomputeFlag()
+
+
+@contextlib.contextmanager
+def _recomputing(mesh):
+    """The context of a recompute: BatchNorm updates no statistics, and the
+    forward's data-parallel mesh is active again (the backward of CUDA
+    tensors runs on autograd's device threads, which do not see the
+    forward's context)."""
+    prev, _RECOMPUTE.active = _RECOMPUTE.active, True
+    try:
+        with data_parallel(mesh) if mesh is not None else contextlib.nullcontext():
+            yield
+    finally:
+        _RECOMPUTE.active = prev
+
+
+def remat(fn, *args):
+    """fn(*args) with its activations freed after the forward and computed
+    again in the backward (`torch.utils.checkpoint`, non-reentrant: `fn`
+    may take lists of tensors, and the autocast state of the forward is
+    replayed). Train-mode BatchNorm inside `fn` updates its running
+    statistics once, in the forward, as flax's `nn.remat` keeps only the
+    first forward's `batch_stats`; the recompute normalizes with the batch
+    statistics alone. The blocks given here draw no random numbers (the
+    step's noise comes from `draw_noise`, outside them), so no RNG state is
+    saved per checkpoint (`preserve_rng_state=False`: no CUDA RNG-state
+    copy per call)."""
+    mesh = active_mesh()
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recomputing(mesh)))
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1,
@@ -42,7 +85,11 @@ class FlaxRunningVar:
     (`GlobalBatchNorm`), as the JAX step's BatchNorm does on a sharded
     batch, and updates the running statistics with them: the same on every
     rank. At one rank the global batch is this one, and the forward is the
-    plain one, bit for bit."""
+    plain one, bit for bit.
+
+    Under `remat`'s recompute the forward is the same computation and
+    leaves `running_mean`, `running_var` and `num_batches_tracked` as they
+    are."""
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
@@ -58,17 +105,23 @@ class FlaxRunningVar:
         k = (n - 1) / n
         # a scaled copy: autograd may save the tensor F.batch_norm updates
         running_var = self.running_var / k
-        y = F.batch_norm(x, self.running_mean, running_var, self.weight, self.bias,
+        recompute = _RECOMPUTE.active
+        # a recompute updates a copy of the mean, which is dropped
+        running_mean = self.running_mean.clone() if recompute else self.running_mean
+        y = F.batch_norm(x, running_mean, running_var, self.weight, self.bias,
                          True, self.momentum, self.eps)
-        with torch.no_grad():
-            self.running_var.copy_(running_var * k)
-            self.num_batches_tracked.add_(1)
+        if not recompute:
+            with torch.no_grad():
+                self.running_var.copy_(running_var * k)
+                self.num_batches_tracked.add_(1)
         return y
 
     def _global_forward(self, x, ranks: int):
         if (x.numel() // x.shape[1]) * ranks < 2:
             raise ValueError("BatchNorm in train mode needs more than one value per channel over the global batch")
         y, mean, var = GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        if _RECOMPUTE.active:
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * mean + (1 - m) * self.running_mean)

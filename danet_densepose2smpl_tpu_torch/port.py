@@ -27,6 +27,21 @@ The block-level rule functions are public so tests can convert single
 blocks. Each rule is (torch_key, flax_path, transform) with flax_path
 starting at 'params' or 'batch_stats'; a rule that gathers several leaves
 into one tensor has a list of paths, and its transform takes the list.
+The padded HRNet (`hrnet_pad_channels`) has the same names as W48; only
+the shapes differ.
+
+The checkpoint preflight (`preflight_report`, `format_report`,
+`expected_shapes`; `cli/port.py`) goes or stops a released reference .pt
+before any weights are loaded, with the categories of the JAX package's
+`port/preflight.py`. The expected keys and shapes are the port's own
+model's, built on the meta device: its modules carry the reference names,
+so no rule map stands between them. One difference from the JAX
+package's manifest is by design: a bidirectional LSTM of the 'lstm' and
+'lstm_direct' refiners keeps `bias_ih_l0[_reverse]` and
+`bias_hh_l0[_reverse]`, as the reference and `torch.nn.LSTM` do, where the
+JAX manifest has their sum `bias_l0[_reverse]` (its `fuse_lstm_biases`).
+A file that lacks one of the pair is NO-GO for both: missing here,
+unmapped and missing there.
 """
 
 from __future__ import annotations
@@ -35,7 +50,7 @@ import numpy as np
 import torch
 
 from danet_densepose2smpl_tpu_torch.config import DaNetConfig
-from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES
+from danet_densepose2smpl_tpu_torch.nn.hrnet import HRNET_W48_STAGES, HRNET_W48_STAGES_PADDED
 
 
 def _conv_w(w):
@@ -302,7 +317,8 @@ def danet_rules(cfg: DaNetConfig) -> list:
                 ("img2iuv.learned_offset", ("params", "img2iuv", "stn_offset"), None),
             ]
         if cfg.iuv_regressor == "hrnet":
-            rules += hrnet_rules(HRNET_W48_STAGES, "img2iuv.iuv_est", ("img2iuv", "backbone"))
+            stages = HRNET_W48_STAGES_PADDED if cfg.hrnet_pad_channels else HRNET_W48_STAGES
+            rules += hrnet_rules(stages, "img2iuv.iuv_est", ("img2iuv", "backbone"))
         else:
             rules += pose_resnet_rules("img2iuv.iuv_est", ("img2iuv", "backbone"), cfg.msres_num_layers)
         rules += iuv_head_rules("img2iuv.iuv_est.final_pred", ("img2iuv", "iuv_head"))
@@ -358,3 +374,81 @@ def state_dict_from_flax(variables: dict, cfg: DaNetConfig) -> dict:
 def hmr_state_dict_from_flax(variables: dict) -> dict:
     """The port's HMR state_dict from the JAX HMR's variables."""
     return convert(variables, hmr_rules())
+
+
+# keys a released checkpoint carries that no weight of the model takes:
+# BatchNorm step counters, the frozen SMPL buffers (the reference strips
+# them on save), HMR's mean-parameter buffers
+_IGNORABLE = ("num_batches_tracked", "iuv2smpl.smpl.", ".smpl.", "init_pose", "init_shape", "init_cam")
+
+
+def _is_ignorable(key: str) -> bool:
+    return any(p in key for p in _IGNORABLE)
+
+
+def preflight_model(cfg: DaNetConfig, regressor: str = "danet") -> torch.nn.Module:
+    """The model a checkpoint for `cfg` (or the HMR baseline) must fill,
+    on the meta device: shapes, no storage."""
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.nn.hmr import HMR
+
+    with torch.device("meta"):
+        return HMR() if regressor == "hmr" else DaNet(cfg)
+
+
+def expected_shapes(model: torch.nn.Module) -> dict:
+    """Torch key -> shape of every tensor a reference checkpoint must carry
+    for `model` (its state_dict but the ignorable keys)."""
+    return {k: tuple(v.shape) for k, v in model.state_dict().items() if not _is_ignorable(k)}
+
+
+def preflight_report(torch_sd: dict, expected: dict) -> dict:
+    """Diff a state_dict ('module.' already stripped) against
+    `expected_shapes`, collecting every problem: expected keys the file
+    lacks (missing), tensors of the wrong shape, keys the file carries
+    that the model does not take (unmapped, apart from the ignorable ones),
+    and the model's tensors nothing fills (unfilled: the missing and
+    mis-shaped ones). `ok` is the go / no-go."""
+    missing = sorted(k for k in expected if k not in torch_sd)
+    mismatches, filled = [], set()
+    for k, want in expected.items():
+        if k not in torch_sd:
+            continue
+        got = tuple(np.shape(torch_sd[k]))
+        if got == tuple(want):
+            filled.add(k)
+        else:
+            mismatches.append({"torch_key": k, "got": list(got), "want": list(want)})
+    unmapped = [k for k in torch_sd if k not in expected]
+    report = {
+        "n_torch_keys": len(torch_sd),
+        "n_expected": len(expected),
+        "missing_torch_keys": missing,
+        "shape_mismatches": mismatches,
+        "unmapped_torch_keys": sorted(k for k in unmapped if not _is_ignorable(k)),
+        "unmapped_ignorable": sorted(k for k in unmapped if _is_ignorable(k)),
+        "unfilled_tensors": sorted(k for k in expected if k not in filled),
+    }
+    report["ok"] = not (missing or mismatches or report["unmapped_torch_keys"] or report["unfilled_tensors"])
+    return report
+
+
+def format_report(report: dict, limit: int = 12) -> str:
+    """The go / no-go of `preflight_report` as text."""
+    lines = [f"checkpoint: {report['n_torch_keys']} torch tensors, {report['n_expected']} expected"]
+
+    def section(title, items, render=str):
+        lines.append(f"  {title}: {len(items)}")
+        lines.extend(f"    - {render(it)}" for it in items[:limit])
+        if len(items) > limit:
+            lines.append(f"    ... and {len(items) - limit} more")
+
+    section("missing torch keys (model expects, file lacks)", report["missing_torch_keys"])
+    section("shape mismatches", report["shape_mismatches"],
+            lambda m: f"{m['torch_key']}: got {m['got']}, want {m['want']}")
+    section("unmapped torch keys (file carries, model does not take)", report["unmapped_torch_keys"])
+    section("unfilled model tensors", report["unfilled_tensors"])
+    lines.append(f"  ignorable unmapped (BN counters / frozen SMPL buffers): {len(report['unmapped_ignorable'])}")
+    lines.append("PREFLIGHT: GO — checkpoint ports cleanly" if report["ok"]
+                 else "PREFLIGHT: NO-GO — fix the items above before evaluating")
+    return "\n".join(lines)

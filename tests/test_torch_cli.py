@@ -1,9 +1,8 @@
 """The port's training CLI on the CPU: `python -m
 danet_densepose2smpl_tpu_torch.cli.train --cpu --synthetic-data` end to end
 at 64 px (metrics, config.json, a checkpoint; a second run on the same
-directory resumes) without JAX in the process; --remat, which is not
-ported, raises and names its ROADMAP entry; without a card and without
---cpu the CLI raises, --data_parallel too; and `cli/common.py`'s asset loading, strict load of
+directory resumes) without JAX in the process; --remat trains; without a
+card and without --cpu the CLI raises, --data_parallel too; and `cli/common.py`'s asset loading, strict load of
 a reference checkpoint and restore of the trainer's checkpoints.
 
 Checkpoints of the full W48 model are ~1.2 GB, so each test removes its
@@ -76,15 +75,24 @@ def test_cli_train_end_to_end_and_resume(workdir):
 
 @pytest.mark.parametrize("flag,error,message", [
     (["--data_parallel"], RuntimeError, "no CUDA device"),
-    (["--cpu", "--remat"], NotImplementedError, "Deliberately not ported"),
+    (["--cpu", "--remat", "--num_epochs", "1", "--cfg", os.path.join(REPO, "configs", "danet_tiny_test.yaml")],
+     None, None),
 ], ids=["data_parallel", "remat"])
 def test_cli_unported_options_raise(flag, error, message, workdir, monkeypatch):
-    """--remat is deliberately not ported and raises. --data_parallel is
-    ported (`tests/test_torch_parallel.py` runs it): without --cpu and
-    without a card its mesh raises, as the CLI does."""
+    """Both options once raised; both are ported. --remat sets
+    `danet.remat_backbone` and trains, here the ResNet-18 config (a small
+    checkpoint; `tests/test_torch_remat.py` holds the step to the one
+    without). --data_parallel runs in
+    `tests/test_torch_parallel.py`: without --cpu and without a card its
+    mesh raises, as the CLI does."""
     monkeypatch.setattr("tempfile.tempdir", str(workdir))
+    argv = [*FIXTURE, "--log_dir", str(workdir), *flag]
+    if error is None:
+        trainer = cli_train.main(argv)
+        assert trainer.cfg.danet.remat_backbone and trainer.state.step == 2
+        return
     with pytest.raises(error, match=message):
-        cli_train.main([*FIXTURE, "--log_dir", str(workdir), *flag])
+        cli_train.main(argv)
 
 
 def test_cli_train_device_preprocess_and_resume(workdir, monkeypatch):

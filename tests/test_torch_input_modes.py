@@ -251,17 +251,16 @@ def test_oracle_weight_names_round_trip():
 def test_adapters_sized_by_mode(mode):
     """The regressor's adapters take the mode's channels (backbone width
     C = 48): body 75 / 75 + C / C / 25, limb 21 / 21 + C / C / 7; the
-    GlobalPredictor's adapter the body's; `check_config` raises only for
-    `hrnet_pad_channels`."""
-    c = 48
-    body, limb = {"iuv_gt": (75, 21), "iuv_feat": (75 + c, 21 + c), "iuv_gt_feat": (75 + c, 21 + c),
-                  "feat": (c, c), "seg": (25, 7)}[mode]
-    reg = DaNet(DaNetConfig(input_mode=mode)).iuv2smpl.smpl_para_Outs
-    assert (reg.body_net[0].in_channels, reg.limb_net[0].in_channels) == (body, limb)
-    glob = DaNet(DaNetConfig(input_mode=mode, decomposed=False)).iuv2smpl.smpl_para_Outs
-    assert glob.Conv1x1BNRelu_0[0].in_channels == body
-    with pytest.raises(NotImplementedError, match="hrnet_pad_channels"):
-        DaNet(DaNetConfig(input_mode=mode, hrnet_pad_channels=True))
+    GlobalPredictor's adapter the body's; with `hrnet_pad_channels` the
+    backbone is 64 channels wide, and the feature modes' adapters take C =
+    64 ('iuv_gt' has no backbone)."""
+    for pad, c in ((False, 48), (True, 64)):
+        body, limb = {"iuv_gt": (75, 21), "iuv_feat": (75 + c, 21 + c), "iuv_gt_feat": (75 + c, 21 + c),
+                      "feat": (c, c), "seg": (25, 7)}[mode]
+        reg = DaNet(DaNetConfig(input_mode=mode, hrnet_pad_channels=pad)).iuv2smpl.smpl_para_Outs
+        assert (reg.body_net[0].in_channels, reg.limb_net[0].in_channels) == (body, limb)
+        glob = DaNet(DaNetConfig(input_mode=mode, decomposed=False, hrnet_pad_channels=pad)).iuv2smpl.smpl_para_Outs
+        assert glob.Conv1x1BNRelu_0[0].in_channels == body
 
 
 @pytest.mark.parametrize("mode", GT_MODES)

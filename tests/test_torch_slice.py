@@ -113,16 +113,21 @@ def test_predictor_on_cpu_never_launches_the_kernel(flax_variables):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DaNet(DaNetConfig(hrnet_pad_channels=True))
+    """Every configuration of the JAX package builds; those that once
+    raised here build their own topology: the padded HRNet (64 output
+    channels into the heads; tests/test_torch_pad.py) and backbone
+    rematerialisation in train mode (tests/test_torch_remat.py)."""
+    padded = DaNet(DaNetConfig(hrnet_pad_channels=True))
+    assert padded.img2iuv.iuv_est.out_channels == 64
+    assert padded.img2iuv.iuv_est.final_pred.predict_partial_iuv.weight.shape[1] == 64
     # the other backbone and regressors are ported (tests/test_torch_archs.py)
     for kw in ({"iuv_regressor": "resnet"}, {"refine_strategy": "lstm"}, {"decomposed": False}):
         DaNet(DaNetConfig(**kw))
-    # train mode is ported, the chunked crop + head too (tests/test_torch_chunks.py);
-    # backbone rematerialization deliberately is not
+    # train mode is ported, the chunked crop + head too (tests/test_torch_chunks.py)
     assert DaNet(DaNetConfig(part_head_chunks=4)).train().training
-    with pytest.raises(NotImplementedError, match="train mode"):
-        DaNet(DaNetConfig(remat_backbone=True)).train()
+    for scope in ("backbone", "modules", "early"):
+        model = DaNet(DaNetConfig(remat_backbone=True, remat_scope=scope)).train()
+        assert model.training and model.img2iuv.iuv_est.remat_modules == (scope != "backbone")
     assert DaNet(DaNetConfig()).train().training
 
 
@@ -131,7 +136,8 @@ def test_port_imports_no_jax(tmp_path):
     kernels, the training entry point with its ingest, loaders, trainer
     and checkpoints, the eval entry points, the COCO harness, the ingest
     on the card, the demo, the training visualization, the offline
-    preprocessing and the data-parallel mesh included) from a directory that holds the port alone
+    preprocessing, the data-parallel mesh, the checkpoint preflight and
+    the profiling module included) from a directory that holds the port alone
     works, and leaves jax, flax, optax, the JAX package, cv2 and
     matplotlib out of sys.modules."""
     (tmp_path / "danet_densepose2smpl_tpu_torch").symlink_to(REPO / "danet_densepose2smpl_tpu_torch")
@@ -149,6 +155,7 @@ def test_port_imports_no_jax(tmp_path):
         "import danet_densepose2smpl_tpu_torch.cli.demo, danet_densepose2smpl_tpu_torch.cli.preprocess\n"
         "import danet_densepose2smpl_tpu_torch.utils.vis, danet_densepose2smpl_tpu_torch.data.preprocess\n"
         "import danet_densepose2smpl_tpu_torch.parallel, danet_densepose2smpl_tpu_torch.parallel.mesh\n"
+        "import danet_densepose2smpl_tpu_torch.cli.port, danet_densepose2smpl_tpu_torch.utils.profiling\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -177,10 +177,14 @@ def test_train_mode_needs_noise_source_and_config_gates():
     model = DaNet(DaNetConfig(img_size=SIZE, heatmap_size=SIZE // 4)).train()
     with pytest.raises(ValueError, match="torch.Generator"):
         model(torch.zeros(1, SIZE, SIZE, 3))
-    # the chunked crop + head trains (tests/test_torch_chunks.py); rematerialization is not ported
+    # the chunked crop + head trains (tests/test_torch_chunks.py), backbone
+    # rematerialisation too (tests/test_torch_remat.py)
     assert DaNet(DaNetConfig(part_head_chunks=4)).train().training
-    with pytest.raises(NotImplementedError, match="remat_backbone"):
-        DaNet(DaNetConfig(remat_backbone=True)).train()
+    remat = DaNet(DaNetConfig(img_size=SIZE, heatmap_size=SIZE // 4, remat_backbone=True,
+                              remat_scope="early")).train()
+    assert remat.training and remat.img2iuv.iuv_est.remat_skip_stages == (4,)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        remat(torch.zeros(1, SIZE, SIZE, 3))
 
 
 def test_train_forward_with_injected_noise_matches_jax(x64_mode, monkeypatch):
