@@ -22,8 +22,8 @@ cameras frame body-sized silhouettes. In phases:
      and print the compilers' `-Xptxas -v` reports; for each K1 kernel its
      registers, spill stores and the count of tensor-core instructions
      (HMMA/HGMMA) in the built library's SASS (`cuobjdump --dump-sass`):
-     the bf16 kernels (all of C at once, and in channel chunks) must have
-     some and spill nothing, the fp32/f64 kernel none;
+     the bf16 kernel's two instances (channel chunks of 16 and 32) must
+     have some and spill nothing, the fp32/f64 kernel none;
   1. the kernel against its plain PyTorch version at the production shape
      (B=8, 56x56x48, S=56, 24 parts, 21 outputs), fed by bilinear
      `_axis_weights` matrices and by random dense ones: fp32 (TF32 off)
@@ -46,7 +46,11 @@ cameras frame body-sized silhouettes. In phases:
      `PartialIUVHead.forward`: cuDNN's grouped conv, channels_last; a
      yardstick only, never called on the path) with its conv alone; the
      profiler's device time of the kernel alone (without the wrapper's
-     weight packing); the phase-1 check once more at that batch;
+     weight packing); the phase-1 check once more at that batch; the tile
+     rows and channel chunk (`bf16_plan`); the launch alone (weights packed
+     once), 12 turns of 20 calls, beside the C=48 A/B against the earlier
+     kernel's library recorded in PERF.md §6 (`kernels/
+     probe_part_crop_head.py --ab SOURCE` repeats it);
   5. the rasterizer kernel against its plain version at the training shape
      (B=128, 56x56, 13,776 faces; vertices from `smpl_forward_aa` of
      synthetic poses, cameras from `prepare_targets`): (a) the soup atlas
@@ -163,9 +167,11 @@ cameras frame body-sized silhouettes. In phases:
      (56x56x256; the kernels take the channels in chunks) against its
      plain version, bilinear and dense weights: B=64 bf16 within 2e-2 of
      max|ref|, B=16 fp32 within 1e-4 (TF32 off), B=2 f64 within 1e-10, and
-     B=1 at C=200 and 201 (a partial last chunk); then its time at B=64
-     bf16 by CUDA events in turns beside the plain version, the unfused
-     route and its conv alone, its device time and its bound; (b)
+     B=1 at C=264, 200, 201 and 72 (partial last chunks); then its time at
+     B=64 bf16 by CUDA events (medians of two turns of 20 calls) beside its
+     earlier time, the plain version, the unfused route and its conv alone, the
+     launch alone at the wrapper's plan and at each channel chunk, and its
+     bound; (b)
      `configs/danet_resnet.yaml` (ResNet-50 backbone, seeded random
      weights): f64 B=2 on the card against the CPU (para atol 1e-6, rtol
      1e-9), fp32 `Predictor` against that f64 result (atol 0.05, rtol
@@ -230,12 +236,11 @@ cameras frame body-sized silhouettes. In phases:
      gloo ranks on cuda:0 with 'modules' against one process without
      remat, as phase 14 (c), and `cli.train --remat` in-process (4 steps,
      B=64, bf16); (b) the padded HRNet (`hrnet_pad_channels`): K1 at C=64
-     against its plain version, bilinear and dense weights (B=64 bf16
-     within 2e-2 of max|ref|, B=16 fp32 within 1e-4 with TF32 off, B=2 f64
-     within 1e-10), its time at B=64 bf16 by CUDA events in turns beside
-     the plain version and the unfused route, its launch alone (weights
-     packed once) in the library's channel chunk and forced into chunks
-     of 32, and its bound;
+     and C=48 against its plain version, bilinear and dense weights (B=64
+     bf16 within 2e-2 of max|ref|, B=16 fp32 within 1e-4 with TF32 off, B=2
+     f64 within 1e-10; C=48 at B=1), its time at B=64 bf16, C=64, as phase
+     12 (a) has it beside its earlier time, with the launch at C=48 in the
+     same turns (and their ratio);
      the padded DaNet f64 B=2 on the card against the CPU (para atol 1e-6,
      rtol 1e-9), 8 bf16 requests of B=64 padded and W48 in turns (imgs/s,
      K1 once each), one culled bf16 B=64 step (ms, peak GiB); (c)
@@ -387,9 +392,10 @@ def phase0_environment():
     for name, r in reports.items():
         print(f"phase 0: K1 {name}: {r['registers']} registers, {r['spill_stores']} bytes of spill stores, "
               f"{r['mma']} tensor-core instructions (HMMA/HGMMA) in the SASS")
-    tc = reports.get("part_crop_head_bf16_kernel")
-    for name in ("part_crop_head_bf16_kernel", "part_crop_head_bf16_kernel<chunked>"):
-        r = reports.get(name)
+    tc = {}
+    for chunk in part_crop_head.BF16_CHUNKS:   # the bf16 kernel's instances, one per channel chunk
+        name = f"part_crop_head_bf16_kernel<{chunk}>"
+        r = tc[name] = reports.get(name)
         check(r is not None and r["mma"] > 0 and r["spill_stores"] == 0,
               f"the bf16 K1 kernel {name} runs on the tensor cores and spills nothing: {r}")
     check(all(r["mma"] == 0 for n, r in reports.items() if not n.startswith("part_crop_head_bf16_kernel")),
@@ -422,8 +428,9 @@ def kernel_reports(lib_path: str, log: str) -> dict:
     from danet_densepose2smpl_tpu_torch.kernels.build import find_nvcc
 
     def short(mangled):
-        if "bf16_kernel" in mangled:   # <false>: all of C at once; <true>: in channel chunks
-            return "part_crop_head_bf16_kernel" + ("<chunked>" if "bf16_kernelILb1E" in mangled else "")
+        m = re.search(r"part_crop_head_bf16_kernelILi(\d+)E", mangled)   # one instance per channel chunk
+        if m:
+            return f"part_crop_head_bf16_kernel<{m.group(1)}>"
         m = re.search(r"part_crop_head_kernelI([fd])E", mangled)
         return f"part_crop_head_kernel<{'float' if m.group(1) == 'f' else 'double'}>" if m else mangled
 
@@ -598,6 +605,7 @@ def profile_request(fn, batch: int, card) -> None:
 
 def phase4_timing(dev, card) -> dict:
     from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
+        bf16_plan,
         fused_part_predict,
         part_crop_head_plain,
     )
@@ -640,11 +648,19 @@ def phase4_timing(dev, card) -> dict:
     check(err <= 2e-2 * ref_max, f"K1 bf16 B={SERVE_BATCH}: {err} > {2e-2 * ref_max}")
     check(err_u <= 2e-2 * ref_max, f"the unfused route computes K1's function: {err_u}")
     bound_ms, bound_by = k1_bound(args, 56)
-    print(f"phase 4: K1 bound {bound_ms!r} ms ({bound_by}); library call: none (no one PyTorch call "
-          f"computes the crop and the grouped conv)")
+    plan = bf16_plan(56, 56, 48, 56, 21)
+    print(f"phase 4: K1 bound {bound_ms!r} ms ({bound_by}); tile rows and channel chunk {plan}; library call: none "
+          f"(no one PyTorch call computes the crop and the grouped conv)")
+    # the launch alone, beside the A/B recorded against the earlier library
+    launch = k1_launch(args, 56, plan)
+    launch_ms = [cuda_ms(launch, 20) for _ in range(12)]
+    was_ms, this_ms, was = K1_AB_MS
+    print(f"phase 4: C=48 launch alone (weights packed once), 12 turns of 20 calls: median "
+          f"{float(np.median(launch_ms))!r} ms of {launch_ms}; recorded A/B ({was}): the earlier library "
+          f"{was_ms} ms, this kernel {this_ms} ms; card {card}")
     return {"ms": ms["kernel"], "plain_ms": ms["plain"], "max_abs_err": err, "bound_ms": bound_ms,
             "bound_by": bound_by, "unfused_ms": ms["unfused"], "unfused_conv_ms": ms["unfused conv"],
-            "device_ms": alone[0]}
+            "device_ms": alone[0], "plan": plan}
 
 
 def cuda_ms(fn, n):
@@ -1876,24 +1892,24 @@ def phase12_archs(dev, card) -> dict:
     return out
 
 
-def k1_launch(args, s, chunk=None):
+def k1_launch(args, s, plan=None):
     """A function that launches the bf16 K1 kernel alone on `args` (the
-    wrapper's checks, chunk query and weight packing done once, here),
-    in channel chunks of `chunk` if given (else the library's choice);
-    its output buffer is `.out`."""
-    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import bf16_chunk, load_library, pack_head_weights
+    wrapper's checks, plan and weight packing done once, here), at `plan` =
+    (tile rows, channel chunk) if given, else the wrapper's `bf16_plan`; its
+    output buffer is `.out`."""
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import bf16_plan, load_library, pack_head_weights
 
     feats, wy, wx, kernel, bias = args
     b, h, w, c = feats.shape
     k, o = wy.shape[1], kernel.shape[-1] // wy.shape[1]
-    chunk = chunk or bf16_chunk(h, w, c, s, o)
+    rows, chunk = plan or bf16_plan(h, w, c, s, o)
     wpack = pack_head_weights(kernel, k, chunk)
     out = torch.empty((b, k, s, s, o), dtype=feats.dtype, device=feats.device)
     lib = load_library()[0]
 
     def launch():
         err = lib.part_crop_head_bf16(feats.data_ptr(), wy.data_ptr(), wx.data_ptr(), wpack.data_ptr(),
-                                      bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, chunk,
+                                      bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, rows, chunk,
                                       torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"K1 launch: cudaError {err}")
 
@@ -1901,44 +1917,69 @@ def k1_launch(args, s, chunk=None):
     return launch
 
 
-def phase12_k1_wide(dev, card) -> dict:
-    """(a): K1 at C=256 and C=200/201 against its plain version, and its
-    time at B=64 bf16 beside the plain version and the unfused route."""
+# K1's earlier times at B=64 bf16 on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §6): the ring layout's chunked kernel at C=256 (commit 9163c73),
+# its all-of-C kernel at C=64 (commit d34c60c)
+K1_WAS_MS = {256: (8.841, "the ring layout at 9163c73"), 64: (2.658, "the ring layout at d34c60c")}
+# and the C=48 A/B of the launch alone (medians of 12 turns in one process:
+# the ring layout's library at d34c60c, this kernel's; PERF.md §6)
+K1_AB_MS = (1.161, 0.834, "the ring layout at d34c60c against this kernel, PERF.md §6")
+
+
+def k1_check_cases(phase: str, dev, cases, seed: int) -> float:
+    """K1 against its plain version on each (dtype, B, S, C, O) case, fed by
+    bilinear and by dense interpolation matrices: fp32 (TF32 off) within
+    1e-4, bf16 within 2e-2 of max|ref|, f64 within 1e-10. Returns the first
+    bf16 case's error on bilinear weights."""
     from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
-        bf16_chunk,
+        bf16_plan,
         fused_part_predict,
         part_crop_head_plain,
     )
-    from danet_densepose2smpl_tpu_torch.nn.iuv_head import PartialIUVHead
-    from danet_densepose2smpl_tpu_torch.ops.imwarp import separable_crop_concat
 
-
-    # K1 at C=256 (and C=200/201: a partial last chunk) against its plain version
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    cases = [("bfloat16", 64, 56, 256, 21), ("float32", 16, 56, 256, 21), ("float64", 2, 56, 256, 21),
-             ("bfloat16", 1, 56, 200, 21), ("float32", 1, 56, 200, 21), ("float64", 1, 56, 200, 21),
-             ("bfloat16", 1, 57, 201, 5), ("float64", 1, 57, 201, 5)]
+    first = None
     for name, b, hw, c, o in cases:
         dt = getattr(torch, name)
         for dense in (False, True):
-            args = k1_inputs(b, hw, hw, c, hw, dt, dev, seed=3, dense=dense, o=o)
+            args = k1_inputs(b, hw, hw, c, hw, dt, dev, seed=seed, dense=dense, o=o)
             got = fused_part_predict(*args, hw)
             torch.cuda.synchronize()
             ref = part_crop_head_plain(*args, hw)
             err, ref_max = (got.double() - ref.double()).abs().max().item(), ref.double().abs().max().item()
             tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 1e-10}[name]
             weights = "dense" if dense else "bilinear"
-            chunk = f", bf16 chunk {bf16_chunk(hw, hw, c, hw, o)}" if name == "bfloat16" else ""
-            print(f"phase 12: (a) K1 {name} B={b} {hw}x{hw}x{c} S={hw} O={o} {weights} weights: max abs err {err!r} "
-                  f"(max|ref| {ref_max!r}, tolerance {tol!r}{chunk})")
+            plan = f", tile rows and chunk {bf16_plan(hw, hw, c, hw, o)}" if name == "bfloat16" else ""
+            print(f"phase {phase}: K1 {name} B={b} {hw}x{hw}x{c} S={hw} O={o} {weights} weights: max abs err {err!r} "
+                  f"(max|ref| {ref_max!r}, tolerance {tol!r}{plan})")
             check(got.shape == (b, 24, hw, hw, o) and bool(torch.isfinite(got).all()), f"K1 {name} C={c}: shape")
             check(err <= tol, f"K1 {name} C={c} {weights}: {err} > {tol}")
-            if (name, b, dense) == ("bfloat16", 64, False):
-                k1_err = err
+            if first is None and name == "bfloat16" and not dense:
+                first = err
             del got, ref, args
-    args, centers, scales = k1_inputs(ARCH_REQUEST_BATCH, 56, 56, 256, 56, torch.bfloat16, dev, seed=2, boxes=True)
+    return first
+
+
+def k1_timing(phase: str, dev, card, c: int, beside: dict | None = None) -> dict:
+    """K1 at B=64 bf16 on 56x56xC: the wrapper, its plain version, the
+    unfused route (`separable_crop_concat`, then cuDNN's grouped conv) and
+    its conv alone in turns, then the launch alone (weights packed once) at
+    the wrapper's plan and at each channel chunk, with the `beside` launches,
+    in turns: medians of two turns of 20 calls (the plain version 3), CUDA
+    events, beside the kernel's earlier time and its bound."""
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
+        BF16_CHUNKS,
+        bf16_plan,
+        bf16_rows,
+        fused_part_predict,
+        part_crop_head_plain,
+    )
+    from danet_densepose2smpl_tpu_torch.nn.iuv_head import PartialIUVHead
+    from danet_densepose2smpl_tpu_torch.ops.imwarp import separable_crop_concat
+
+    args, centers, scales = k1_inputs(ARCH_REQUEST_BATCH, 56, 56, c, 56, torch.bfloat16, dev, seed=2, boxes=True)
     feats, _, _, kernel, bias = args
-    head = PartialIUVHead(256).to(dev, torch.bfloat16, memory_format=torch.channels_last)
+    head = PartialIUVHead(c).to(dev, torch.bfloat16, memory_format=torch.channels_last)
     head.weight.data.copy_(kernel.permute(3, 2, 0, 1))
     head.bias.data.copy_(bias)
     crops = separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)
@@ -1948,23 +1989,51 @@ def phase12_k1_wide(dev, card) -> dict:
         "unfused": lambda: head(separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)),
         "unfused conv": lambda: head(crops),
     }
-    times = {k: [] for k in calls}
+    plan = bf16_plan(56, 56, c, 56, 21)
+    launches = {"plan": k1_launch(args, 56, plan)}
+    for chunk in BF16_CHUNKS:
+        launches[f"chunk {chunk}"] = k1_launch(args, 56, (bf16_rows(56, 56, 21, chunk), chunk))
+    launches.update(beside or {})
+    times = {name: [] for name in [*calls, *launches]}
     with torch.no_grad():
         for name in ("plain", "kernel", "unfused", "unfused conv", "unfused conv", "unfused", "kernel", "plain"):
-            times[name].append(cuda_ms(calls[name], 3 if name == "plain" else 10))
-        alone = cuda_ms(k1_launch(args, 56), 10)
+            times[name].append(cuda_ms(calls[name], 3 if name == "plain" else 20))
+        for order in (list(launches), list(launches)[::-1]):
+            for name in order:
+                times[name].append(cuda_ms(launches[name], 20))
+        ref = calls["plain"]().double()
+    ref_max = ref.abs().max().item()
+    for chunk in BF16_CHUNKS:
+        err = (launches[f"chunk {chunk}"].out.double() - ref).abs().max().item()
+        check(err <= 2e-2 * ref_max, f"K1 C={c} in chunks of {chunk}: {err} > {2e-2 * ref_max}")
     bound_ms, bound_by = k1_bound(args, 56)
-    ms = {k: min(v) for k, v in times.items()}
-    print(f"phase 12: (a) K1 B={ARCH_REQUEST_BATCH} bf16 56x56x256 (CUDA events, mean of 10 calls, plain 3, in "
-          f"turns; TF32 off): kernel {times['kernel']} ms, plain {times['plain']} ms, unfused route "
-          f"{times['unfused']} ms, its conv alone {times['unfused conv']} ms; the kernel alone (its launch "
-          f"on weights packed once, CUDA events, mean of 10) {alone!r} ms; bound {bound_ms!r} ms ({bound_by}); "
-          f"card {card}")
-    del args, feats, kernel, bias, head, crops, calls
+    ms = {name: float(np.median(t)) for name, t in times.items()}
+    was_ms, was = K1_WAS_MS.get(c, (None, None))
+    print(f"phase {phase}: K1 B={ARCH_REQUEST_BATCH} bf16 56x56x{c} (CUDA events, medians of two turns of 20 calls, "
+          f"plain 3; TF32 off): kernel {times['kernel']} ms (was {was_ms} ms, {was}), plain {times['plain']} ms, "
+          f"unfused route {times['unfused']} ms, its conv alone {times['unfused conv']} ms; the launch alone "
+          f"(weights packed once) at the plan {plan} (tile rows, chunk) {times['plan']} ms, "
+          + ", ".join(f"{name} {times[name]} ms" for name in launches if name != "plan")
+          + f"; bound {bound_ms!r} ms ({bound_by}); card {card}")
+    launch_ms = {name: ms[name] for name in launches}
+    del args, feats, kernel, bias, head, crops, calls, launches, ref
     torch.cuda.empty_cache()
     return {"ms": ms["kernel"], "plain_ms": ms["plain"], "unfused_ms": ms["unfused"],
-            "unfused_conv_ms": ms["unfused conv"], "device_ms": alone, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": k1_err, "chunk": bf16_chunk(56, 56, 256, 56, 21)}
+            "unfused_conv_ms": ms["unfused conv"], "device_ms": ms["plan"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "plan": plan, "launch_ms": launch_ms}
+
+
+def phase12_k1_wide(dev, card) -> dict:
+    """(a): K1 at C=256, 264, 200, 201 and 72 against its plain version, and
+    its time at B=64 bf16, C=256, beside the plain version and the unfused
+    route."""
+    cases = [("bfloat16", 64, 56, 256, 21), ("float32", 16, 56, 256, 21), ("float64", 2, 56, 256, 21),
+             ("bfloat16", 1, 56, 264, 21), ("float32", 1, 56, 264, 21), ("float64", 1, 56, 264, 21),
+             ("bfloat16", 1, 56, 200, 21), ("float32", 1, 56, 200, 21), ("float64", 1, 56, 200, 21),
+             ("bfloat16", 1, 57, 201, 5), ("float64", 1, 57, 201, 5),
+             ("bfloat16", 1, 56, 72, 21), ("float32", 1, 56, 72, 21), ("float64", 1, 56, 72, 21)]
+    err = k1_check_cases("12: (a)", dev, cases, seed=3)
+    return {**k1_timing("12: (a)", dev, card, 256), "max_abs_err": err}
 
 
 def phase12_models(dev, card) -> dict:
@@ -2859,76 +2928,17 @@ def phase15_remat(dev, card, root: str) -> dict:
 
 
 def phase15_k1_pad(dev, card) -> dict:
-    """(b): K1 at the padded HRNet's width (56x56x64) against its plain
-    version, and its time at B=64 bf16 beside the plain version and the
-    unfused route."""
-    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
-        bf16_chunk,
-        fused_part_predict,
-        part_crop_head_plain,
-    )
-    from danet_densepose2smpl_tpu_torch.nn.iuv_head import PartialIUVHead
-    from danet_densepose2smpl_tpu_torch.ops.imwarp import separable_crop_concat
-
-    c = 64
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    for name, b, tol_rel in (("bfloat16", PAD_BATCH, 2e-2), ("float32", 16, None), ("float64", 2, None)):
-        dt = getattr(torch, name)
-        for dense in (False, True):
-            args = k1_inputs(b, 56, 56, c, 56, dt, dev, seed=4, dense=dense)
-            got = fused_part_predict(*args, 56)
-            torch.cuda.synchronize()
-            ref = part_crop_head_plain(*args, 56)
-            err, ref_max = (got.double() - ref.double()).abs().max().item(), ref.double().abs().max().item()
-            tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 1e-10}[name]
-            weights = "dense" if dense else "bilinear"
-            chunk = f", bf16 chunk {bf16_chunk(56, 56, c, 56, 21)}" if name == "bfloat16" else ""
-            print(f"phase 15: (b) K1 {name} B={b} 56x56x{c} S=56 O=21 {weights} weights: max abs err {err!r} "
-                  f"(max|ref| {ref_max!r}, tolerance {tol!r}{chunk})")
-            check(got.shape == (b, 24, 56, 56, 21) and bool(torch.isfinite(got).all()), f"K1 {name} C={c}: shape")
-            check(err <= tol, f"K1 {name} C={c} {weights}: {err} > {tol}")
-            if (name, dense) == ("bfloat16", False):
-                k1_err = err
-            del got, ref, args
-    args, centers, scales = k1_inputs(PAD_BATCH, 56, 56, c, 56, torch.bfloat16, dev, seed=2, boxes=True)
-    feats, _, _, kernel, bias = args
-    head = PartialIUVHead(c).to(dev, torch.bfloat16, memory_format=torch.channels_last)
-    head.weight.data.copy_(kernel.permute(3, 2, 0, 1))
-    head.bias.data.copy_(bias)
-    crops = separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)
-    calls = {
-        "kernel": lambda: fused_part_predict(*args, 56),
-        "plain": lambda: part_crop_head_plain(*args, 56),
-        "unfused": lambda: head(separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)),
-        "unfused conv": lambda: head(crops),
-    }
-    # a yardstick: the same call forced into two channel chunks of 32 (the
-    # chunked kernel C=256 runs), held to the plain version as well
-    launches = {"library chunk": k1_launch(args, 56), "chunks of 32": k1_launch(args, 56, chunk=32)}
-    times = {k: [] for k in [*calls, *launches]}
-    with torch.no_grad():
-        for name in ("plain", "kernel", "unfused", "unfused conv", "unfused conv", "unfused", "kernel", "plain"):
-            times[name].append(cuda_ms(calls[name], 5 if name == "plain" else 20))
-        for name in ("library chunk", "chunks of 32", "chunks of 32", "library chunk"):
-            times[name].append(cuda_ms(launches[name], 20))
-        ref = calls["plain"]().double()
-    err32, ref_max = (launches["chunks of 32"].out.double() - ref).abs().max().item(), ref.abs().max().item()
-    check(err32 <= 2e-2 * ref_max, f"K1 C={c} in chunks of 32: {err32} > {2e-2 * ref_max}")
-    bound_ms, bound_by = k1_bound(args, 56)
-    ms = {k: min(v) for k, v in times.items()}
-    alone = ms["library chunk"]
-    print(f"phase 15: (b) K1 B={PAD_BATCH} bf16 56x56x{c} (CUDA events, mean of 20 calls, plain 5, in turns; TF32 "
-          f"off): kernel {times['kernel']} ms, plain {times['plain']} ms, unfused route {times['unfused']} ms, its "
-          f"conv alone {times['unfused conv']} ms; the kernel alone (its launch on weights packed once, CUDA events, "
-          f"mean of 20) {times['library chunk']} ms (chunk {bf16_chunk(56, 56, c, 56, 21)}), forced into "
-          f"chunks of 32 {times['chunks of 32']} ms (max abs err {err32!r}); bound {bound_ms!r} ms ({bound_by}); "
-          f"card {card}")
-    del args, feats, kernel, bias, head, crops, calls, launches, ref
-    torch.cuda.empty_cache()
-    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "unfused_ms": ms["unfused"],
-            "unfused_conv_ms": ms["unfused conv"], "launch_ms": alone, "chunk32_ms": ms["chunks of 32"],
-            "device_ms": alone, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": k1_err,
-            "chunk": bf16_chunk(56, 56, c, 56, 21)}
+    """(b): K1 at the padded HRNet's width (56x56x64) and at C=48 against
+    its plain version, and its time at B=64 bf16, C=64, beside the plain
+    version, the unfused route and the launch at C=48 in the same turns."""
+    cases = [("bfloat16", PAD_BATCH, 56, 64, 21), ("float32", 16, 56, 64, 21), ("float64", 2, 56, 64, 21),
+             ("bfloat16", 1, 56, 48, 21), ("float32", 1, 56, 48, 21), ("float64", 1, 56, 48, 21)]
+    err = k1_check_cases("15: (b)", dev, cases, seed=4)
+    c48 = k1_inputs(PAD_BATCH, 56, 56, 48, 56, torch.bfloat16, dev, seed=2)
+    out = {**k1_timing("15: (b)", dev, card, 64, beside={"C=48": k1_launch(c48, 56)}), "max_abs_err": err}
+    ratio = out["launch_ms"]["plan"] / out["launch_ms"]["C=48"]
+    print(f"phase 15: (b) K1 launch alone at C=64 / at C=48, the same turns: {ratio!r}; card {card}")
+    return {**out, "c64_over_c48": ratio}
 
 
 def phase15_pad_models(dev, card) -> dict:
@@ -3117,7 +3127,8 @@ def main():
                 f"{SERVE_REQUESTS} requests", "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
                 "library_ms": None, "unfused_ms": k1["unfused_ms"], "unfused_conv_ms": k1["unfused_conv_ms"],
-                "device_ms": k1["device_ms"], "mma_instructions": k1_report["mma"],
+                "device_ms": k1["device_ms"], "mma_instructions": {n: r["mma"] for n, r in k1_report.items()},
+                "plan": k1["plan"],
                 "cli_eval_launches": {k: evals[k]["k1"] for k in ("pose", "pose_dp", "lsp", "coco")}}]
     raster_paths = {  # entry -> (the phase-7 path its launches are read from, its label)
         "rasterize_flat": ("pallas", "training step, IUVRenderer backend 'pallas', bf16, B=64, 1 step"),

@@ -13,72 +13,50 @@
 //
 // Two kernels; the dtype alone picks one.
 //
-// bf16 (serving and eval): `part_crop_head_bf16_kernel`, the conv on the
-// tensor cores. At the path's shape (B=64, 56x56x48 features, 24 parts,
-// S=56, 21 outputs) the conv is 8.7e10 FLOP, 0.09 ms at the card's bf16
-// peak. Once it runs there, the floor is memory traffic: 202 MB of output
-// (0.06 ms at 3.35 TB/s) and, for the crop, ~1.2 GB of feature rows read
-// from L2 (every part of an image interpolates from the same rows, which
-// stay in the 50 MB L2). Measured per phase (`kernels/probe_part_crop_head
-// .py`), the crop build's row steps take ~49% of the blocks' time and the
-// y lists ~16%, both latency-bound on the CUDA cores; the MMAs ~27%. The
-// design, part by part:
-//   - One block per (image, part) walks its output rows in tiles of `rows`
-//     rows. The crop rows live in shared memory in a ring of rows + 2 rows
-//     (the conv's one-row halo each side), so each crop row is built once
-//     per (image, part), not once per tile.
-//   - Crop build: the non-zero interpolation weights of each row and column
-//     are compacted into in-order lists (a warp ballot per 32 entries), so
-//     the 2-tap bilinear case costs two taps and any dense matrix stays
-//     right; a column's one or two taps are also packed into 8 bytes, read
-//     with one load. A crop row a step: the one or two feature rows the
-//     next row needs come into shared memory by 16-byte cp.async
-//     (double-buffered) while this row is y-interpolated and the previous
-//     one x-interpolated, with one barrier a step. Only the feature columns
-//     the x lists read (about scale * W of them) are copied and
-//     y-interpolated. Both interpolations run on 16-byte vectors of 8
-//     channels with fp32 sums. A row of more than two taps (a dense matrix,
-//     never the path's) reads its taps from global memory.
-//   - The crop is kept channel-minor, [rows + 2][S + 2][Cpad + 8], C padded
-//     with zeros to the MMA depth (16). The pixel stride of (Cpad + 8) * 2
-//     bytes is an odd number of 16-byte units (112 bytes at C=48), so the
-//     eight row addresses of an `ldmatrix` fall on distinct banks. A tap
-//     (dy, dx) of the 3x3 conv is then only an address shift: im2col costs
-//     nothing.
-//   - The conv is an implicit GEMM per (image, part): M = tile pixels, N =
-//     O padded to 24, K = 9 * Cpad in (dy, dx, c) order. `mma.sync
-//     m16n8k16` (bf16 in, fp32 accumulate): A (16 pixels x 16 channels of
-//     one tap) by `ldmatrix.x4` from the crop, B from the part's packed
-//     weight tile [24][9 * Cpad + 8] in shared memory (the wrapper packs it,
-//     cp.async brings it; the row stride is again an odd number of 16-byte
-//     units). A warp runs two A fragments against the same three n8 B
-//     fragments: six independent MMAs a step. A 16-pixel fragment may span
-//     two image rows: every lane computes its own pixel's address, and the
-//     ragged last fragment clamps its address and masks its store.
-//     `mma.sync` rather than `wgmma`: a part's GEMM is narrow (N = 24) and
-//     its 64-row wgmma tiles would straddle rows the same way, while the
-//     MMAs are not what bounds the kernel.
-//   - Epilogue: bias in fp32, round to bf16, stage the tile's rows x S x O
-//     outputs in shared memory (over the crop-build buffers), then write
-//     them as one contiguous span of the (B, K, S, S, O) output with 16-byte
-//     stores.
-//   - Shared memory sets the tile: at the path's shape 4 rows fit two blocks
-//     on an SM (~105 KB each), so one block's copies and interpolation
-//     overlap the other's MMAs.
-//   - Wide features (the ResNet backbone's C = 256) do not fit: the ring,
-//     the packed weights and the staged rows all grow with C (~389 KB a block
-//     at C = 256). There the kernel (`<kChunked = true>`) takes the channels
-//     in chunks of kChunk = 32: the ring, the staged rows, tmp and the weight
-//     tile hold one chunk (the wrapper packs the weights chunk by chunk,
-//     `(K, chunks, npad, 9 * 32)`), and for each tile every chunk rebuilds
-//     the tile's crop rows and their halo and adds its share of the GEMM
-//     depth to the accumulators, which wait in shared memory between chunks.
-//     At C = 256, S = 56 that is 4-row tiles, ~100 KB a block, two a SM. The
-//     conv then bounds it: 4.7e11 FLOP, 0.47 ms at the bf16 peak, against
-//     0.09 ms for the bytes; measured 8.8 ms at B = 64 on an H100 (PERF.md
-//     §6). The halo rows are built twice (1.5x the crop work of 4-row
-//     tiles), a cost of the chunking; C = 48 keeps the unchunked kernel
-//     (`<false>`), the ring and its reuse across tiles.
+// bf16 (serving and eval): `part_crop_head_bf16_kernel<CH>`, for every C (the
+// HRNet's 48, the padded HRNet's 64, the ResNet backbone's 256). At B=64,
+// 56x56xC features, 24 parts, S=56, O=21 outputs, the conv is 2*B*24*S*S*O*9*C
+// FLOP (4.7e11 at C=256: 0.48 ms at the card's bf16 peak; 8.7e10 at C=48)
+// and the bytes are ~0.2 GB of output (0.06 ms at 3.35 TB/s), so the bound
+// is the operations. What the kernel spends its time on is measured per
+// phase by `kernels/probe_part_crop_head.py` (PERF.md §6). The design:
+//   - One block (8 warps) per (image, part) walks its output rows in tiles
+//     of `rows` rows (8 at S = 56: 448 pixels, 28 MMA tiles of 16 pixels, up
+//     to 4 a warp) and takes the channels in chunks of CH = 16 or 32 (a
+//     template argument); `kernels/part_crop_head.py::bf16_plan` picks both
+//     by a rule measured on the card. The tile's GEMM sums stay in registers
+//     across all of C: no sums go through shared memory between chunks.
+//   - Per (tile, chunk), three phases and two barriers. (1) y-interpolation
+//     of the tile's rows + 2 halo rows, from the feature rows in global
+//     memory (L1/L2, 16-byte loads, two crop rows a job with their loads in
+//     flight together) into `tmp`, rounded to bf16; only the feature columns
+//     the x taps read are interpolated. (2) x-interpolation into the crop,
+//     rounded, on the tensor cores: for each group of 16 crop columns whose
+//     taps span at most 32 feature columns (every group of a bilinear box
+//     with scale < ~2), its A tile A[x][j] = wx[x][wlo + j], built once per
+//     block, times the 16 or 32 `tmp` columns from wlo (`ldmatrix.trans`),
+//     stored by `stmatrix`; other groups (dense matrices) sum their taps on
+//     the CUDA cores. `tmp`'s 16-byte chunks are swizzled so that those
+//     loads hit distinct banks. (3) The conv as an implicit GEMM: M = tile
+//     pixels, N = O padded to 24, K = 9 * CH in (dy, dx, c) order,
+//     `mma.sync m16n8k16` (bf16 in, fp32 accumulate): A by `ldmatrix.x4`
+//     from the crop, kept channel-minor [rows + 2][S + 2][CH + 8] (a pixel
+//     stride of an odd number of 16-byte units: conflict-free rows; a tap is
+//     only an address shift), B from the chunk's packed weight tile
+//     [24][9 * CH + 8] (the wrapper packs it chunk by chunk, `cp.async`
+//     brings it while (2) runs, and a one-chunk C keeps it for all tiles).
+//   - Epilogue per tile: bias in fp32, round, stage the tile's outputs over
+//     the crop's bytes, and write them as one contiguous span of the
+//     (B, K, S, S, O) output with 16-byte stores.
+//   - Shared memory (~105 KB at CH = 32, 8 rows) and 126 registers let two
+//     blocks share an SM; one block's interpolation overlaps the other's
+//     MMAs. Each chunk rebuilds its tile's halo rows (1.25x the crop work
+//     at 8-row tiles): the price of register sums across chunks.
+//   - `mma.sync` rather than `wgmma`: at C=256 the conv's MMA phase is
+//     bound by the shared-memory reads of its A fragments (each crop value
+//     is read once per tap, N = 24 is narrow), which `wgmma` reads alike;
+//     the probe puts the MMAs at ~40% of block time, the interpolations at
+//     ~53%.
 //
 // fp32 and f64: `part_crop_head_kernel`, scalar CUDA-core FMAs (their bars,
 // 1e-4 with TF32 off and 1e-10, rule out TF32 and bf16 tensor cores). One
@@ -357,70 +335,7 @@ int launch(const void* feats, const void* wy, const void* wx, const void* weight
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = kThreads / 32;
 constexpr int kN = 24;  // output channels per GEMM pass: three n8 MMA tiles
-
-constexpr int kChunk = 32;  // channels a chunk takes when all of C does not fit
-
-// Sizes derived from C, O and the chunk of channels the kernel takes at a
-// time (0: all of C, padded to 16; else kChunk), the same on host and device.
-struct Dims {
-  int cpad;  // the chunk's channels: C rounded up to 16 (the MMA depth), or kChunk
-  int c8;    // a staged feature row's pixel stride: C rounded up to 8, or the chunk
-  int cps;   // crop pixel stride in elements, cpad + 8: an odd number of 16-byte units
-  int kdim;  // GEMM depth of a chunk, 9 * cpad, in (dy, dx, c) order
-  int kp;    // weight row stride in elements, kdim + 8: an odd number of 16-byte units
-  int npad;  // O rounded up to kN
-};
-
-__host__ __device__ inline Dims make_dims(int C, int O, int chunk) {
-  Dims d;
-  d.cpad = chunk != 0 ? chunk : (C + 15) / 16 * 16;
-  d.c8 = chunk != 0 ? chunk : (C + 7) / 8 * 8;
-  d.cps = d.cpad + 8;
-  d.kdim = 9 * d.cpad;
-  d.kp = d.kdim + 8;
-  d.npad = (O + kN - 1) / kN * kN;
-  return d;
-}
-
-struct TcLayout {
-  size_t ring, wts, bias, xcnt, xidx, xval, xpk, ycnt, yidx, yval, items, acc, stage, tmp, out, total;
-};
-
-// Byte offsets of the bf16 kernel's shared arrays for tiles of `rows` rows,
-// `chunk` channels at a time (0: all of C). In chunks, the GEMM's
-// accumulators wait in `acc` from one chunk to the next: 24 floats a lane
-// for each (32-pixel, kN-output) fragment of the tile.
-__host__ __device__ inline TcLayout make_tc_layout(int rows, int H, int W, int C, int S, int O,
-                                                   int chunk) {
-  const Dims d = make_dims(C, O, chunk);
-  const bool chunked = chunk != 0;
-  const size_t R = rows + 2;
-  TcLayout L;
-  size_t p = 0;
-  L.ring = p; p = align16(p + R * (S + 2) * d.cps * sizeof(bf16));
-  L.wts = p; p = align16(p + size_t(d.npad) * d.kp * sizeof(bf16));
-  L.bias = p; p = align16(p + d.npad * sizeof(float));
-  L.xcnt = p; p = align16(p + S * sizeof(int));
-  L.xidx = p; p = align16(p + size_t(S) * W * sizeof(int16_t));
-  L.xval = p; p = align16(p + size_t(S) * W * sizeof(bf16));
-  L.xpk = p; p = align16(p + S * sizeof(uint2));
-  L.ycnt = p; p = align16(p + (R + 3) * sizeof(int));      // + item count, column span
-  L.yidx = p; p = align16(p + R * H * sizeof(int16_t));
-  L.yval = p; p = align16(p + R * H * sizeof(bf16));
-  L.items = p; p = align16(p + R * sizeof(int));
-  const size_t frags = (size_t(rows) * S + 31) / 32 * (d.npad / kN);
-  L.acc = p; p = align16(p + (chunked ? frags * 24 * 32 * sizeof(float) : 0));
-  // the crop build's buffers; the output stage reuses their bytes
-  const size_t u = p;
-  L.stage = p; p = align16(p + size_t(4) * W * d.c8 * sizeof(bf16));  // 2 steps x 2 feature rows
-  L.tmp = p; p = align16(p + size_t(2) * W * d.cpad * sizeof(bf16));  // 2 steps
-  L.out = u;
-  const size_t q = align16(u + (size_t(rows) * S * O + 8) * sizeof(bf16));
-  L.total = p > q ? p : q;
-  return L;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -444,6 +359,24 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
                : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r0),
+               "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
@@ -479,427 +412,425 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return v;
 }
 
-__device__ __forceinline__ int thread_index() {
-  int t;
-  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
-  return t;
-}
-
 __device__ __forceinline__ uint4 ld16(const bf16* p) { return *reinterpret_cast<const uint4*>(p); }
 __device__ __forceinline__ void st16(bf16* p, uint4 v) { *reinterpret_cast<uint4*>(p) = v; }
 
-// One warp compacts the non-zero entries of row[0, n) into idx/val, in
-// order; returns their count (to every lane).
-__device__ __forceinline__ int compact_row(const bf16* __restrict__ row, int n, int16_t* idx,
-                                           bf16* val, int lane) {
+// ---------------------------------------------------------------------------
+// bf16: `part_crop_head_bf16_kernel`.
+
+// Eight warps of up to four 16-pixel MMA tiles each hold a tile of up to 512
+// pixels (8 rows of S = 56: 28 tiles).
+constexpr int kTcWarps = 8, kTcThreads = kTcWarps * 32, kTcMT = 4;
+constexpr int kXk = 32;        // the x-interpolation MMA's depth: a group's taps span at most 32 columns
+constexpr int kXa = kXk + 8;   // its A tiles' row stride: an odd number of 16-byte units
+
+struct Bf16Layout {
+  size_t crop, tmp, wts, bias, xa, xwin, xcnt, ycnt, ypk, span, total;
+};
+
+// Byte offsets of the bf16 kernel's shared arrays for tiles of `rows` rows
+// and channel chunks of `chunk` (a multiple of 16). The output stage of a
+// tile reuses the crop's bytes. `part_crop_head_bf16_bytes` exports the
+// total, from which `kernels/part_crop_head.py::bf16_rows` picks the rows.
+__host__ __device__ inline Bf16Layout make_bf16_layout(int rows, int W, int S, int O, int chunk) {
+  const size_t R = rows + 2, cps = chunk + 8, kp = 9 * size_t(chunk) + 8;
+  const size_t npad = (O + kN - 1) / kN * kN;
+  const size_t crop = R * (S + 2) * cps, stage = size_t(rows) * S * (O < kN ? O : kN) + 8;
+  Bf16Layout L;
+  size_t p = 0;
+  L.crop = p; p = align16(p + (crop > stage ? crop : stage) * sizeof(bf16));
+  L.tmp = p; p = align16(p + (R * W + kXk) * chunk * sizeof(bf16));
+  L.wts = p; p = align16(p + npad * kp * sizeof(bf16));
+  L.bias = p; p = align16(p + npad * sizeof(float));
+  const size_t n_xg = (S + 15) / 16;
+  L.xa = p; p = align16(p + n_xg * 16 * kXa * sizeof(bf16));
+  L.xwin = p; p = align16(p + 2 * n_xg * sizeof(int));
+  L.xcnt = p; p = align16(p + S * sizeof(int));
+  L.ycnt = p; p = align16(p + S * sizeof(int));
+  L.ypk = p; p = align16(p + S * sizeof(uint2));
+  L.span = p; p = align16(p + 2 * sizeof(int));
+  L.total = p;
+  return L;
+}
+
+// One thread scans row[0, n) for its non-zero entries: returns their count;
+// `pk` gets the first two as (idx0 | idx1 << 16, val0 | val1 << 16) (one
+// tap: the second repeats its index with weight 0), `lo` / `hi` the first
+// and last index (n, -1 if none).
+__device__ __forceinline__ int scan_taps(const bf16* __restrict__ row, int n, uint2& pk, int& lo, int& hi) {
   int count = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int h = base + lane;
-    const bf16 v = h < n ? row[h] : __float2bfloat16_rn(0.f);
-    const bool nz = __bfloat162float(v) != 0.f;
-    const unsigned m = __ballot_sync(0xffffffffu, nz);
-    if (nz) {
-      const int pos = count + __popc(m & ((1u << lane) - 1u));
-      idx[pos] = int16_t(h);
-      val[pos] = v;
+  unsigned idx = 0u, val = 0u;
+  lo = n;
+  hi = -1;
+#pragma unroll 8
+  for (int h = 0; h < n; ++h) {
+    const unsigned v = __bfloat16_as_ushort(row[h]);
+    if ((v & 0x7fffu) != 0u) {   // +0 and -0 weigh nothing
+      if (count < 2) {
+        idx |= unsigned(h) << (16 * count);
+        val |= v << (16 * count);
+      }
+      lo = min(lo, h);
+      hi = h;
+      ++count;
     }
-    count += __popc(m);
   }
+  if (count == 1) idx |= idx << 16;
+  pk = make_uint2(idx, val);
   return count;
 }
 
-template <bool kChunked>
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ float lo_bf16(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
+
+// Eight channels c0.. of feature pixel `src` (zero past C), as 16 bytes.
+__device__ __forceinline__ uint4 feat8(const bf16* __restrict__ src, int c0, int C, bool vec) {
+  if (vec) return c0 < C ? __ldg(reinterpret_cast<const uint4*>(src)) : make_uint4(0u, 0u, 0u, 0u);
+  uint4 v;
+  unsigned short* e = reinterpret_cast<unsigned short*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = c0 + j < C ? __bfloat16_as_ushort(src[j]) : 0;
+  return v;
+}
+
+// All of C, in chunks of CH channels (16 or 32), for one (image, part) a
+// block: see the design notes at the top of this file.
+template <int CH>
+__global__ void __launch_bounds__(kTcThreads, 2)
 part_crop_head_bf16_kernel(const bf16* __restrict__ feats,   // (B, H, W, C)
                            const bf16* __restrict__ wy,      // (B, K, S, H)
                            const bf16* __restrict__ wx,      // (B, K, S, W)
-                           const bf16* __restrict__ wpack,   // (K, chunks, npad, 9 * cpad)
+                           const bf16* __restrict__ wpack,   // (K, chunks, npad, 9 * CH)
                            const bf16* __restrict__ bias,    // (K * O)
                            bf16* __restrict__ out,           // (B, K, S, S, O)
-                           int H, int W, int C, int S, int K, int O, int rows, int chunk) {
+                           int H, int W, int C, int S, int K, int O, int rows) {
+  constexpr int G = CH / 8, cps = CH + 8, kp = 9 * CH + 8;   // 8-channel groups; crop and weight row strides
+  // tmp's 16-byte chunks are swizzled: chunk g of tmp column q sits at g ^
+  // swz(q), so that eight consecutive columns, `ldmatrix`'s rows, fall on
+  // distinct banks
+  constexpr int kSw = 8 / G;
+  const auto swz = [](int q) { return (q / kSw) & (G - 1); };
   extern __shared__ __align__(16) unsigned char smem[];
-  if (!kChunked) chunk = 0;   // all of C: the layout's arithmetic folds to C's alone
-  const Dims d = make_dims(C, O, chunk);
-  const TcLayout L = make_tc_layout(rows, H, W, C, S, O, chunk);
-  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);   // [R][S + 2][cps]
-  bf16* wts = reinterpret_cast<bf16*>(smem + L.wts);     // [npad][kp]
+  const Bf16Layout L = make_bf16_layout(rows, W, S, O, CH);
+  bf16* crop = reinterpret_cast<bf16*>(smem + L.crop);     // [R][S + 2][cps]; the output stage after a tile
+  bf16* tmp = reinterpret_cast<bf16*>(smem + L.tmp);       // [R * npx + kXk][CH]: columns xlo..xhi of each row
+  bf16* wts = reinterpret_cast<bf16*>(smem + L.wts);       // [npad][kp]: the chunk's packed weights
   float* bsm = reinterpret_cast<float*>(smem + L.bias);
+  bf16* xa = reinterpret_cast<bf16*>(smem + L.xa);         // [group][16][kXa]: the x weights as MMA A tiles
+  int* xwin = reinterpret_cast<int*>(smem + L.xwin);       // [group]: first tap column, then last; the window
   int* xcnt = reinterpret_cast<int*>(smem + L.xcnt);
-  int16_t* xidx = reinterpret_cast<int16_t*>(smem + L.xidx);
-  bf16* xval = reinterpret_cast<bf16*>(smem + L.xval);
-  uint2* xpk = reinterpret_cast<uint2*>(smem + L.xpk);   // a column's taps when <= 2, packed
-  int* ycnt = reinterpret_cast<int*>(smem + L.ycnt);     // [R] counts, item count, xlo, xhi
-  int16_t* yidx = reinterpret_cast<int16_t*>(smem + L.yidx);
-  bf16* yval = reinterpret_cast<bf16*>(smem + L.yval);
-  int* items = reinterpret_cast<int*>(smem + L.items);   // the rows that have taps
-  float* accsm = reinterpret_cast<float*>(smem + L.acc); // chunks only: [fragment][24][32 lanes]
-  // feature columns xlo..xhi, the only ones the x lists read, are staged
-  // and y-interpolated: column w at w - xlo
-  bf16* stage = reinterpret_cast<bf16*>(smem + L.stage);  // [2][2][W][c8]
-  bf16* tmp = reinterpret_cast<bf16*>(smem + L.tmp);      // [2][W][cpad]
-  bf16* ostage = reinterpret_cast<bf16*>(smem + L.out);
+  int* ycnt = reinterpret_cast<int*>(smem + L.ycnt);
+  uint2* ypk = reinterpret_cast<uint2*>(smem + L.ypk);
+  int* span = reinterpret_cast<int*>(smem + L.span);       // xlo, xhi
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k = blockIdx.x, b = blockIdx.y;   // the parts of an image run side by side
   const int R = rows + 2, SP = S + 2;
-  const int G = d.cpad / 8, G8 = d.c8 / 8;    // 8-channel groups: crop, staged row
-  const int n_chunks = kChunked ? (C + d.cpad - 1) / d.cpad : 1;
+  const int npad = (O + kN - 1) / kN * kN;
+  const int n_chunks = (C + CH - 1) / CH;
   const bf16* wy_bk = wy + (size_t(b) * K + k) * S * H;
   const bf16* wx_bk = wx + (size_t(b) * K + k) * S * W;
   const bf16* f_b = feats + size_t(b) * H * W * C;
-  const size_t row_elems = size_t(W) * C;
-  // a feature row is whole 16-byte chunks when C % 8 == 0; else it is
-  // copied element by element into the padded staging layout
-  const bool vec_rows = C % 8 == 0 && (reinterpret_cast<uintptr_t>(feats) & 15) == 0;
-
-  // The part's packed weight tile of chunk cc, asynchronously.
-  auto issue_weights = [&](int cc) {
-    const bf16* w_k = wpack + (size_t(k) * n_chunks + cc) * d.npad * d.kdim;
-    const int chunks = d.kdim / 8;
-    for (int i = tid; i < d.npad * chunks; i += kThreads) {
-      const int n = i / chunks, q = i - n * chunks;
-      cp_async16(wts + size_t(n) * d.kp + q * 8, w_k + size_t(n) * d.kdim + q * 8);
-    }
-    cp_async_commit();
-  };
-
-  // Set-up: the packed weight tile (of all of C), the bias in fp32, the x
-  // lists, and the ring's zero padding columns.
-  if (!kChunked) issue_weights(0);
-  for (int n = tid; n < d.npad; n += kThreads)
-    bsm[n] = n < O ? __bfloat162float(bias[size_t(k) * O + n]) : 0.f;
-  for (int x = warp; x < S; x += kWarps) {
-    const int n = compact_row(wx_bk + size_t(x) * W, W, xidx + size_t(x) * W, xval + size_t(x) * W, lane);
-    __syncwarp();
-    if (lane == 0) {
-      xcnt[x] = n;
-      uint2 pk = make_uint2(0xffffu, 0u);   // more than two taps: read the list
-      if (n <= 2) {
-        const unsigned i0 = n > 0 ? xidx[x * W] : 0, i1 = n > 1 ? xidx[x * W + 1] : i0;
-        const unsigned v0 = n > 0 ? __bfloat16_as_ushort(xval[x * W]) : 0u;
-        const unsigned v1 = n > 1 ? __bfloat16_as_ushort(xval[x * W + 1]) : 0u;
-        pk = make_uint2(i0 | i1 << 16, v0 | v1 << 16);   // no taps: both weights 0
-      }
-      xpk[x] = pk;
-    }
-  }
-  const uint4 zero16 = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < R * 2 * G; i += kThreads) {
-    const int g = i % G, rc = i / G, col = (rc & 1) ? S + 1 : 0;
-    st16(ring + (size_t(rc >> 1) * SP + col) * d.cps + g * 8, zero16);
-  }
-
-  // Copies the feature rows of work item i (a row of one or two taps),
-  // channels cbase on of columns xlo..xhi, into staging buffer i & 1; a row of
-  // more taps reads global memory instead.
-  auto issue = [&](int i, int cbase) {
-    const int r = items[i], n = ycnt[r], xlo = ycnt[R + 1];
-    const int npx = ycnt[R + 2] - xlo + 1;
-    bf16* dst = stage + size_t(i & 1) * 2 * W * d.c8;
-    for (int tap = 0; tap < n && n <= 2; ++tap) {
-      const bf16* src = f_b + size_t(yidx[r * H + tap]) * row_elems + size_t(xlo) * C + cbase;
-      bf16* to = dst + size_t(tap) * W * d.c8;
-      if (kChunked) {   // the chunk's channels of each pixel
-        const int cn = min(d.cpad, C - cbase);
-        if (vec_rows) {
-          const int cg = cn / 8;
-          for (int q = tid; q < npx * cg; q += kThreads) {
-            const int w = q / cg, g = q - w * cg;
-            cp_async16(to + w * d.c8 + g * 8, src + size_t(w) * C + g * 8);
-          }
-        } else {
-          for (int e = tid; e < npx * cn; e += kThreads) {
-            const int w = e / cn, c = e - w * cn;
-            to[w * d.c8 + c] = src[size_t(w) * C + c];
-          }
-        }
-      } else {          // whole pixels: one contiguous span
-        const int span = npx * C;
-        if (vec_rows) {
-          for (int q = tid; q < span / 8; q += kThreads) cp_async16(to + q * 8, src + q * 8);
-        } else {
-          for (int e = tid; e < span; e += kThreads) {
-            const int w = e / C;
-            to[w * d.c8 + e - w * C] = src[e];
-          }
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  const int n_tiles = (S + rows - 1) / rows;
+  const bool vec = C % 8 == 0 && (reinterpret_cast<uintptr_t>(feats) & 15) == 0;
   bf16* out_bk = out + (size_t(b) * K + k) * S * S * O;
-  const uint32_t ring_s = smem_u32(ring), wts_s = smem_u32(wts);
+
+  // Set-up: the taps of every crop row and column (a thread a row), the
+  // columns the x taps read (xlo..xhi) and each group of 16 crop columns
+  // reads, the bias in fp32; tmp zeroed (the MMAs read past its written
+  // columns, and multiply what they find there by 0).
+  const int n_xg = (S + 15) / 16;
+  if (tid == 0) {
+    span[0] = W;
+    span[1] = -1;
+  }
+  for (int i = tid; i < n_xg; i += kTcThreads) {
+    xwin[i] = W;
+    xwin[n_xg + i] = -1;
+  }
+  for (int n = tid; n < npad; n += kTcThreads) bsm[n] = n < O ? __bfloat162float(bias[size_t(k) * O + n]) : 0.f;
+  for (int i = tid; i < (R * W + kXk) * G; i += kTcThreads) st16(tmp + size_t(i) * 8, make_uint4(0u, 0u, 0u, 0u));
+  __syncthreads();
+  for (int i = tid; i < 2 * S; i += kTcThreads) {
+    uint2 pk;
+    int lo, hi;
+    if (i >= S) {
+      const int n = scan_taps(wx_bk + size_t(i - S) * W, W, pk, lo, hi);
+      xcnt[i - S] = n;
+      if (n > 0) {
+        atomicMin(&span[0], lo);
+        atomicMax(&span[1], hi);
+        atomicMin(&xwin[(i - S) / 16], lo);
+        atomicMax(&xwin[n_xg + (i - S) / 16], hi);
+      }
+    } else {
+      ycnt[i] = scan_taps(wy_bk + size_t(i) * H, H, pk, lo, hi);
+      ypk[i] = pk;
+    }
+  }
+  __syncthreads();
+  const int xlo = span[0], npx = max(span[1] - xlo + 1, 0);
+  // a group whose taps fit kXk columns from its first, wlo, gets its A tile
+  // A[x][j] = wx[x][wlo + j] (the main loop's first barrier publishes it);
+  // the others, and groups without taps, take the CUDA cores
+  for (int i = tid; i < n_xg * 16 * kXk; i += kTcThreads) {
+    const int x = i / kXk, xg = x / 16, j = i % kXk;
+    const int wlo = xwin[xg], whi = xwin[n_xg + xg];
+    const bool mma = whi >= wlo && whi - wlo < kXk;
+    xa[size_t(x) * kXa + j] = mma && x < S && wlo + j < W ? wx_bk[size_t(x) * W + wlo + j] : __float2bfloat16_rn(0.f);
+  }
+  const uint32_t crop_s = smem_u32(crop), wts_s = smem_u32(wts), tmp_s = smem_u32(tmp), xa_s = smem_u32(xa);
+  const int n_tiles = (S + rows - 1) / rows;
+  bool weights_ready = false;
+
   for (int t = 0; t < n_tiles; ++t) {
-    const int y0 = t * rows, rv = min(rows, S - y0);
-    // crop rows g_lo .. y0 + rv are built now; the first tile also builds
-    // the halo row above, later tiles find rows y0 - 1 and y0 in the ring
-    // (in chunks, the ring holds one chunk: every tile builds its halo)
-    const int g_lo = t == 0 || kChunked ? y0 - 1 : y0 + 1;
-    const int nb = y0 + rv - g_lo + 1;
+    const int y0 = t * rows, rv = min(rows, S - y0), n_pix = rv * S;
+    const int n_m16 = (n_pix + 15) / 16;
+    const int my_tiles = n_m16 > warp ? (n_m16 - warp + kTcWarps - 1) / kTcWarps : 0;   // warp's 16-pixel tiles
+    for (int nc = 0; nc < npad; nc += kN) {   // output channels kN at a time (one pass when O <= kN)
+      float acc[kTcMT][3][4];
+#pragma unroll
+      for (int j = 0; j < kTcMT; ++j)
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
 
-    for (int r = warp; r < nb; r += kWarps) {
-      const int gy = g_lo + r;
-      const int n = (gy >= 0 && gy < S)
-                        ? compact_row(wy_bk + size_t(gy) * H, H, yidx + r * H, yval + r * H, lane)
-                        : 0;
-      if (lane == 0) ycnt[r] = n;
-    }
-    __syncthreads();
-    if (tid == 0) {   // the work items: rows with taps, in order
-      int m = 0;
-      for (int r = 0; r < nb; ++r)
-        if (ycnt[r] != 0) items[m++] = r;
-      ycnt[R] = m;
-      if (t == 0) {   // the feature columns the x lists read: xlo..xhi
-        int lo = W, hi = -1;
-        for (int x = 0; x < S; ++x) {
-          const int n = xcnt[x];
-          if (n != 0) {
-            lo = min(lo, int(xidx[x * W]));
-            hi = max(hi, int(xidx[x * W + n - 1]));
+      for (int cc = 0; cc < n_chunks; ++cc) {
+        const int cbase = cc * CH;
+        // y-interpolation: tmp[r][w][c] = round(sum of crop row r's taps of
+        // feature column xlo + w). A job is one (column, channel group) of
+        // two crop rows, whose loads are in flight together; rows without
+        // taps are left out.
+        {
+          const int ny = npx * G;
+#pragma unroll 1
+          for (int q = tid; q < ny * ((R + 1) / 2); q += kTcThreads) {
+            const int rp = q / ny, w = (q - rp * ny) / G, g = q % G, r = 2 * rp;
+            const int c0 = cbase + g * 8;
+            const bf16* col = f_b + size_t(xlo + w) * C + c0;
+            uint4 f[2][2];
+            float w0[2], w1[2];
+            int n[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int gy = y0 - 1 + r + u;
+              n[u] = r + u < R && gy >= 0 && gy < S ? ycnt[gy] : 0;
+              w0[u] = w1[u] = 0.f;
+              f[u][0] = f[u][1] = make_uint4(0u, 0u, 0u, 0u);
+              if (n[u] > 0 && n[u] <= 2) {
+                const uint2 pk = ypk[gy];
+                w0[u] = lo_bf16(pk.y);
+                w1[u] = hi_bf16(pk.y);
+                f[u][0] = feat8(col + size_t(pk.x & 0xffffu) * W * C, c0, C, vec);
+                f[u][1] = feat8(col + size_t(pk.x >> 16) * W * C, c0, C, vec);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              if (n[u] == 0) continue;
+              float a[8], v[8];
+              if (n[u] <= 2) {
+                unpack8(f[u][0], v);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) a[e] = fmaf(w0[u], v[e], 0.f);
+                unpack8(f[u][1], v);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) a[e] = fmaf(w1[u], v[e], a[e]);
+              } else {   // a dense row: every non-zero tap, in order
+#pragma unroll
+                for (int e = 0; e < 8; ++e) a[e] = 0.f;
+                const int gy = y0 - 1 + r + u;
+                for (int h = 0; h < H; ++h) {
+                  const float wv = __bfloat162float(wy_bk[size_t(gy) * H + h]);
+                  if (wv == 0.f) continue;
+                  unpack8(feat8(col + size_t(h) * W * C, c0, C, vec), v);
+#pragma unroll
+                  for (int e = 0; e < 8; ++e) a[e] = fmaf(wv, v[e], a[e]);
+                }
+              }
+              const int qt = (r + u) * npx + w;
+              st16(tmp + size_t(qt) * CH + (g ^ swz(qt)) * 8, pack8(a));
+            }
           }
         }
-        ycnt[R + 1] = lo;
-        ycnt[R + 2] = hi;
-      }
-    }
-    for (int i = tid; i < nb * SP * G; i += kThreads) {   // rows without taps are zero
-      const int r = i / (SP * G);
-      if (ycnt[r] != 0) continue;
-      const int rem = i - r * SP * G;
-      st16(ring + (size_t((g_lo + r + 1) % R) * SP + rem / G) * d.cps + (rem % G) * 8, zero16);
-    }
-    __syncthreads();
-
-    const int n_items = ycnt[R];
-    for (int cc = 0; cc < n_chunks; ++cc) {
-      const int cbase = cc * d.cpad;
-      if (kChunked) issue_weights(cc);
-      // Crop build, a row a step: step i copies row i + 1's feature rows
-      // (asynchronous), y-interpolates row i and x-interpolates row i - 1.
-      if (n_items > 0) issue(0, cbase);
-      for (int i = 0; i <= n_items; ++i) {
+        __syncthreads();   // tmp is whole; every warp is done with the last MMAs
+        if (!weights_ready) {   // this chunk's packed weight tile, asynchronously
+          const bf16* w_k = wpack + (size_t(k) * n_chunks + cc) * npad * (9 * CH);
+          constexpr int vecs = 9 * CH / 8;
+          for (int i = tid; i < npad * vecs; i += kTcThreads) {
+            const int n = i / vecs, qv = i - n * vecs;
+            cp_async16(wts + size_t(n) * kp + qv * 8, w_k + size_t(n) * (9 * CH) + qv * 8);
+          }
+          cp_async_commit();
+          weights_ready = n_chunks == 1;   // one chunk: its tile stays for every tile
+        }
+        // x-interpolation into the crop, rounded, on the tensor cores: a unit
+        // is one crop row and one group of 16 crop columns, the group's A
+        // tile (16 x kXk) times kXk columns of the row's tmp from the group's
+        // first tap column (`ldmatrix.trans`), stored by `stmatrix`. Groups
+        // without an A tile take the CUDA cores; rows outside the image and
+        // rows without taps are zero, as are crop columns 0 and S + 1.
+        for (int i = tid; i < R * 2 * G; i += kTcThreads) {
+          const int g = i % G, rc = i / G;
+          st16(crop + (size_t(rc >> 1) * SP + ((rc & 1) ? S + 1 : 0)) * cps + g * 8, make_uint4(0u, 0u, 0u, 0u));
+        }
+#pragma unroll 1
+        for (int u = warp; u < R * n_xg; u += kTcWarps) {
+          const int r = u / n_xg, xg = u - r * n_xg, x0 = xg * 16, gy = y0 - 1 + r;
+          const bool live = gy >= 0 && gy < S && ycnt[gy] > 0;
+          const int wlo = xwin[xg], whi = xwin[n_xg + xg];
+          if (live && whi >= wlo && whi - wlo < kXk) {
+            const int nks = whi - wlo < 16 ? 1 : 2;   // 16-deep steps that hold the group's taps
+            uint32_t a[2][4];
+            const uint32_t xa_lane = xa_s + uint32_t(((x0 + (lane & 15)) * kXa + (lane >> 4) * 8) * 2);
+            ldsm_x4(xa_lane, a[0][0], a[0][1], a[0][2], a[0][3]);
+            if (nks > 1) ldsm_x4(xa_lane + 32, a[1][0], a[1][1], a[1][2], a[1][3]);
+            // lane l gives row l & 15 of the B tiles (tmp column) and of the
+            // stored tiles (crop column; past S, the crop's unread channel
+            // padding of column 0)
+            const int qk = r * npx + wlo - xlo + (lane & 15);
+            const bool in = x0 + (lane & 15) < S;
+            const uint32_t dst = crop_s + uint32_t(((r * SP + x0 + (lane & 15) + 1) * cps + (lane >> 4) * 8) * 2);
+            const uint32_t trash = crop_s + uint32_t((r * SP * cps + CH) * 2);
+#pragma unroll
+            for (int np = 0; np < CH / 16; ++np) {
+              float d[2][4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) d[0][e] = d[1][e] = 0.f;
+#pragma unroll
+              for (int ks = 0; ks < 2; ++ks) {
+                if (ks >= nks) break;
+                const int q = qk + ks * 16, g = np * 2 + (lane >> 4);
+                uint32_t bt[4];
+                ldsm_x4_trans(tmp_s + uint32_t((q * CH + (g ^ swz(q)) * 8) * 2), bt[0], bt[1], bt[2], bt[3]);
+                mma_bf16(d[0], a[ks], bt[0], bt[1]);
+                mma_bf16(d[1], a[ks], bt[2], bt[3]);
+              }
+              stsm_x4(in ? dst + np * 32 : trash, pack2(d[0][0], d[0][1]), pack2(d[0][2], d[0][3]), pack2(d[1][0], d[1][1]),
+                      pack2(d[1][2], d[1][3]));
+            }
+          } else {   // a lane a (column, channel group): every non-zero tap, in order, or zero
+            for (int it = lane; it < 16 * G; it += 32) {
+              const int x = x0 + it / G, g = it % G;
+              if (x >= S) continue;
+              float acc8[8];
+#pragma unroll
+              for (int e = 0; e < 8; ++e) acc8[e] = 0.f;
+              for (int w = live && xcnt[x] > 0 ? 0 : npx; w < npx; ++w) {
+                const float wv = __bfloat162float(wx_bk[size_t(x) * W + xlo + w]);
+                if (wv == 0.f) continue;
+                const int q = r * npx + w;
+                float f0[8];
+                unpack8(ld16(tmp + size_t(q) * CH + (g ^ swz(q)) * 8), f0);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) acc8[e] = fmaf(wv, f0[e], acc8[e]);
+              }
+              st16(crop + (size_t(r) * SP + x + 1) * cps + g * 8, pack8(acc8));
+            }
+          }
+        }
         cp_async_wait<0>();
-        __syncthreads();
-        if (i + 1 < n_items) issue(i + 1, cbase);
-        // each thread takes one channel group of every P-th pixel: no division
-        // in the loops (computed here, from a thread index the compiler does
-        // not hoist, so that it holds no register through the MMAs)
-        const int tv = thread_index(), P = kThreads / G;
-        const int gq = tv % G, pq = tv < P * G ? tv / G : S + W;
-        const int xlo = ycnt[R + 1], xhi = ycnt[R + 2];
-        if (i < n_items) {   // y-interpolation: tmp[i & 1][w][c] = round(sum of the row's taps)
-          const int r = items[i], n = ycnt[r];
-          bf16* tw = tmp + size_t(i & 1) * W * d.cpad;
-          const float w0 = __bfloat162float(yval[r * H]);
-          const float w1 = n > 1 ? __bfloat162float(yval[r * H + 1]) : 0.f;
-          const bf16* s0 = stage + size_t(i & 1) * 2 * W * d.c8;
-          const bf16* s1 = s0 + size_t(W) * d.c8;
-          const int g = gq;
-          for (int w = xlo + pq; w <= xhi; w += P) {
-            const int ws = w - xlo;
-            float acc[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-            if (n <= 2) {
-              if (g < G8) {
-                float f[8];
-                unpack8(ld16(s0 + ws * d.c8 + g * 8), f);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) acc[e] = fmaf(w0, f[e], acc[e]);
-                if (n > 1) {
-                  unpack8(ld16(s1 + ws * d.c8 + g * 8), f);
-#pragma unroll
-                  for (int e = 0; e < 8; ++e) acc[e] = fmaf(w1, f[e], acc[e]);
-                }
-              }
-            } else {   // a dense row: every tap from global memory, in order
-              for (int j = 0; j < n; ++j) {
-                const float wv = __bfloat162float(yval[r * H + j]);
-                const bf16* src = f_b + size_t(yidx[r * H + j]) * row_elems + size_t(w) * C + cbase + g * 8;
-#pragma unroll
-                for (int e = 0; e < 8; ++e)
-                  if (cbase + g * 8 + e < C) acc[e] = fmaf(wv, __bfloat162float(src[e]), acc[e]);
-              }
-            }
-#pragma unroll
-            for (int e = 0; e < 8; ++e) acc[e] = cbase + g * 8 + e < C ? acc[e] : 0.f;   // zero channel padding
-            st16(tw + ws * d.cpad + g * 8, pack8(acc));
-          }
-        }
-        if (i > 0) {   // x-interpolation of row i - 1 into its ring slot, rounded
-          const bf16* tr = tmp + size_t((i - 1) & 1) * W * d.cpad;
-          bf16* crow = ring + size_t((g_lo + items[i - 1] + 1) % R) * SP * d.cps;
-          const int g = gq;
-          for (int x = pq; x < S; x += P) {
-            const uint2 pk = xpk[x];
-            float acc[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-            if ((pk.x & 0xffffu) != 0xffffu) {   // two taps, one (the second weighs 0) or none
-              if (pk.y != 0u) {
-                const float w0 = __bfloat162float(__ushort_as_bfloat16(pk.y & 0xffffu));
-                const float w1 = __bfloat162float(__ushort_as_bfloat16(pk.y >> 16));
-                float f0[8], f1[8];
-                unpack8(ld16(tr + (int(pk.x & 0xffffu) - xlo) * d.cpad + g * 8), f0);
-                unpack8(ld16(tr + (int(pk.x >> 16) - xlo) * d.cpad + g * 8), f1);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) acc[e] = fmaf(w1, f1[e], fmaf(w0, f0[e], 0.f));
-              }
-            } else {
-              for (int jj = 0; jj < xcnt[x]; ++jj) {
-                const float wv = __bfloat162float(xval[x * W + jj]);
-                float f[8];
-                unpack8(ld16(tr + (xidx[x * W + jj] - xlo) * d.cpad + g * 8), f);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) acc[e] = fmaf(wv, f[e], acc[e]);
-              }
-            }
-            st16(crow + (x + 1) * d.cps + g * 8, pack8(acc));
-          }
-        }
-      }
-      cp_async_wait<0>();   // the weight tile, when no row had a tap
-      __syncthreads();
+        __syncthreads();   // the crop and the weight tile are whole
 
-      // The conv as an implicit GEMM on the tensor cores; in chunks, the
-      // sums wait in accsm between chunks and the last one writes them.
-      const bool last = cc + 1 == n_chunks;
-      const int n_pix = rv * S;
-      const size_t span0 = size_t(y0) * S * O;   // the tile's first output in out_bk
-      const int mis = int((reinterpret_cast<uintptr_t>(out_bk + span0) & 15) >> 1);
-      for (int m0 = warp * 32; m0 < n_pix; m0 += kWarps * 32) {   // two 16-pixel tiles a warp
-        uint32_t arow[2][3];
+        // The chunk's share of the GEMM depth: 9 taps x CH channels. Lane l
+        // gives ldmatrix the address of pixel row l & 15 of each of its tiles.
+        uint32_t arow[kTcMT];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int p = min(m0 + mt * 16 + (lane & 15), n_pix - 1);
+        for (int j = 0; j < kTcMT; ++j) {
+          const int p = min((warp + j * kTcWarps) * 16 + (lane & 15), n_pix - 1);
           const int ty = p / S, x = p - ty * S;
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy)
-            arow[mt][dy] =
-                ring_s + uint32_t(((((y0 + ty + dy) % R) * SP + x) * d.cps + (lane >> 4) * 8) * 2);
+          arow[j] = crop_s + uint32_t(((ty * SP + x) * cps + (lane >> 4) * 8) * 2);
         }
-        for (int nc = 0; nc < d.npad; nc += kN) {
-          float acc[2][3][4];
-          float* aslot = accsm + ((m0 / 32) * (d.npad / kN) + nc / kN) * 24 * 32 + lane;
+        const uint32_t koff = ((lane >> 3) & 1) * 8;
+        const uint32_t b01 = wts_s + uint32_t(((nc + (lane & 7) + ((lane >> 4) << 3)) * kp + koff) * 2);
+        const uint32_t b2 = wts_s + uint32_t(((nc + 16 + (lane & 7)) * kp + koff) * 2);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
+        for (int tap = 0; tap < 9; ++tap) {
+          const uint32_t a_tap = uint32_t(((tap / 3) * SP + tap % 3) * cps * 2);
 #pragma unroll
-            for (int nt = 0; nt < 3; ++nt)
+          for (int cs = 0; cs < CH; cs += 16) {
+            uint32_t bq[4], bp[2];
+            ldsm_x4(b01 + (tap * CH + cs) * 2, bq[0], bq[1], bq[2], bq[3]);
+            ldsm_x2(b2 + (tap * CH + cs) * 2, bp[0], bp[1]);
 #pragma unroll
-              for (int e = 0; e < 4; ++e)
-                acc[mt][nt][e] = kChunked && cc > 0 ? aslot[((mt * 3 + nt) * 4 + e) * 32] : 0.f;
-          const uint32_t koff = ((lane >> 3) & 1) * 8;
-          const uint32_t b01 = wts_s + uint32_t(((nc + (lane & 7) + ((lane >> 4) << 3)) * d.kp + koff) * 2);
-          const uint32_t b2 = wts_s + uint32_t(((nc + 16 + (lane & 7)) * d.kp + koff) * 2);
-#pragma unroll
-          for (int tap = 0; tap < 9; ++tap) {
-            const uint32_t a_shift = uint32_t((tap % 3) * d.cps * 2);
-            const uint32_t b_tap = uint32_t(tap * d.cpad * 2);
-            for (int cs = 0; cs < d.cpad; cs += 16) {
-              uint32_t a[2][4], bq[4], bp[2];
-              ldsm_x4(arow[0][tap / 3] + a_shift + cs * 2, a[0][0], a[0][1], a[0][2], a[0][3]);
-              ldsm_x4(arow[1][tap / 3] + a_shift + cs * 2, a[1][0], a[1][1], a[1][2], a[1][3]);
-              ldsm_x4(b01 + b_tap + cs * 2, bq[0], bq[1], bq[2], bq[3]);
-              ldsm_x2(b2 + b_tap + cs * 2, bp[0], bp[1]);
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                mma_bf16(acc[mt][0], a[mt], bq[0], bq[1]);
-                mma_bf16(acc[mt][1], a[mt], bq[2], bq[3]);
-                mma_bf16(acc[mt][2], a[mt], bp[0], bp[1]);
+            for (int j = 0; j < kTcMT; ++j) {
+              if (j < my_tiles) {
+                uint32_t a[4];
+                ldsm_x4(arow[j] + a_tap + cs * 2, a[0], a[1], a[2], a[3]);
+                mma_bf16(acc[j][0], a, bq[0], bq[1]);
+                mma_bf16(acc[j][1], a, bq[2], bq[3]);
+                mma_bf16(acc[j][2], a, bp[0], bp[1]);
               }
             }
           }
-          if (kChunked && !last) {   // park the sums until the next chunk
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int nt = 0; nt < 3; ++nt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) aslot[((mt * 3 + nt) * 4 + e) * 32] = acc[mt][nt][e];
-            continue;
-          }
-          // bias in fp32, round, into the output stage
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 3; ++nt)
-#pragma unroll
-              for (int hf = 0; hf < 2; ++hf) {
-                const int pr = m0 + mt * 16 + (lane >> 2) + hf * 8;
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                  const int n = nc + nt * 8 + (lane & 3) * 2 + e;
-                  if (pr < n_pix && n < O)
-                    ostage[mis + pr * O + n] = __float2bfloat16_rn(acc[mt][nt][hf * 2 + e] + bsm[n]);
-                }
-              }
         }
       }
-      if (!last) __syncthreads();   // the next chunk overwrites the ring and the weight tile
+      __syncthreads();   // every warp is done reading the crop: the output stage takes its bytes
+
+      // bias in fp32, round, into the stage [pixel][on]: outputs nc..nc + on
+      const int on = min(kN, O - nc);
+      const bool whole = on == O;   // the tile's outputs are one contiguous span
+      const size_t span0 = size_t(y0) * S * O;
+      const int mis = whole ? int((reinterpret_cast<uintptr_t>(out_bk + span0) & 15) >> 1) : 0;
+      bf16* ostage = crop;
+#pragma unroll
+      for (int j = 0; j < kTcMT; ++j) {
+        if (j >= my_tiles) continue;
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int pr = (warp + j * kTcWarps) * 16 + (lane >> 2) + hf * 8;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = nt * 8 + (lane & 3) * 2 + e;
+              if (pr < n_pix && n < on)
+                ostage[mis + pr * on + n] = __float2bfloat16_rn(acc[j][nt][hf * 2 + e] + bsm[nc + n]);
+            }
+          }
+      }
+      __syncthreads();
+      if (whole) {   // 16-byte stores (the stage is offset by the span's misalignment)
+        const int total = n_pix * O;
+        bf16* dst = out_bk + span0;
+        const int head = min(total, (8 - mis) & 7);
+        for (int e = tid; e < head; e += kTcThreads) dst[e] = ostage[mis + e];
+        const int n_vec = (total - head) / 8;
+        uint4* dv = reinterpret_cast<uint4*>(dst + head);
+        const uint4* sv = reinterpret_cast<const uint4*>(ostage + mis + head);
+        for (int qv = tid; qv < n_vec; qv += kTcThreads) dv[qv] = sv[qv];
+        for (int e = head + n_vec * 8 + tid; e < total; e += kTcThreads) dst[e] = ostage[mis + e];
+      } else {
+        for (int e = tid; e < n_pix * on; e += kTcThreads) {
+          const int pr = e / on;
+          out_bk[span0 + size_t(pr) * O + nc + (e - pr * on)] = ostage[e];
+        }
+      }
+      // the next pass or tile rebuilds the crop only after its first barrier
     }
-    __syncthreads();
-
-    // The tile's rows are one contiguous span of the output: 16-byte stores
-    // (the stage is offset by the span's misalignment, so both sides align).
-    const int n_pix = rv * S;
-    const size_t span0 = size_t(y0) * S * O;
-    const int mis = int((reinterpret_cast<uintptr_t>(out_bk + span0) & 15) >> 1);
-    const int total = n_pix * O;
-    bf16* dst = out_bk + span0;
-    const int head = min(total, (8 - mis) & 7);
-    for (int e = tid; e < head; e += kThreads) dst[e] = ostage[mis + e];
-    const int n_vec = (total - head) / 8;
-    uint4* dv = reinterpret_cast<uint4*>(dst + head);
-    const uint4* sv = reinterpret_cast<const uint4*>(ostage + mis + head);
-    for (int q = tid; q < n_vec; q += kThreads) dv[q] = sv[q];
-    for (int e = head + n_vec * 8 + tid; e < total; e += kThreads) dst[e] = ostage[mis + e];
-    __syncthreads();
   }
-}
-
-// The chunk of channels the bf16 kernel takes at a time for this shape: all
-// of C (padded to 16) where that fits in shared memory, else kChunk; 0 if
-// neither fits.
-int bf16_chunk(int H, int W, int C, int S, int O) {
-  const int cpad = (C + 15) / 16 * 16;
-  size_t bytes = 0;
-  const int candidates[2] = {cpad, kChunk};
-  for (const int chunk : candidates) {
-    if (chunk > cpad) break;
-    const int c = chunk < cpad ? chunk : 0;
-    if (pick_rows([&](int r) { return make_tc_layout(r, H, W, C, S, O, c).total; }, &bytes) != 0)
-      return chunk;
-  }
-  return 0;
 }
 
 int launch_bf16(const void* feats, const void* wy, const void* wx, const void* wpack,
-                const void* bias, void* out, int B, int H, int W, int C, int S, int K, int O,
-                int chunk, cudaStream_t stream) {
-  // int16 lists; every thread of the interpolations needs a channel group;
-  // the chunk is all of C padded to 16, or a multiple of 16 below that
-  const int cpad = (C + 15) / 16 * 16;
-  if (H > 32767 || W > 32767 || chunk <= 0 || chunk % 16 != 0 || chunk > cpad || chunk / 8 > kThreads)
+                     const void* bias, void* out, int B, int H, int W, int C, int S, int K, int O,
+                     int rows, int chunk, cudaStream_t stream) {
+  // int16 tap indices; a tile's pixels within the warps' MMA tiles; a chunk
+  // of 16 or 32 channels
+  if (H > 32767 || W > 32767 || rows < 1 || rows * S > kTcWarps * kTcMT * 16 || (chunk != 16 && chunk != 32))
     return int(cudaErrorInvalidValue);
-  if (chunk == cpad) chunk = 0;   // all of C
-  size_t bytes = 0;
-  const int rows =
-      pick_rows([&](int r) { return make_tc_layout(r, H, W, C, S, O, chunk).total; }, &bytes);
-  if (rows == 0) return int(cudaErrorInvalidValue);
-  const auto kernel = chunk != 0 ? part_crop_head_bf16_kernel<true> : part_crop_head_bf16_kernel<false>;
+  const size_t bytes = make_bf16_layout(rows, W, S, O, chunk).total;
+  if (bytes > 227 * 1024) return int(cudaErrorInvalidValue);
+  const auto kernel = chunk == 16 ? part_crop_head_bf16_kernel<16> : part_crop_head_bf16_kernel<32>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              int(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(K, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const bf16*>(feats), static_cast<const bf16*>(wy), static_cast<const bf16*>(wx),
       static_cast<const bf16*>(wpack), static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-      H, W, C, S, K, O, rows, chunk);
+      H, W, C, S, K, O, rows);
   return int(cudaGetLastError());
 }
 
@@ -918,17 +849,20 @@ extern "C" int part_crop_head(int dtype, const void* feats, const void* wy, cons
   }
 }
 
-// The channel chunk `part_crop_head_bf16` takes for this shape (see
-// bf16_chunk); the wrapper packs the weights to match.
-extern "C" int part_crop_head_bf16_chunk(int H, int W, int C, int S, int O) {
-  return bf16_chunk(H, W, C, S, O);
+// The bf16 kernel's shared memory in bytes for tiles of `rows` rows and a
+// channel chunk of `chunk` (`kernels/part_crop_head.py::bf16_rows` reads it).
+extern "C" long long part_crop_head_bf16_bytes(int rows, int W, int S, int O, int chunk) {
+  return (long long)make_bf16_layout(rows, W, S, O, chunk).total;
 }
 
-// bf16: the tensor-core kernel; wpack is `pack_head_weights`' (K, chunks,
-// npad, 9 * chunk) tile for `chunk`. Returns a cudaError_t.
+// bf16: the tensor-core kernel in tiles of `rows` rows and channel chunks of
+// `chunk` (16 or 32; `kernels/part_crop_head.py::bf16_plan`); wpack is
+// `pack_head_weights`' (K, chunks, npad, 9 * chunk) tile. Returns a
+// cudaError_t.
 extern "C" int part_crop_head_bf16(const void* feats, const void* wy, const void* wx,
                                    const void* wpack, const void* bias, void* out, int B, int H,
-                                   int W, int C, int S, int K, int O, int chunk, void* stream) {
-  return launch_bf16(feats, wy, wx, wpack, bias, out, B, H, W, C, S, K, O, chunk,
+                                   int W, int C, int S, int K, int O, int rows, int chunk,
+                                   void* stream) {
+  return launch_bf16(feats, wy, wx, wpack, bias, out, B, H, W, C, S, K, O, rows, chunk,
                      static_cast<cudaStream_t>(stream));
 }

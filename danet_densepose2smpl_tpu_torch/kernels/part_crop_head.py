@@ -8,11 +8,11 @@ H100 and how its design answers is set out at the top of the CUDA source.
 `fused_part_predict` dispatches on the device of `feats`: a CPU tensor goes
 to the plain version, a CUDA tensor to a kernel, which launches or raises.
 On the card the dtype alone picks the kernel: bf16 runs the conv on the
-tensor cores, from the weights `pack_head_weights` lays out (in channel
-chunks where the features are too wide for one block's shared memory, as
-the ResNet backbone's 256 channels are: `bf16_chunk`); fp32 and f64 run the
-scalar kernel, which chunks its channels alike. `fused_part_predict.launches`
-counts kernel launches. The kernels have no backward (nor had the TPU kernel), so on
+tensor cores, taking the channels in chunks of 16 or 32 with the tile rows
+and chunk `bf16_plan` picks, from the weights `pack_head_weights` lays out
+chunk by chunk; fp32 and f64 run the scalar kernel, which takes all of C
+where it fits its shared memory, else chunks of 32.
+`fused_part_predict.launches` counts kernel launches. The kernels have no backward (nor had the TPU kernel), so on
 every device the result carries a `grad_fn` whose backward raises: a
 gradient is never dropped silently.
 """
@@ -59,10 +59,9 @@ def pack_head_weights(kernel: torch.Tensor, num_parts: int, chunk: int | None = 
     MMA_DEPTH and O to a multiple of MMA_WIDTH, with zeros.
 
     With `chunk` (a multiple of MMA_DEPTH), the channels are packed chunk by
-    chunk, as the kernel takes them where all of C does not fit in shared
-    memory: (K, chunks, Npad, 9 * chunk), each chunk's depth in (dy, dx, c)
-    order, C padded with zeros to chunks * chunk. A chunk of Cpad gives the
-    bytes of the unchunked layout."""
+    chunk, as the kernel takes them: (K, chunks, Npad, 9 * chunk), each
+    chunk's depth in (dy, dx, c) order, C padded with zeros to chunks *
+    chunk. A chunk of Cpad gives the bytes of the unchunked layout."""
     c, ko = kernel.shape[2], kernel.shape[3]
     k, o = num_parts, ko // num_parts
     cpad = -(-c // MMA_DEPTH) * MMA_DEPTH
@@ -84,22 +83,48 @@ def load_library():
     (library, compiler report)."""
     lib, log = build("part_crop_head.cu")
     lib.part_crop_head.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.part_crop_head_bf16_chunk.argtypes = [ctypes.c_int] * 5
+    lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.part_crop_head_bf16_bytes.argtypes = [ctypes.c_int] * 5
     lib.part_crop_head.restype = lib.part_crop_head_bf16.restype = ctypes.c_int
-    lib.part_crop_head_bf16_chunk.restype = ctypes.c_int
+    lib.part_crop_head_bf16_bytes.restype = ctypes.c_longlong
     return lib, log
 
 
-def bf16_chunk(h: int, w: int, c: int, s: int, o: int) -> int:
-    """The channels the bf16 kernel takes at a time at this shape: all of C
-    padded to MMA_DEPTH where its shared memory holds them (C=48 at 56x56),
-    else a chunk of 32 (the ResNet backbone's C=256). Asks the library, on
-    the card."""
-    chunk = load_library()[0].part_crop_head_bf16_chunk(h, w, c, s, o)
-    if chunk <= 0:
+BF16_CHUNKS = (16, 32)          # the bf16 kernel's channel chunks (its template instances)
+BF16_MAX_PIXELS = 512           # a tile's pixels: 8 warps x 4 MMA tiles of 16 pixels
+SMEM_TWO_BLOCKS = 113 * 1024    # a block's shared memory when two share an SM
+# What a chunk of 32 channels costs the bf16 kernel in chunks of 16: their
+# times per chunk at B=64, S=56, 8-row tiles on an H100 (PERF.md §6, the
+# sweep of `kernels/probe_part_crop_head.py`)
+CHUNK32_COST = 1.65
+
+
+def bf16_chunk(c: int) -> int:
+    """The bf16 kernel's channel chunk at C channels: the one whose count of
+    chunks costs least (CHUNK32_COST per chunk of 32, 1 per chunk of 16)."""
+    return 32 if -(-c // 32) * CHUNK32_COST < -(-c // 16) else 16
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_rows(w: int, s: int, o: int, chunk: int) -> int:
+    """The tallest tile, of at most 8 rows, that the bf16 kernel's MMA tiles
+    hold and whose shared memory (the library's `part_crop_head_bf16_bytes`)
+    lets two blocks share an SM; 0 if none. Builds the library."""
+    smem_bytes = load_library()[0].part_crop_head_bf16_bytes
+    for rows in range(min(8, BF16_MAX_PIXELS // s), 0, -1):
+        if smem_bytes(rows, w, s, o, chunk) <= SMEM_TWO_BLOCKS:
+            return rows
+    return 0
+
+
+def bf16_plan(h: int, w: int, c: int, s: int, o: int) -> tuple[int, int]:
+    """(tile rows, channel chunk) of the bf16 kernel at this shape:
+    `bf16_chunk`, then `bf16_rows`."""
+    chunk = bf16_chunk(c)
+    rows = bf16_rows(w, s, o, chunk)
+    if rows == 0:
         raise RuntimeError(f"part_crop_head: no tile of the bf16 kernel fits (H, W, C, S, O) = {(h, w, c, s, o)}")
-    return chunk
+    return rows, chunk
 
 
 def _check(feats, wy, wx, kernel, bias, out_size):
@@ -169,11 +194,11 @@ def _fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Ten
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         if feats.dtype == torch.bfloat16:
-            chunk = bf16_chunk(h, w, c, s, o)
+            rows, chunk = bf16_plan(h, w, c, s, o)
             wpack = pack_head_weights(kernel, k, chunk)
             err = lib.part_crop_head_bf16(
                 feats.data_ptr(), wy.data_ptr(), wx.data_ptr(), wpack.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), b, h, w, c, s, k, o, chunk, stream,
+                out.data_ptr(), b, h, w, c, s, k, o, rows, chunk, stream,
             )
         else:
             kern = kernel.reshape(3, 3, c, k, o).permute(3, 0, 1, 2, 4).contiguous()  # (K,3,3,C,O)

@@ -316,13 +316,16 @@ def test_k1_plain_at_256_channels_matches_jax_kernel_interpret():
     np.testing.assert_allclose(got.numpy(), exp, atol=2e-5)
 
 
-@pytest.mark.parametrize("c,chunk", [(256, 32), (200, 32), (48, 48)])
+@pytest.mark.parametrize("c,chunk", [(256, 32), (200, 32), (48, 48), (48, 16), (64, 32), (72, 32), (264, 32),
+                                     (8, 16)])
 def test_chunked_packed_weights_gemm_matches_plain_f64(c, chunk):
     """The chunked B operand of the bf16 kernel, written out: for each chunk
     of channels, the crop's nine taps of that chunk side by side in
     (dy, dx, c) order times the chunk's packed weights, summed over the
-    chunks, plus the bias, is the plain version's grouped conv (f64,
-    1e-12). C=200 leaves a partial last chunk, padded with zeros."""
+    chunks (the kernel's register sums), plus the bias, is the plain
+    version's grouped conv (f64, 1e-12). C=200, 72, 264 and 8 leave a
+    partial last chunk, padded with zeros; the kernel takes chunks of 16
+    and 32 (`bf16_plan`)."""
     rng = np.random.RandomState(3)
     b, h, s, k, o = 1, 10, 9, 24, 21
     f = torch.from_numpy(rng.rand(b, h, h, c))
@@ -357,30 +360,34 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 200])
+@pytest.mark.parametrize("c", [64, 72, 200, 256, 264])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2), ("float64", 1e-10)])
 def test_cuda_kernel_wide_channels_match_plain(rng, cuda_device, c, dtype, tol):
-    """K1 on the card at the ResNet backbone's C=256 (the kernels take the
-    channels in chunks) and at C=200 (a partial last chunk), B=1, S=56,
-    against the plain version; bf16 relative to max|ref|."""
+    """K1 on the card at the padded HRNet's C=64, the ResNet backbone's
+    C=256 and at C=72, 200 and 264 (partial last chunks), B=1, S=56, fed by
+    bilinear boxes and by dense interpolation matrices, against the plain
+    version; bf16 relative to max|ref|."""
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     dt = getattr(torch, dtype)
     b, h, s, k, o = 1, 56, 56, 24, 21
     feats = torch.from_numpy(rng.rand(b, h, h, c)).to(cuda_device, dt)
     centers = torch.from_numpy(rng.uniform(-0.6, 0.6, (b, k, 2)))
     scales = torch.from_numpy(rng.uniform(0.2, 0.9, (b, k)))
-    wy = _axis_weights(centers[..., 1], scales, h, s, torch.float64).to(cuda_device, dt)
-    wx = _axis_weights(centers[..., 0], scales, h, s, torch.float64).to(cuda_device, dt)
+    boxes = (_axis_weights(centers[..., 1], scales, h, s, torch.float64),
+             _axis_weights(centers[..., 0], scales, h, s, torch.float64))
+    dense = (torch.from_numpy(rng.rand(b, k, s, h) / h), torch.from_numpy(rng.rand(b, k, s, h) / h))
     kern = torch.from_numpy(rng.randn(3, 3, c, k * o) * 0.05).to(cuda_device, dt)
     bi = torch.from_numpy(rng.randn(k * o) * 0.1).to(cuda_device, dt)
-    before = fused_part_predict.launches
-    got = fused_part_predict(feats, wy, wx, kern, bi, s)
-    torch.cuda.synchronize()
-    assert fused_part_predict.launches == before + 1
-    ref = part_crop_head_plain(feats, wy, wx, kern, bi, s)
-    err = (got.double() - ref.double()).abs().max().item()
-    scale = ref.double().abs().max().item() if dtype == "bfloat16" else 1.0
-    assert err <= tol * scale, (dtype, c, err, scale)
+    for wy, wx in (boxes, dense):
+        wy, wx = wy.to(cuda_device, dt), wx.to(cuda_device, dt)
+        before = fused_part_predict.launches
+        got = fused_part_predict(feats, wy, wx, kern, bi, s)
+        torch.cuda.synchronize()
+        assert fused_part_predict.launches == before + 1
+        ref = part_crop_head_plain(feats, wy, wx, kern, bi, s)
+        err = (got.double() - ref.double()).abs().max().item()
+        scale = ref.double().abs().max().item() if dtype == "bfloat16" else 1.0
+        assert err <= tol * scale, (dtype, c, err, scale)
 
 
 @pytest.mark.slow

@@ -13,6 +13,12 @@ import jax.numpy as jnp
 from danet_densepose2smpl_tpu.kernels.part_crop_head import fused_part_predict as jax_fused
 
 from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
+    BF16_MAX_PIXELS,
+    CHUNK32_COST,
+    SMEM_TWO_BLOCKS,
+    bf16_chunk,
+    bf16_plan,
+    load_library,
     fused_part_predict,
     pack_head_weights,
     part_crop_head_plain,
@@ -208,13 +214,80 @@ def test_plain_bf16_matches_jax_kernel_interpret(rng, dense):
     assert err <= 2e-2 * np.abs(exp).max(), (err, np.abs(exp).max())
 
 
+BF16_PLANS = [(48, (8, 16)), (64, (8, 32)), (72, (8, 32)), (200, (8, 32)), (256, (8, 32)), (264, (8, 32))]
+
+
+@pytest.mark.parametrize("c,plan", BF16_PLANS)
+def test_bf16_plan_choices(c, plan):
+    """The bf16 kernel's channel chunk at C channels: the chunk of 16 or 32
+    whose count of chunks costs least (a chunk of 32 costs CHUNK32_COST
+    chunks of 16). The tile rows need the library's shared-memory layout:
+    `test_cuda_bf16_plan_rows`."""
+    chunk = bf16_chunk(c)
+    assert chunk == plan[1]
+    cost = {16: -(-c // 16), 32: -(-c // 32) * CHUNK32_COST}
+    assert cost[chunk] == min(cost.values())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [8, 20])
+@pytest.mark.parametrize("c,plan", BF16_PLANS)
+def test_cuda_bf16_plan_rows(cuda_device, c, plan):
+    """The bf16 kernel's tile rows at the serving shape (56x56xC features,
+    S=56, O=21): the tallest tile (at most 8 rows) whose pixels the warps'
+    MMA tiles hold and whose shared memory, by the library's own layout,
+    lets two blocks share an SM; S=57 (the odd shapes) keeps the choice."""
+    assert bf16_plan(56, 56, c, 56, 21) == plan == bf16_plan(57, 57, c, 57, 5)
+    rows, chunk = plan
+    smem_bytes = load_library()[0].part_crop_head_bf16_bytes
+    assert rows * 56 <= BF16_MAX_PIXELS and smem_bytes(rows, 56, 56, 21, chunk) <= SMEM_TWO_BLOCKS
+    assert rows == 8 or (rows + 1) * 56 > BF16_MAX_PIXELS or smem_bytes(rows + 1, 56, 56, 21, chunk) > SMEM_TWO_BLOCKS
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["bilinear", "dense"])
+def test_x_interpolation_as_banded_mma_matches_plain_f64(rng, dense):
+    """The bf16 kernel's x-interpolation, written out: for each group of 16
+    crop columns whose taps span at most 32 feature columns, the group's A
+    tile A[x][j] = wx[x][wlo + j] (wlo its first tap column) times the 32
+    y-interpolated columns from wlo (zero past the row) is wx @ tmp for
+    those columns (f64, 1e-12); the other groups (dense matrices) are
+    summed tap by tap, as the kernel's CUDA-core path does."""
+    b, h, w, s, c = 1, 56, 56, 56, 16
+    feats = torch.from_numpy(rng.rand(b, h, w, c))
+    if dense:
+        wy, wx = torch.from_numpy(rng.rand(b, 24, s, h) / h), torch.from_numpy(rng.rand(b, 24, s, w) / w)
+    else:
+        centers = torch.from_numpy(rng.uniform(-0.6, 0.6, (b, 24, 2)))
+        scales = torch.from_numpy(rng.uniform(0.2, 0.9, (b, 24)))
+        wy = _axis_weights(centers[..., 1], scales, h, s, torch.float64)
+        wx = _axis_weights(centers[..., 0], scales, w, s, torch.float64)
+    tmp = torch.einsum("bkoh,bhwc->bkowc", wy, feats)                 # (B, K, S, W, C)
+    ref = torch.einsum("bkpw,bkowc->bkopc", wx, tmp)
+    got, mma_groups = torch.empty_like(ref), 0
+    for k in range(24):
+        for x0 in range(0, s, 16):
+            band = wx[0, k, x0:x0 + 16]
+            nz = band.nonzero()[:, 1]
+            lo, hi = (int(nz.min()), int(nz.max())) if len(nz) else (0, -1)
+            if 0 <= hi - lo < 32:
+                a = torch.zeros(16, 32, dtype=torch.float64)
+                a[:len(band), :min(32, w - lo)] = band[:, lo:lo + 32]
+                window = F.pad(tmp[0, k, :, lo:lo + 32], (0, 0, 0, 32 - min(32, w - lo)))
+                got[0, k, :, x0:x0 + 16] = torch.einsum("xj,ojc->oxc", a, window)[:, :len(band)]
+                mma_groups += 1
+            else:
+                got[0, k, :, x0:x0 + 16] = torch.einsum("xw,owc->oxc", band, tmp[0, k])
+    assert (got - ref).abs().max().item() <= 1e-12
+    assert mma_groups == (0 if dense else 24 * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 20, 72, 201])
 def test_cuda_bf16_kernel_odd_shapes(rng, cuda_device, c):
     """The tensor-core kernel where nothing is a multiple of its tiles: S=57
-    (a ragged pixel tile, unaligned output spans), C=8 and 20 (padded to
-    the MMA depth; 20 is not whole 16-byte chunks), O=5, B=1; bilinear and
-    dense weights, against the plain version at 2e-2 of max|ref|."""
+    (a ragged pixel tile, unaligned output spans), C=8, 20, 72 and 201
+    (partial last chunks; 20 and 201 are not whole 16-byte chunks), O=5,
+    B=1; bilinear and dense weights, against the plain version at 2e-2 of
+    max|ref|."""
     feats, centers, scales, kernel, bias, s = _inputs(rng, b=1, h=57, w=57, c=c, o=5, s=57)
     b, h, w, _ = feats.shape
     dt = torch.bfloat16
