@@ -22,8 +22,9 @@ cameras frame body-sized silhouettes. In phases:
      and print the compilers' `-Xptxas -v` reports; for each K1 kernel its
      registers, spill stores and the count of tensor-core instructions
      (HMMA/HGMMA) in the built library's SASS (`cuobjdump --dump-sass`):
-     the bf16 kernel's two instances (channel chunks of 16 and 32) must
-     have some and spill nothing, the fp32/f64 kernel none;
+     the bf16 kernel's two instances (channel chunks of 16 and 32) and the
+     fp32 (3xTF32) kernel's two (chunks of 8 and 16) must have some and spill
+     nothing, the f64 (scalar) kernel none;
   1. the kernel against its plain PyTorch version at the production shape
      (B=8, 56x56x48, S=56, 24 parts, 21 outputs), fed by bilinear
      `_axis_weights` matrices and by random dense ones: fp32 (TF32 off)
@@ -251,6 +252,25 @@ cameras frame body-sized silhouettes. In phases:
      (device kernels and the annotated range in its Chrome trace; late in
      this process, after phase 14, the profiler recorded no device
      events).
+ 16. K1's fp32 kernel (`part_crop_head_f32_kernel<CH>`, the conv in 3xTF32
+     on the tensor cores), which `Predictor`, `cli.eval`, `cli.eval_coco`
+     and `cli.demo` run by default; it runs after phase 13, before 14 and
+     15 (after phase 14's NCCL group and spawned ranks torch.profiler has
+     recorded no device event): (a) against its plain version with
+     TF32 off, bilinear and dense weights, within 1e-4: B=1 at C=8, 20, 48,
+     64, 72, 200, 201, 256, 264 (S=56, O=21) and at C=8, 20, 201 (S=57,
+     O=5), B=64 at C=48, B=16 at C=256; (b) at B=64 fp32 and C=48, 64, 256,
+     by CUDA events in turns (medians of two turns): the wrapper, the plain
+     version (3 calls), the unfused route (TF32 off) and its conv alone,
+     then the launch alone at `f32_plan`, at each channel chunk and of the
+     scalar kernel it replaced (the C entry `part_crop_head`, dtype 0), the
+     kernel's device ms by torch.profiler, both bounds (3xTF32 at 495
+     TFLOP/s, FFMA at 67) and a check that it beats the scalar kernel; (c)
+     8 fp32 `Predictor` requests of B=64 on HRNet-W48, the padded HRNet and
+     configs/danet_resnet.yaml (K1 at C=48, 64, 256; launches counted):
+     host ms and imgs/s, then one profiled request each: kernel ms, the
+     fp32 kernel's device ms inside it (its name must show) and the idle
+     share, beside the scalar kernel's time from (b).
 
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
@@ -272,7 +292,9 @@ C=256: its launches on the ResNet-50 serving path and (a)'s numbers) with
 `b128_chunks_launches` and `dp_launches` to `rasterize_flat_masked`;
 phase 15 adds `pad` to `part_crop_head` (K1 at C=64: its launches on the
 padded serving path and (b)'s numbers) and `remat_launches` to
-`rasterize_flat_masked` (a)), and `{"ok": true, "device": {...}}`.
+`rasterize_flat_masked` (a); phase 16 adds `fp32` to `part_crop_head`: at
+each C, the fp32 kernel's launches in (c) and (b)'s numbers), and
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -303,9 +325,13 @@ SERVE_BIG_BATCH, SERVE_BIG_REQUESTS = 256, 3
 RASTER_BATCH, TRAIN_BATCH, TRAIN_STEPS = 128, 64, 5
 EVAL_BATCH, EVAL_BATCHES = 16, 4
 PIXELS_OFF_MAX = 1e-5     # fraction of raster pixels allowed to differ from the plain version
+# fp32 serving's para error against f64 on the CPU (phases 2 and 12 (b))
+# when fp32 K1 ran the scalar kernel: this script at commit 953cbf6 on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6)
+FP32_SERVING_ERR_WAS = {"w48": 0.006006514698584264, "resnet": 1.2554476236381618e-07, "run": "commit 953cbf6"}
 # NVIDIA H100 SXM data sheet peaks (dense): the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}   # bf16 tensor cores; fp32 outside them
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}   # tensor cores; fp32 outside them
 # fp32 operations of one (pixel, face) candidate in the raster: three edge
 # functions (2 subtractions, a product and a fused multiply-add each), their
 # three sign products, three divisions and the depth (a product and two
@@ -393,13 +419,14 @@ def phase0_environment():
         print(f"phase 0: K1 {name}: {r['registers']} registers, {r['spill_stores']} bytes of spill stores, "
               f"{r['mma']} tensor-core instructions (HMMA/HGMMA) in the SASS")
     tc = {}
-    for chunk in part_crop_head.BF16_CHUNKS:   # the bf16 kernel's instances, one per channel chunk
-        name = f"part_crop_head_bf16_kernel<{chunk}>"
-        r = tc[name] = reports.get(name)
-        check(r is not None and r["mma"] > 0 and r["spill_stores"] == 0,
-              f"the bf16 K1 kernel {name} runs on the tensor cores and spills nothing: {r}")
-    check(all(r["mma"] == 0 for n, r in reports.items() if not n.startswith("part_crop_head_bf16_kernel")),
-          "the fp32/f64 K1 kernel is the scalar one")
+    for kind, chunks in (("bf16", part_crop_head.BF16_CHUNKS), ("f32", part_crop_head.F32_CHUNKS)):
+        for chunk in chunks:   # the bf16 and the fp32 (3xTF32) kernel's instances, one per channel chunk
+            name = f"part_crop_head_{kind}_kernel<{chunk}>"
+            r = tc[name] = reports.get(name)
+            check(r is not None and r["mma"] > 0 and r["spill_stores"] == 0,
+                  f"the {kind} K1 kernel {name} runs on the tensor cores and spills nothing: {r}")
+    r = reports.get("part_crop_head_kernel<double>")
+    check(r is not None and r["mma"] == 0, f"the f64 K1 kernel is the scalar one: {r}")
     return tc
 
 
@@ -428,9 +455,9 @@ def kernel_reports(lib_path: str, log: str) -> dict:
     from danet_densepose2smpl_tpu_torch.kernels.build import find_nvcc
 
     def short(mangled):
-        m = re.search(r"part_crop_head_bf16_kernelILi(\d+)E", mangled)   # one instance per channel chunk
+        m = re.search(r"part_crop_head_(bf16|f32)_kernelILi(\d+)E", mangled)   # one instance per channel chunk
         if m:
-            return f"part_crop_head_bf16_kernel<{m.group(1)}>"
+            return f"part_crop_head_{m.group(1)}_kernel<{m.group(2)}>"
         m = re.search(r"part_crop_head_kernelI([fd])E", mangled)
         return f"part_crop_head_kernel<{'float' if m.group(1) == 'f' else 'double'}>" if m else mangled
 
@@ -536,7 +563,8 @@ def phase2_slice_f64(dev):
     ref = outs["cpu"][0]
     print(f"phase 2: fp32 on the card vs f64 on the CPU, para max abs err: the model under PyTorch's TF32 defaults "
           f"{(tf32 - ref).abs().max().item()!r} (within the bar: {torch.allclose(tf32, ref, atol=0.05, rtol=1e-3)}); "
-          f"Predictor (TF32 off) {(para32 - ref).abs().max().item()!r} (bar: atol 0.05, rtol 1e-3)")
+          f"Predictor (TF32 off) {(para32 - ref).abs().max().item()!r} (bar: atol 0.05, rtol 1e-3; with the scalar "
+          f"fp32 K1 kernel {FP32_SERVING_ERR_WAS['w48']!r}, {FP32_SERVING_ERR_WAS['run']})")
     check(bool(torch.isfinite(para32).all()) and torch.allclose(para32, ref, atol=0.05, rtol=1e-3),
           "fp32 serving para card vs f64 CPU")
 
@@ -834,17 +862,25 @@ def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def k1_bound(args, s) -> tuple[float, str]:
+def k1_bound(args, s, route: str = "bf16") -> tuple[float, str]:
     """K1's inputs and output once, and its operations on these inputs: the
     separable crop over the interpolation matrices' nonzeros (the kernel
-    skips zeros) and the grouped 3x3 conv, in bf16."""
+    skips zeros) and the grouped 3x3 conv, at the peak of the route: 'bf16'
+    (both on the bf16 tensor cores), 'tf32x3' (the fp32 kernel: the crop on
+    the CUDA cores, the conv as three TF32 passes on the tensor cores) or
+    'fp32' (both as FMAs on the CUDA cores)."""
     feats, wy, wx, kernel, bias = args
     b, h, w, c = feats.shape
     o = kernel.shape[-1] // 24
     crop = 2 * c * (w * int((wy != 0).sum()) + s * int((wx != 0).sum()))
     conv = 2 * b * 24 * s * s * o * 9 * c
-    out_bytes = b * 24 * s * s * o * feats.element_size()
-    return bound(nbytes(*args) + out_bytes, crop + conv, "bf16")
+    n_bytes = nbytes(*args) + b * 24 * s * s * o * feats.element_size()
+    if route == "bf16":
+        return bound(n_bytes, crop + conv, "bf16")
+    passes, kind = (3, "tf32") if route == "tf32x3" else (1, "fp32")
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = (crop / PEAK_OPS_PER_S["fp32"] + passes * conv / PEAK_OPS_PER_S[kind]) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def exact_box_pairs(verts_px, faces, s, orig_size=224.0, skip=None) -> int:
@@ -1892,25 +1928,45 @@ def phase12_archs(dev, card) -> dict:
     return out
 
 
-def k1_launch(args, s, plan=None):
-    """A function that launches the bf16 K1 kernel alone on `args` (the
-    wrapper's checks, plan and weight packing done once, here), at `plan` =
-    (tile rows, channel chunk) if given, else the wrapper's `bf16_plan`; its
-    output buffer is `.out`."""
-    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import bf16_plan, load_library, pack_head_weights
+def k1_launch(args, s, plan=None, scalar=False):
+    """A function that launches one K1 kernel alone on `args` (the wrapper's
+    checks, plan and weight packing done once, here): for bf16 or fp32 args
+    the tensor-core kernel of that dtype at `plan` = (tile rows, channel
+    chunk) if given, else the wrapper's `bf16_plan` / `f32_plan`; with
+    `scalar`, the scalar kernel (fp32 or f64) through the C entry
+    `part_crop_head`. Its output buffer is `.out`."""
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
+        _SCALAR_DTYPE_CODE,
+        bf16_plan,
+        f32_plan,
+        load_library,
+        pack_head_weights,
+    )
 
     feats, wy, wx, kernel, bias = args
     b, h, w, c = feats.shape
     k, o = wy.shape[1], kernel.shape[-1] // wy.shape[1]
-    rows, chunk = plan or bf16_plan(h, w, c, s, o)
-    wpack = pack_head_weights(kernel, k, chunk)
     out = torch.empty((b, k, s, s, o), dtype=feats.dtype, device=feats.device)
     lib = load_library()[0]
+    ptrs = (feats.data_ptr(), wy.data_ptr(), wx.data_ptr())
+    if scalar:
+        kern = kernel.reshape(3, 3, c, k, o).permute(3, 0, 1, 2, 4).contiguous()   # (K, 3, 3, C, O)
+
+        def call(stream):
+            return lib.part_crop_head(_SCALAR_DTYPE_CODE[feats.dtype], *ptrs, kern.data_ptr(), bias.data_ptr(),
+                                      out.data_ptr(), b, h, w, c, s, k, o, stream)
+    else:
+        f32 = feats.dtype == torch.float32
+        rows, chunk = plan or (f32_plan if f32 else bf16_plan)(h, w, c, s, o)
+        wpack = pack_head_weights(kernel, k, chunk, split=f32)
+        entry = lib.part_crop_head_f32 if f32 else lib.part_crop_head_bf16
+
+        def call(stream):
+            return entry(*ptrs, wpack.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, rows, chunk,
+                         stream)
 
     def launch():
-        err = lib.part_crop_head_bf16(feats.data_ptr(), wy.data_ptr(), wx.data_ptr(), wpack.data_ptr(),
-                                      bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, rows, chunk,
-                                      torch.cuda.current_stream().cuda_stream)
+        err = call(torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"K1 launch: cudaError {err}")
 
     launch.out = out
@@ -1926,13 +1982,15 @@ K1_WAS_MS = {256: (8.841, "the ring layout at 9163c73"), 64: (2.658, "the ring l
 K1_AB_MS = (1.161, 0.834, "the ring layout at d34c60c against this kernel, PERF.md §6")
 
 
-def k1_check_cases(phase: str, dev, cases, seed: int) -> float:
+def k1_check_cases(phase: str, dev, cases, seed: int, errors: dict | None = None) -> float:
     """K1 against its plain version on each (dtype, B, S, C, O) case, fed by
     bilinear and by dense interpolation matrices: fp32 (TF32 off) within
     1e-4, bf16 within 2e-2 of max|ref|, f64 within 1e-10. Returns the first
-    bf16 case's error on bilinear weights."""
+    bf16 case's error on bilinear weights; `errors`, if given, gets every
+    case's error by (dtype, B, S, C, O, weights)."""
     from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
         bf16_plan,
+        f32_plan,
         fused_part_predict,
         part_crop_head_plain,
     )
@@ -1949,13 +2007,16 @@ def k1_check_cases(phase: str, dev, cases, seed: int) -> float:
             err, ref_max = (got.double() - ref.double()).abs().max().item(), ref.double().abs().max().item()
             tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 1e-10}[name]
             weights = "dense" if dense else "bilinear"
-            plan = f", tile rows and chunk {bf16_plan(hw, hw, c, hw, o)}" if name == "bfloat16" else ""
+            plan = {"bfloat16": bf16_plan, "float32": f32_plan}.get(name)
+            plan = f", tile rows and chunk {plan(hw, hw, c, hw, o)}" if plan else ""
             print(f"phase {phase}: K1 {name} B={b} {hw}x{hw}x{c} S={hw} O={o} {weights} weights: max abs err {err!r} "
                   f"(max|ref| {ref_max!r}, tolerance {tol!r}{plan})")
             check(got.shape == (b, 24, hw, hw, o) and bool(torch.isfinite(got).all()), f"K1 {name} C={c}: shape")
             check(err <= tol, f"K1 {name} C={c} {weights}: {err} > {tol}")
             if first is None and name == "bfloat16" and not dense:
                 first = err
+            if errors is not None:
+                errors[(name, b, hw, c, o, weights)] = err
             del got, ref, args
     return first
 
@@ -2074,7 +2135,8 @@ def phase12_models(dev, card) -> dict:
     para32 = Predictor(dev, torch.float32, cfg=cfg, seed=0).predict(x.float())["para"].double().cpu()
     err32 = (para32 - ref).abs().max().item()
     print(f"phase 12: (b) fp32 Predictor (TF32 off) on the card vs f64 on the CPU: para max abs err {err32!r} "
-          f"(bar: atol 0.05, rtol 1e-3)")
+          f"(bar: atol 0.05, rtol 1e-3; with the scalar fp32 K1 kernel {FP32_SERVING_ERR_WAS['resnet']!r}, "
+          f"{FP32_SERVING_ERR_WAS['run']})")
     check(bool(torch.isfinite(para32).all()) and torch.allclose(para32, ref, atol=0.05, rtol=1e-3),
           "resnet fp32 serving vs f64")
     predictor = Predictor(dev, torch.bfloat16, cfg=cfg, seed=0)
@@ -3095,6 +3157,145 @@ def phase15_small_modules(dev, card, root: str) -> dict:
     return out
 
 
+K1_F32_WIDTHS = (48, 64, 256)   # HRNet-W48, the padded HRNet, the ResNet-50 backbone
+K1_F32_BATCH = 64
+
+
+def phase16_k1_fp32(dev, card) -> dict:
+    """K1's fp32 kernel (`part_crop_head_f32_kernel<CH>`, 3xTF32): (a) against
+    its plain version, (b) its time at B=64, C=48, 64, 256 beside the scalar
+    kernel it replaced, the plain version and the unfused route, (c) fp32
+    `Predictor` requests of W48, the padded HRNet and the ResNet-50 config.
+    Returns {C: the numbers of the `kernels` line's `fp32` object}."""
+    # (a) every width and odd shape, bilinear and dense weights, TF32 off
+    cases = [("float32", 1, 56, c, 21) for c in (8, 20, 48, 64, 72, 200, 201, 256, 264)]
+    cases += [("float32", 1, 57, c, 5) for c in (8, 20, 201)]
+    cases += [("float32", K1_F32_BATCH, 56, 48, 21), ("float32", 16, 56, 256, 21)]
+    errors = {}
+    k1_check_cases("16: (a)", dev, cases, seed=5, errors=errors)
+    worst = max(errors, key=errors.get)
+    print(f"phase 16: (a) K1 fp32 vs plain, {len(errors)} cases: max abs err {errors[worst]!r} at {worst} "
+          f"(bar 1e-4); card {card}")
+    out = {c: k1_f32_timing(dev, card, c) for c in K1_F32_WIDTHS}
+    for c, launches in phase16_requests(dev, card, out).items():
+        out[c]["launches"] = launches
+    return out
+
+
+def k1_f32_timing(dev, card, c: int) -> dict:
+    """(b): K1 at B=64 fp32 on 56x56xC, TF32 off: the wrapper, the plain
+    version (3 calls), the unfused route (`separable_crop_concat`, then
+    cuDNN's grouped conv) and its conv alone in turns; then the launch alone
+    at `f32_plan`, at each channel chunk and of the scalar kernel (the C
+    entry `part_crop_head` with dtype 0, the kernel fp32 ran before) in
+    turns: medians of two turns by CUDA events, and the kernel's device ms
+    by torch.profiler."""
+    from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
+        F32_CHUNKS,
+        f32_plan,
+        f32_rows,
+        fused_part_predict,
+        part_crop_head_plain,
+    )
+    from danet_densepose2smpl_tpu_torch.nn.iuv_head import PartialIUVHead
+    from danet_densepose2smpl_tpu_torch.ops.imwarp import separable_crop_concat
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    args, centers, scales = k1_inputs(K1_F32_BATCH, 56, 56, c, 56, torch.float32, dev, seed=2, boxes=True)
+    feats, _, _, kernel, bias = args
+    head = PartialIUVHead(c).to(dev, torch.float32, memory_format=torch.channels_last)
+    head.weight.data.copy_(kernel.permute(3, 2, 0, 1))
+    head.bias.data.copy_(bias)
+    crops = separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)
+    calls = {
+        "kernel": lambda: fused_part_predict(*args, 56),
+        "plain": lambda: part_crop_head_plain(*args, 56),
+        "unfused": lambda: head(separable_crop_concat(feats, centers, scales, 56).permute(0, 3, 1, 2)),
+        "unfused conv": lambda: head(crops),
+    }
+    plan = f32_plan(56, 56, c, 56, 21)
+    launches = {"plan": k1_launch(args, 56, plan), "scalar": k1_launch(args, 56, scalar=True)}
+    for chunk in F32_CHUNKS:
+        launches[f"chunk {chunk}"] = k1_launch(args, 56, (f32_rows(56, 56, 21, chunk), chunk))
+    times = {name: [] for name in [*calls, *launches]}
+    with torch.no_grad():
+        for name in ("plain", "kernel", "unfused", "unfused conv", "unfused conv", "unfused", "kernel", "plain"):
+            times[name].append(cuda_ms(calls[name], 3 if name == "plain" else 20))
+        for order in (list(launches), list(launches)[::-1]):
+            for name in order:
+                times[name].append(cuda_ms(launches[name], 5 if name == "scalar" else 10))
+        by_kernel = device_ms_by_kernel(calls["kernel"], 10)
+        alone = [v for key, v in by_kernel.items() if "part_crop_head_f32_kernel" in key]
+        check(len(alone) == 1, f"the profiler sees the fp32 kernel: {by_kernel}")
+        ref = calls["plain"]().double()
+        err = (calls["kernel"]().double() - ref).abs().max().item()
+        err_u = (calls["unfused"]().reshape(ref.shape).double() - ref).abs().max().item()
+    errs = {name: (launches[name].out.double() - ref).abs().max().item() for name in launches}
+    check(err <= 1e-4 and all(e <= 1e-4 for e in errs.values()),
+          f"K1 fp32 C={c} B={K1_F32_BATCH} vs plain: the wrapper {err}, the launches {errs} (bar 1e-4)")
+    bound_ms, bound_by = k1_bound(args, 56, "tf32x3")
+    ffma_ms, ffma_by = k1_bound(args, 56, "fp32")
+    ms = {name: float(np.median(t)) for name, t in times.items()}
+    print(f"phase 16: (b) K1 B={K1_F32_BATCH} fp32 56x56x{c} (CUDA events, medians of two turns of 20 calls, plain "
+          f"3; TF32 off): kernel {times['kernel']} ms, plain {times['plain']} ms, unfused route {times['unfused']} "
+          f"ms, its conv alone {times['unfused conv']} ms; the launch alone (weights packed once) at the plan "
+          f"{plan} (tile rows, chunk) {times['plan']} ms, "
+          + ", ".join(f"{name} {times[name]} ms" for name in launches if name not in ("plan", "scalar"))
+          + f"; the scalar kernel it replaced (5 calls) {times['scalar']} ms, {ms['scalar'] / ms['plan']!r}x the "
+          f"launch; device ms (torch.profiler, 10 calls) {alone[0]!r}; max abs err vs plain {err!r} (the "
+          f"scalar kernel {errs['scalar']!r}, the unfused route {err_u!r}); bound {bound_ms!r} ms ({bound_by}, "
+          f"3xTF32 at 495 TFLOP/s), FFMA bound {ffma_ms!r} ms ({ffma_by}, 67 TFLOP/s); card {card}")
+    check(ms["plan"] < ms["scalar"], f"K1 fp32 C={c}: the kernel ({ms['plan']} ms) is faster than the scalar "
+                                     f"kernel it replaced ({ms['scalar']} ms)")
+    del args, feats, kernel, bias, head, crops, calls, launches, ref
+    torch.cuda.empty_cache()
+    return {"ms": ms["kernel"], "scalar_ms": ms["scalar"], "plain_ms": ms["plain"], "unfused_ms": ms["unfused"],
+            "unfused_conv_ms": ms["unfused conv"], "launch_ms": ms["plan"], "device_ms": alone[0],
+            "bound_ms": bound_ms, "bound_by": bound_by, "ffma_bound_ms": ffma_ms, "plan": plan,
+            "chunk_ms": {name: ms[name] for name in ms if name.startswith("chunk")}, "max_abs_err": err}
+
+
+def phase16_requests(dev, card, timing: dict) -> dict:
+    """(c): 8 fp32 `Predictor` requests of B=64 on HRNet-W48, the padded
+    HRNet and configs/danet_resnet.yaml (K1 at C=48, 64, 256), the counts
+    zeroed just before and read just after: host ms and imgs/s; then one
+    request of each under torch.profiler: kernel ms, the fp32 kernel's
+    device ms inside it and the idle share, beside the scalar kernel's time
+    from (b). Returns {C: K1 launches in the 8 requests}."""
+    from danet_densepose2smpl_tpu_torch.config import DaNetConfig, load_config
+    from danet_densepose2smpl_tpu_torch.serve import Predictor
+
+    configs = {48: ("HRNet-W48", DaNetConfig()), 64: ("the padded HRNet", DaNetConfig(hrnet_pad_channels=True)),
+               256: (RESNET_CFG, load_config(os.path.join(REPO, RESNET_CFG)).danet)}
+    images = torch.from_numpy(np.random.RandomState(31).rand(K1_F32_BATCH, 224, 224, 3).astype(np.float32)).to(dev)
+    launches = {}
+    for c, (label, cfg) in configs.items():
+        predictor = Predictor(dev, torch.float32, cfg=cfg, seed=0)
+        predictor.predict(images)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, counts = launch_counts(lambda: [predictor.predict(images) for _ in range(SERVE_REQUESTS)])
+        dt = time.perf_counter() - t0
+        check(all(o["para"].shape == (K1_F32_BATCH, 229) and o["vertices"].shape == (K1_F32_BATCH, 6890, 3)
+                  and all(bool(torch.isfinite(v).all()) for v in o.values()) for o in outs),
+              f"fp32 requests of {label}: shapes, finite")
+        check(counts["part_crop_head"] == SERVE_REQUESTS, f"fp32 requests of {label}: K1 once each ({counts})")
+        launches[c] = counts["part_crop_head"]
+        print(f"phase 16: (c) {SERVE_REQUESTS} fp32 requests of B={K1_F32_BATCH} ({label}, K1 at C={c}): "
+              f"{dt / SERVE_REQUESTS * 1e3!r} ms a request, {K1_F32_BATCH * SERVE_REQUESTS / dt!r} imgs/s (host clock, "
+              f"ends in synchronize); launches {counts}; card {card}")
+        events = profile_ranges(lambda: predictor.predict(images), "serve.", f"one fp32 request of B={K1_F32_BATCH} "
+                                f"({label})", card)
+        k1_ms = sum(e.self_device_time_total for e in events if "part_crop_head_f32_kernel" in e.key) / 1e3
+        check(k1_ms > 0, f"the profiled fp32 request of {label} ran part_crop_head_f32_kernel")
+        print(f"profile: K1 (part_crop_head_f32_kernel) inside it: {k1_ms!r} ms on the card; the scalar kernel it "
+              f"replaced took {timing[c]['scalar_ms']!r} ms at this shape in (b); card {card}")
+        timing[c]["request"] = {"imgs_per_s": K1_F32_BATCH * SERVE_REQUESTS / dt, "k1_device_ms": k1_ms}
+        del predictor, outs
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
@@ -3120,6 +3321,9 @@ def main():
     demo = timed(11, lambda: phase11_demo_vis(dev, card))
     archs = timed(12, lambda: phase12_archs(dev, card))
     modes = timed(13, lambda: phase13_input_modes(dev, card))
+    # phase 16 runs before 14 and 15: after phase 14's NCCL group and spawned
+    # ranks torch.profiler has recorded no device event, and 16 profiles
+    k1_f32 = timed(16, lambda: phase16_k1_fp32(dev, card))
     last = timed(14, lambda: phase14_chunks_dp(dev, card))
     final = timed(15, lambda: phase15_remat_pad(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -3188,6 +3392,13 @@ def main():
             k["pad"] = {"launches": final["pad"]["serve"]["launches"]["padded"], "path": f"serving the padded "
                         f"HRNet: Predictor.predict, bf16, B={PAD_BATCH}, {PAD_REQUESTS} requests", "C": 64,
                         **final["k1"], "library_ms": None}
+        if k["name"] == "part_crop_head":                         # phase 16: the fp32 kernel at each C
+            k["fp32"] = {str(c): {"launches": v["launches"], "path": f"fp32 serving: Predictor.predict, "
+                                  f"B={K1_F32_BATCH}, {SERVE_REQUESTS} requests",
+                                  **{key: v[key] for key in ("ms", "scalar_ms", "plain_ms", "unfused_ms",
+                                                             "unfused_conv_ms", "device_ms", "bound_ms", "bound_by",
+                                                             "ffma_bound_ms", "plan", "max_abs_err")},
+                                  "library_ms": None} for c, v in k1_f32.items()}
         if k["name"] == "rasterize_flat_masked":                  # phase 15 (a): 3 steps per scope
             k["remat_launches"] = {scope: v["launches"]["rasterize_flat_masked"]
                                    for scope, v in final["remat"]["b128"].items()}

@@ -1,17 +1,27 @@
-"""Fused STN part crop + grouped 3x3 partial-IUV head: the CUDA kernel
-`csrc/part_crop_head.cu` and its plain PyTorch version.
+"""Fused STN part crop + grouped 3x3 partial-IUV head: the CUDA kernels
+`csrc/part_crop_head.cu` and their plain PyTorch version.
 
 Replaces the TPU kernel `danet_densepose2smpl_tpu/kernels/part_crop_head.py
-::fused_part_predict` and keeps its contract. What bounds the kernel on the
+::fused_part_predict` and keeps its contract. What bounds each kernel on the
 H100 and how its design answers is set out at the top of the CUDA source.
 
 `fused_part_predict` dispatches on the device of `feats`: a CPU tensor goes
 to the plain version, a CUDA tensor to a kernel, which launches or raises.
-On the card the dtype alone picks the kernel: bf16 runs the conv on the
-tensor cores, taking the channels in chunks of 16 or 32 with the tile rows
-and chunk `bf16_plan` picks, from the weights `pack_head_weights` lays out
-chunk by chunk; fp32 and f64 run the scalar kernel, which takes all of C
-where it fits its shared memory, else chunks of 32.
+On the card the dtype alone picks the kernel:
+
+- bf16 runs the conv on the tensor cores in bf16, taking the channels in
+  chunks of 16 or 32 with the tile rows and chunk `bf16_plan` picks, from
+  the weights `pack_head_weights` lays out chunk by chunk;
+- fp32 (the default precision of `Predictor` and the CLIs) runs the same
+  skeleton with the conv in 3xTF32 on the tensor cores, in chunks of 8 or
+  16 (`f32_plan`), from the big and small TF32 planes of
+  `pack_head_weights(..., split=True)`. The conv is bound by its operations
+  (1.82e9 * C FLOP at B=64: 1.30 ms at C=48 on the CUDA cores' 67 TFLOP/s,
+  0.53 ms as three TF32 passes at 495); three passes keep fp32's accuracy,
+  since each product is off by about 2^-21 of itself against a 1e-4 bar;
+- f64 (the tests) runs the scalar kernel, which takes all of C where it
+  fits its shared memory, else chunks of 32.
+
 `fused_part_predict.launches` counts kernel launches. The kernels have no backward (nor had the TPU kernel), so on
 every device the result carries a `grad_fn` whose backward raises: a
 gradient is never dropped silently.
@@ -27,8 +37,10 @@ import torch.nn.functional as F
 
 from danet_densepose2smpl_tpu_torch.kernels.build import build
 
-_SCALAR_DTYPE_CODE = {torch.float32: 0, torch.float64: 2}   # the scalar kernel's dtypes
+_SCALAR_DTYPE_CODE = {torch.float32: 0, torch.float64: 2}   # the scalar kernel's C entry codes
+KERNEL_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 MMA_DEPTH = 16   # the bf16 kernel pads C to this (mma.sync m16n8k16)
+TF32_DEPTH = 8   # the fp32 kernel pads C to this (mma.sync m16n8k8, TF32)
 MMA_WIDTH = 24   # and O to a multiple of this (three n8 tiles a GEMM pass)
 
 
@@ -52,28 +64,55 @@ def part_crop_head_plain(feats, wy, wx, kernel, bias, out_size: int) -> torch.Te
     return out.reshape(b, k, o, s, s).permute(0, 1, 3, 4, 2).to(dt)
 
 
-def pack_head_weights(kernel: torch.Tensor, num_parts: int, chunk: int | None = None) -> torch.Tensor:
-    """The bf16 kernel's B operand: (3, 3, C, K*O) HWIO grouped-conv weights
-    -> (K, Npad, 9 * Cpad), for each part the (dy, dx, c)-ordered GEMM depth
-    of each output channel, contiguous. C is padded to a multiple of
-    MMA_DEPTH and O to a multiple of MMA_WIDTH, with zeros.
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as the card's `cvt.rna.tf32.f32` rounds: the bits
+    plus half the dropped part, the 13 low bits cleared."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) = (tf32(x), tf32(x - big)) of fp32 `x`: big + small holds
+    x to about 2^-22 of itself (exactly where x has at most 22 significant
+    bits), as the fp32 kernel splits both GEMM operands."""
+    big = tf32_round(x)
+    return big, tf32_round(x.to(torch.float32) - big)
+
+
+def pack_head_weights(kernel: torch.Tensor, num_parts: int, chunk: int | None = None,
+                      split: bool = False) -> torch.Tensor:
+    """The GEMM B operand: (3, 3, C, K*O) HWIO grouped-conv weights -> (K,
+    Npad, 9 * Cpad), for each part the (dy, dx, c)-ordered GEMM depth of each
+    output channel, contiguous. C is padded to a multiple of MMA_DEPTH (the
+    bf16 kernel's) and O to a multiple of MMA_WIDTH, with zeros.
 
     With `chunk` (a multiple of MMA_DEPTH), the channels are packed chunk by
-    chunk, as the kernel takes them: (K, chunks, Npad, 9 * chunk), each
+    chunk, as the kernels take them: (K, chunks, Npad, 9 * chunk), each
     chunk's depth in (dy, dx, c) order, C padded with zeros to chunks *
-    chunk. A chunk of Cpad gives the bytes of the unchunked layout."""
+    chunk. A chunk of Cpad gives the bytes of the unchunked layout.
+
+    With `split` (the fp32 kernel's operand; `chunk` a multiple of
+    TF32_DEPTH, required), the fp32 weights are packed chunk by chunk and
+    split into their TF32 big and small planes (`tf32_split`): (2, K,
+    chunks, Npad, 9 * chunk), fp32."""
     c, ko = kernel.shape[2], kernel.shape[3]
     k, o = num_parts, ko // num_parts
-    cpad = -(-c // MMA_DEPTH) * MMA_DEPTH
+    depth = TF32_DEPTH if split else MMA_DEPTH
+    if split and not chunk:
+        raise ValueError("pack_head_weights: split=True packs chunk by chunk: give `chunk`")
+    cpad = -(-c // depth) * depth
     npad = -(-o // MMA_WIDTH) * MMA_WIDTH
     width = chunk or cpad
-    if width % MMA_DEPTH:
-        raise ValueError(f"pack_head_weights: chunk {width} is not a multiple of {MMA_DEPTH}")
+    if width % depth:
+        raise ValueError(f"pack_head_weights: chunk {width} is not a multiple of {depth}")
     n = -(-c // width)
     w = kernel.reshape(3, 3, c, k, o).permute(3, 4, 0, 1, 2)          # (K, O, 3, 3, C)
     w = F.pad(w, (0, n * width - c)).reshape(k, o, 9, n, width)
     w = w.permute(0, 3, 1, 2, 4).reshape(k, n, o, 9 * width)
     w = F.pad(w, (0, 0, 0, npad - o)).contiguous()
+    if split:
+        return torch.stack(tf32_split(w))
     return w if chunk else w.reshape(k, npad, 9 * cpad)
 
 
@@ -84,9 +123,10 @@ def load_library():
     lib, log = build("part_crop_head.cu")
     lib.part_crop_head.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib.part_crop_head_bf16_bytes.argtypes = [ctypes.c_int] * 5
-    lib.part_crop_head.restype = lib.part_crop_head_bf16.restype = ctypes.c_int
-    lib.part_crop_head_bf16_bytes.restype = ctypes.c_longlong
+    lib.part_crop_head_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.part_crop_head_bf16_bytes.argtypes = lib.part_crop_head_f32_bytes.argtypes = [ctypes.c_int] * 5
+    lib.part_crop_head.restype = lib.part_crop_head_bf16.restype = lib.part_crop_head_f32.restype = ctypes.c_int
+    lib.part_crop_head_bf16_bytes.restype = lib.part_crop_head_f32_bytes.restype = ctypes.c_longlong
     return lib, log
 
 
@@ -105,16 +145,22 @@ def bf16_chunk(c: int) -> int:
     return 32 if -(-c // 32) * CHUNK32_COST < -(-c // 16) else 16
 
 
+def _tallest_rows(smem_bytes, max_pixels: int, w: int, s: int, o: int, chunk: int) -> int:
+    """The tallest tile, of at most 8 rows, whose pixels fit `max_pixels`
+    and whose shared memory, `smem_bytes(rows, W, S, O, chunk)`, lets two
+    blocks share an SM; 0 if none."""
+    for rows in range(min(8, max_pixels // s), 0, -1):
+        if smem_bytes(rows, w, s, o, chunk) <= SMEM_TWO_BLOCKS:
+            return rows
+    return 0
+
+
 @functools.lru_cache(maxsize=None)
 def bf16_rows(w: int, s: int, o: int, chunk: int) -> int:
     """The tallest tile, of at most 8 rows, that the bf16 kernel's MMA tiles
     hold and whose shared memory (the library's `part_crop_head_bf16_bytes`)
     lets two blocks share an SM; 0 if none. Builds the library."""
-    smem_bytes = load_library()[0].part_crop_head_bf16_bytes
-    for rows in range(min(8, BF16_MAX_PIXELS // s), 0, -1):
-        if smem_bytes(rows, w, s, o, chunk) <= SMEM_TWO_BLOCKS:
-            return rows
-    return 0
+    return _tallest_rows(load_library()[0].part_crop_head_bf16_bytes, BF16_MAX_PIXELS, w, s, o, chunk)
 
 
 def bf16_plan(h: int, w: int, c: int, s: int, o: int) -> tuple[int, int]:
@@ -127,9 +173,42 @@ def bf16_plan(h: int, w: int, c: int, s: int, o: int) -> tuple[int, int]:
     return rows, chunk
 
 
+F32_CHUNKS = (8, 16)            # the fp32 kernel's channel chunks (its template instances)
+F32_MAX_PIXELS = 480            # a tile's pixels: 6 warps x 5 MMA tiles of 16 pixels
+# What a chunk of 8 channels costs the fp32 kernel in chunks of 16: their
+# times per chunk at B=64, S=56, 8-row tiles on an H100 (PERF.md §6, the
+# fp32 sweep of `kernels/probe_part_crop_head.py`: 0.57-0.59 at C=48, 64,
+# 256)
+F32_CHUNK_COST = {8: 0.59, 16: 1.0}
+
+
+def f32_chunk(c: int) -> int:
+    """The fp32 kernel's channel chunk at C channels: the one whose count of
+    chunks costs least (F32_CHUNK_COST per chunk), the wider on a tie."""
+    return min(F32_CHUNKS, key=lambda ch: (-(-c // ch) * F32_CHUNK_COST[ch], -ch))
+
+
+@functools.lru_cache(maxsize=None)
+def f32_rows(w: int, s: int, o: int, chunk: int) -> int:
+    """The tallest tile, of at most 8 rows, that the fp32 kernel's MMA tiles
+    hold and whose shared memory (the library's `part_crop_head_f32_bytes`)
+    lets two blocks share an SM; 0 if none. Builds the library."""
+    return _tallest_rows(load_library()[0].part_crop_head_f32_bytes, F32_MAX_PIXELS, w, s, o, chunk)
+
+
+def f32_plan(h: int, w: int, c: int, s: int, o: int) -> tuple[int, int]:
+    """(tile rows, channel chunk) of the fp32 kernel at this shape:
+    `f32_chunk`, then `f32_rows`."""
+    chunk = f32_chunk(c)
+    rows = f32_rows(w, s, o, chunk)
+    if rows == 0:
+        raise RuntimeError(f"part_crop_head: no tile of the fp32 kernel fits (H, W, C, S, O) = {(h, w, c, s, o)}")
+    return rows, chunk
+
+
 def _check(feats, wy, wx, kernel, bias, out_size):
     dt = feats.dtype
-    if dt not in (torch.bfloat16, *_SCALAR_DTYPE_CODE):
+    if dt not in KERNEL_DTYPES:
         raise TypeError(f"fused_part_predict: unsupported dtype {dt}")
     for name, t in (("wy", wy), ("wx", wx), ("kernel", kernel), ("bias", bias)):
         if t.device != feats.device:
@@ -193,19 +272,21 @@ def _fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Ten
     out = torch.empty((b, k, s, s, o), dtype=feats.dtype, device=feats.device)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ptrs = (feats.data_ptr(), wy.data_ptr(), wx.data_ptr())
         if feats.dtype == torch.bfloat16:
             rows, chunk = bf16_plan(h, w, c, s, o)
             wpack = pack_head_weights(kernel, k, chunk)
-            err = lib.part_crop_head_bf16(
-                feats.data_ptr(), wy.data_ptr(), wx.data_ptr(), wpack.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), b, h, w, c, s, k, o, rows, chunk, stream,
-            )
-        else:
+            err = lib.part_crop_head_bf16(*ptrs, wpack.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                          b, h, w, c, s, k, o, rows, chunk, stream)
+        elif feats.dtype == torch.float32:
+            rows, chunk = f32_plan(h, w, c, s, o)
+            wpack = pack_head_weights(kernel, k, chunk, split=True)
+            err = lib.part_crop_head_f32(*ptrs, wpack.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                         b, h, w, c, s, k, o, rows, chunk, stream)
+        else:   # f64: the scalar kernel
             kern = kernel.reshape(3, 3, c, k, o).permute(3, 0, 1, 2, 4).contiguous()  # (K,3,3,C,O)
-            err = lib.part_crop_head(
-                _SCALAR_DTYPE_CODE[feats.dtype], feats.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-                kern.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, stream,
-            )
+            err = lib.part_crop_head(_SCALAR_DTYPE_CODE[torch.float64], *ptrs, kern.data_ptr(), bias.data_ptr(),
+                                     out.data_ptr(), b, h, w, c, s, k, o, stream)
     if err != 0:
         raise RuntimeError(f"part_crop_head kernel launch failed: cudaError {err}")
     fused_part_predict.launches += 1
