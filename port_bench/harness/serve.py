@@ -1,0 +1,339 @@
+"""The serve cells: one client in a closed loop, requests back to back.
+
+Set-up builds the port's `Predictor` with the seed's weights (made on the
+device, `harness.weights`) and the synthetic SMPL arrays, makes a pool of
+distinct image batches on the device and warms up on them. The window
+sends requests until `seconds` have passed: a request is
+`Predictor.predict` on the next batch of the pool, and its latency runs
+from the call to the end of its `torch.cuda.synchronize()`. A sample of
+the finished requests, drawn from the seed as the window goes (a
+reservoir), is kept; once the window has closed (and the profiled slice,
+with `--trace 1`), the peak memory is read, the port is freed, and the
+plain reference recomputes each sampled request from the same images and
+weights: `para`, `vertices` and `joints` are compared.
+"""
+
+from __future__ import annotations
+
+import gc
+import random
+import statistics
+import time
+
+import torch
+
+from port_bench.harness import spec
+from port_bench.harness.precision import computed_in
+from port_bench.harness.trace import profile_slice, sync
+from port_bench.harness.weights import derive_seed, reference_model
+from port_bench.harness.yardstick import counting_flops
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+COMPARED = ("para", "vertices", "joints")
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def make_pool(traffic: dict, img_size: int, seed: int, device) -> torch.Tensor:
+    """(pool, B, H, W, 3) normalized RGB batches in the served dtype, made
+    on the device from the seed: uniform pixels, ImageNet-normalized; or,
+    where the traffic gives `images`, a pixel is per image a brightness
+    per channel and a contrast times a smooth field (normal draws on a
+    `grid` x `grid` lattice per channel, upsampled bicubically), plus
+    uniform grain, clipped to [0, 1]: images that differ in their colours
+    and their large-scale layout, as photographs do, and not only in
+    their noise."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(derive_seed(seed, "images"))
+    shape = (traffic["pool"], traffic["batch"], img_size, img_size, 3)
+    look = traffic.get("images")
+    if look is None:
+        pixels = torch.rand(shape, generator=gen, device=device)
+    else:
+        n, g = shape[0] * shape[1], look["grid"]
+
+        def uniform(lo_hi, *size):
+            lo, hi = lo_hi
+            return lo + (hi - lo) * torch.rand(size, generator=gen, device=device)
+
+        field = F.interpolate(torch.randn((n, 3, g, g), generator=gen, device=device),
+                              size=(img_size, img_size), mode="bicubic", align_corners=False)
+        grain = torch.rand((n, img_size, img_size, 3), generator=gen, device=device) - 0.5
+        pixels = (uniform(look["brightness"], n, 1, 1, 3) + uniform(look["contrast"], n, 1, 1, 1)
+                  * field.permute(0, 2, 3, 1) + look["grain"] * grain).clamp_(0.0, 1.0).view(shape)
+    mean = torch.tensor(IMAGENET_MEAN, device=device)
+    std = torch.tensor(IMAGENET_STD, device=device)
+    return ((pixels - mean) / std).to(DTYPES[traffic["dtype"]])
+
+
+def smpl_arrays():
+    from port_bench.reference.smpl.loader import synthetic_smpl_model
+
+    return synthetic_smpl_model()
+
+
+def port_server(cfg_port, ref_cfg, seed: int, dtype: torch.dtype, device, smpl):
+    """The system under test: the port's `Predictor.predict` with the
+    seed's weights (the reference model's state dict, loaded as a
+    checkpoint) and `smpl`'s arrays."""
+    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
+    from danet_densepose2smpl_tpu_torch.serve import Predictor
+    from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel
+
+    weights = reference_model(ref_cfg, seed, device).state_dict()
+    with torch.device(device):
+        model = DaNet(cfg_port.danet)
+    model.load_state_dict(weights)
+    del weights
+    predictor = Predictor(device, dtype, model=model, smpl=SMPLModel(*smpl))
+    return predictor.predict
+
+
+def reference_outputs(model, smpl_t, images: torch.Tensor, block: int) -> dict:
+    """The reference's para, vertices and joints of `images`, in blocks of
+    `block` images, fp32."""
+    from port_bench.reference.smpl.model import smpl_forward
+
+    outs = {k: [] for k in COMPARED}
+    for i in range(0, images.shape[0], block):
+        out = model(images[i:i + block].float())
+        body = smpl_forward(smpl_t, out["pred_shape"], out["pred_rotmat"])
+        outs["para"].append(out["para"])
+        outs["vertices"].append(body.vertices)
+        outs["joints"].append(body.joints)
+    return {k: torch.cat(v) for k, v in outs.items()}
+
+
+def control_server(ref_cfg, seed: int, dtype: torch.dtype, device, smpl, kind: str, block: int):
+    """The reference put in the port's place, computed in `kind` (a
+    precision below the cell's): the control of the comparison."""
+    from port_bench.reference.smpl.loader import to_torch
+
+    model = reference_model(ref_cfg, seed, device, dtype).eval()
+    smpl_t = to_torch(smpl, device)
+
+    @torch.no_grad()
+    def serve(images):
+        with computed_in(kind, model):
+            return reference_outputs(model, smpl_t, images, block)
+
+    return serve
+
+
+# the blocks of `para` read against their own spread: camera, shape, rotations
+PARA_BLOCKS = ((0, 3), (3, 13), (13, 229))
+
+
+def image_gaps(got: torch.Tensor, ref: torch.Tensor, blocks=None) -> torch.Tensor:
+    """(N,) each image's largest gap in an output (N, ...), over the spread
+    of the reference's answers (a column's median distance of an answer
+    from the column's median over the sampled images, widest over the
+    columns, and at least a thousandth of the block's largest magnitude),
+    so a gap reads against how much answers typically differ from image to
+    image; with `blocks` (column ranges), each block against its own
+    spread. Inf where the port's answer is missing or not finite."""
+    ref = ref.flatten(1).double()
+    if got.shape[0] != ref.shape[0] or got[0].numel() != ref.shape[1]:
+        return torch.full((ref.shape[0],), float("inf"), dtype=torch.float64, device=ref.device)
+    diff = (got.flatten(1).double() - ref).abs()
+    spread = (ref - ref.median(dim=0).values).abs().median(dim=0).values
+    gap = torch.zeros(ref.shape[0], dtype=torch.float64, device=ref.device)
+    for lo, hi in blocks or ((0, ref.shape[1]),):
+        scale = torch.maximum(spread[lo:hi].max(), 1e-3 * ref[:, lo:hi].abs().max()).clamp_min(1e-30)
+        gap = torch.maximum(gap, diff[:, lo:hi].amax(dim=1) / scale)
+    return torch.where(torch.isfinite(gap), gap, torch.full_like(gap, float("inf")))
+
+
+def nearest_ratios(got: torch.Tensor, refs: torch.Tensor, own: torch.Tensor, blocks=None) -> torch.Tensor:
+    """(N,) each answer's distance to its own image's reference answer over
+    its distance to the nearest reference answer of any other sampled
+    image: under 1 where the answer is nearer its own image's than any
+    other's. `got` (N, ...) answers, `refs` (U, ...) the reference answers
+    of the U distinct sampled images, `own` (N,) the index into `refs` of
+    each answer's image. Euclidean over the columns, each block of columns
+    (`blocks`) over its spread as in `image_gaps`. Inf where an answer is
+    missing or not finite."""
+    refs = refs.flatten(1).double()
+    n = own.shape[0]
+    if refs.shape[0] < 2 or got.shape[0] != n or got[0].numel() != refs.shape[1]:
+        return torch.full((n,), float("inf"), dtype=torch.float64, device=refs.device)
+    got = got.flatten(1).double()
+    spread = (refs - refs.median(dim=0).values).abs().median(dim=0).values
+    scale = torch.ones(refs.shape[1], dtype=torch.float64, device=refs.device)
+    for lo, hi in blocks or ((0, refs.shape[1]),):
+        scale[lo:hi] = torch.maximum(spread[lo:hi].max(), 1e-3 * refs[:, lo:hi].abs().max()).clamp_min(1e-30)
+    dist = torch.cdist(got / scale, refs / scale)
+    rows = torch.arange(n, device=refs.device)
+    mine = dist[rows, own].clone()
+    dist[rows, own] = float("inf")
+    ratio = mine / dist.min(dim=1).values.clamp_min(1e-300)
+    return torch.where(torch.isfinite(ratio), ratio, torch.full_like(ratio, float("inf")))
+
+
+def unexplained(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The share of the reference answers' variation from image to image
+    that the port's answers leave unexplained: for each column of an
+    output (N, ...), the sum of squared gaps over the sum of squared
+    distances of the reference's answers from their mean, the median over
+    the columns that vary (inf where an answer is missing or not
+    finite)."""
+    got, ref = got.flatten(1).double(), ref.flatten(1).double()
+    if got.shape != ref.shape:
+        return float("inf")
+    var = ((ref - ref.mean(dim=0)) ** 2).sum(dim=0)
+    err = ((got - ref) ** 2).sum(dim=0)
+    varies = var > 1e-12 * var.max()
+    share = (err[varies] / var[varies]).median().item() if bool(varies.any()) else float("inf")
+    return share if share == share else float("inf")
+
+
+def compare(served: list, ref_cfg, seed: int, dtype: torch.dtype, device, smpl, pool, block: int) -> tuple:
+    """({number: reading}, {'flops_per_image', 'k1_call'}) over the sampled
+    requests; the reference computes each distinct sampled batch once.
+    Readings, for each output k of `COMPARED`: `k`, the widest image gap
+    (`image_gaps`); `k_nearest`, the largest of `nearest_ratios` (over 1
+    where an answer lies nearer another sampled image's reference answer
+    than its own), and `k_not_nearest`, the share of answers for which it
+    is over 1; `k_unexplained` (`unexplained`); and the median and the
+    10th percentile of the images' `para` gaps. Each cell's limits file
+    names the readings it compares. With random weights many of the
+    model's hard decisions, the argmax of the index maps and the part
+    visibility threshold, sit on a knife's edge, and the answers vary
+    little from image to image, so an image's gap swings with rounding:
+    the low percentiles read where the decisions agree, and the shares
+    read the sample as a whole. The yardstick's counts come from the
+    reference's first sampled request."""
+    from port_bench.reference.smpl.loader import to_torch
+
+    model = reference_model(ref_cfg, seed, device, dtype).eval()
+    smpl_t = to_torch(smpl, device)
+    slots = sorted({slot for slot, _ in served})
+    ref = {}
+    counts = {}
+    with torch.no_grad(), computed_in("fp32", model):
+        for slot in slots:
+            images = pool[slot]
+            if not counts:
+                with counting_flops() as c:
+                    ref[slot] = reference_outputs(model, smpl_t, images, block)
+                calls = c["crops"]
+                b = sum(call[0] for call in calls)
+                merged = (b, *calls[0][1:6], sum(call[6] for call in calls), sum(call[7] for call in calls))
+                counts = {"flops_per_image": c["flops"] / images.shape[0], "k1_call": merged}
+            else:
+                ref[slot] = reference_outputs(model, smpl_t, images, block)
+    b = pool.shape[1]
+    own = torch.cat([slots.index(slot) * b + torch.arange(b, device=device) for slot, _ in served])
+    readings = {}
+    for k in COMPARED:
+        r_all = torch.cat([ref[slot][k] for slot in slots])
+        r = r_all[own]
+        got = torch.cat([out[k].float() if out[k].shape == ref[slot][k].shape
+                         else torch.full_like(ref[slot][k], float("inf")) for slot, out in served])
+        blocks = PARA_BLOCKS if k == "para" else None
+        gaps = image_gaps(got, r, blocks).cpu()
+        finite = bool(torch.isfinite(gaps).all())
+        readings[k] = gaps.max().item()
+        ratios = nearest_ratios(got, r_all, own, blocks)
+        readings[f"{k}_nearest"] = ratios.max().item()
+        readings[f"{k}_not_nearest"] = (ratios > 1).double().mean().item()
+        readings[f"{k}_unexplained"] = unexplained(got, r)
+        if k == "para":
+            readings["para_median"] = gaps.median().item() if finite else float("inf")
+            readings["para_p10"] = torch.quantile(gaps, 0.1).item() if finite else float("inf")
+    return readings, counts
+
+
+def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device, t_start: float,
+        overrides: dict | None = None, server: str = "port", wrap=None) -> dict:
+    """One run of a serve cell (see the module docstring). `server` is
+    'port', or a control precision ('tf32', 'fp8') in whose place the
+    reference serves; `wrap(predict) -> predict` plants a fault in the
+    served path (the checks of the comparison)."""
+    from danet_densepose2smpl_tpu_torch import config as port_config
+    from port_bench.reference import config as ref_config
+
+    t = cell.traffic
+    cfg = spec.build_config(port_config, cell.config, t, overrides)
+    ref_cfg = spec.build_config(ref_config, cell.config, t, overrides)
+    dtype = DTYPES[t["dtype"]]
+    block = t["reference_block"]
+    marks = [("start", time.perf_counter())]
+    smpl = smpl_arrays()
+    marks.append(("smpl", time.perf_counter()))
+    if server == "port":
+        predict = port_server(cfg, ref_cfg, seed, dtype, device, smpl)
+    else:
+        predict = control_server(ref_cfg, seed, dtype, device, smpl, server, block)
+    if wrap is not None:
+        predict = wrap(predict)
+    marks.append(("model", time.perf_counter()))
+    pool = make_pool(t, cfg.danet.img_size, seed, device)
+    marks.append(("pool", time.perf_counter()))
+    for i in range(t["warmup"]):
+        predict(pool[i % len(pool)])
+        sync(device)
+    marks.append(("warm-up", time.perf_counter()))
+    setup_s = time.perf_counter() - t_start
+    setup_parts = f"imports and device {marks[0][1] - t_start:.2f} s, " + ", ".join(
+        f"{name} {b - a:.2f} s" for (_, a), (name, b) in zip(marks, marks[1:]))
+
+    keep = t["check_requests"]
+    pick = random.Random(derive_seed(seed, "sample"))
+    served, latency, dispatch = [], [], []
+    n = 0
+    t0 = time.perf_counter()
+    while True:
+        slot = n % len(pool)
+        ts = time.perf_counter()
+        out = predict(pool[slot])
+        td = time.perf_counter()
+        sync(device)
+        te = time.perf_counter()
+        latency.append(te - ts)
+        dispatch.append(td - ts)
+        # reservoir sample of the finished requests
+        if len(served) < keep:
+            served.append((slot, out))
+        else:
+            j = pick.randrange(n + 1)
+            if j < keep:
+                served[j] = (slot, out)
+        del out
+        n += 1
+        if te - t0 >= seconds:
+            break
+    wall = te - t0
+
+    slice_trace = None
+    if trace:
+        slots = iter(range(n, n + t["slice_requests"] + 1))
+        slice_trace = profile_slice(lambda: predict(pool[next(slots) % len(pool)]), t["slice_requests"],
+                                    t["batch"], device)
+    peak = int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
+    del predict
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t_check = time.perf_counter()
+    readings, counts = compare(served, ref_cfg, seed, dtype, device, smpl, pool, block)
+    check_s = time.perf_counter() - t_check
+    b = t["batch"]
+    ms = [x * 1e3 for x in latency]
+    p95 = statistics.quantiles(ms, n=100, method="inclusive")[94] if len(ms) > 1 else ms[0]
+    return {
+        "kind": "serve",
+        "attempted": n,
+        "setup_s": setup_s,
+        "end_to_end": {"serve_imgs_per_s": n * b / wall, "serve_p95_ms": p95},
+        "readings": readings,
+        "memory_peak_bytes": peak,
+        "notes": [f"serve: {n} requests of B={b} {t['dtype']} in {wall!r} s; latency median "
+                  f"{statistics.median(ms)!r} ms, p95 {p95!r} ms over {len(ms)} requests; "
+                  f"reference check of {len(served)} requests in {check_s!r} s",
+                  f"set-up {setup_s!r} s: {setup_parts}"],
+        "ctx": {"kind": "serve", "dtype": t["dtype"], "items": n, "images": n * b, "wall_s": wall,
+                "dispatch_s": dispatch, "slice": slice_trace, **counts},
+    }
