@@ -1690,9 +1690,9 @@ DP_JSON_ANNOTATIONS = 256
 
 
 class RangeClock:
-    """A stand-in for `torch.profiler.record_function` in a module that
-    imports it: it opens the real range and appends the host ms of each
-    use to `ms[name]`."""
+    """A stand-in for the port's span (`utils.profiling.annotate`) in a
+    module that imports it: it opens the real span and appends the host ms
+    of each use to `ms[name]`."""
 
     def __init__(self):
         self.ms = {}
@@ -1700,12 +1700,12 @@ class RangeClock:
     def __call__(self, name):
         import contextlib
 
-        from torch.profiler import record_function
+        from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
         @contextlib.contextmanager
         def timed():
             t0 = time.perf_counter()
-            with record_function(name):
+            with annotate(name):
                 yield
             self.ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
 
@@ -1821,13 +1821,13 @@ def phase11_demo_vis(dev, card) -> dict:
             argv = ["--synthetic-assets", "--imglist", frames, "--out_dir", os.path.join(root, f"out_{mode}")]
             argv += ["--bf16"] if mode == "bf16" else []
             clock = RangeClock()
-            real, cli_demo.record_function = cli_demo.record_function, clock
+            real, cli_demo.annotate = cli_demo.annotate, clock
             try:
                 t0 = time.perf_counter()
                 results, counts = counted(lambda: cli_demo.main(argv))
                 wall = time.perf_counter() - t0
             finally:
-                cli_demo.record_function = real
+                cli_demo.annotate = real
             check(len(results) == len(DEMO_FRAMES), f"demo {mode}: {len(results)} composites")
             for r in results:
                 img = read_png(r["out_path"])

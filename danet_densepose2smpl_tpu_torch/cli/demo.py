@@ -30,7 +30,6 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.cli.common import (
     add_common_args,
@@ -40,6 +39,7 @@ from danet_densepose2smpl_tpu_torch.cli.common import (
     resolve_device,
 )
 from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
+from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,12 +63,12 @@ def demo_outputs(run_model, smpl, renderer, faces, images: torch.Tensor, img_siz
     from danet_densepose2smpl_tpu_torch.ops.iuvmap import iuv_map2img
     from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward
 
-    with record_function("demo.model"):
+    with annotate("demo.model"):
         out = run_model(images)
         iuv_img = iuv_map2img(*out["iuv_clean"])
         para = out["para"]
         verts = smpl_forward(smpl, para[:, 3:13], para[:, 13:].reshape(-1, 24, 3, 3)).vertices
-    with record_function("demo.render"):
+    with annotate("demo.render"):
         cam = para[:, :3]
         rendered = renderer(verts, cam)
         shaded = render_shaded(verts, faces, cam, out_size=img_size, orig_size=float(img_size))
@@ -109,12 +109,12 @@ def main(argv=None) -> list:
 
     results = []
     for path in paths:
-        with record_function("demo.read"):
+        with annotate("demo.read"):
             norm = demo_frame(read_rgb(path), size)
             images = torch.from_numpy(norm[None]).to(device)
         with torch.inference_mode(), fp32():
             res = demo_outputs(predictor.run_model, predictor.smpl, renderer, faces, images, size)
-        with record_function("demo.write"):
+        with annotate("demo.write"):
             host = {k: v[0].float().cpu().numpy() for k, v in res.items() if v is not None}
             parts = vis.partial_iuv_images(host["part_iuv"]) if "part_iuv" in host else None
             panels = vis.demo_panels(norm, host["iuv_img"], parts,

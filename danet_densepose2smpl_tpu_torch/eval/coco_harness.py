@@ -17,7 +17,6 @@ import re
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.constants import FOCAL_LENGTH, IMG_RES, J24_TO_JCOCO
 from danet_densepose2smpl_tpu_torch.data.transforms import get_transform
@@ -27,6 +26,7 @@ from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
 from danet_densepose2smpl_tpu_torch.ops.projection import perspective_projection
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward
+from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 
 def transform_preds(coords: np.ndarray, center, scale, res) -> np.ndarray:
@@ -51,12 +51,12 @@ def make_coco_step(infer_fn, smpl: SMPLModel, img_res: int = IMG_RES, fg_conf: b
 
     @torch.inference_mode()
     def step(images):
-        with record_function("coco.infer"):
+        with annotate("coco.infer"):
             if fg_conf:
                 para, fg_prob = infer_fn(images)
             else:
                 para, fg_prob = infer_fn(images), None
-        with record_function("coco.project"), full_fp32():
+        with annotate("coco.project"), full_fp32():
             key = (str(para.device), para.dtype)
             if key not in on:
                 on[key] = (to_torch(smpl, para.device, para.dtype),
@@ -148,7 +148,7 @@ def run_coco_eval(
     n_done = 0
     for b, batch in loader:
         coords, confs = step(torch.as_tensor(np.asarray(batch["img"])))
-        with record_function("coco.read"):
+        with annotate("coco.read"):
             coords, confs = coords.cpu().numpy(), confs.cpu().numpy()
         center = np.asarray(batch["center"])
         scale = np.asarray(batch["scale"])

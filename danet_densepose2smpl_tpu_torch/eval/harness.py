@@ -7,8 +7,8 @@ table. The step runs on the device of the `para` that `infer_fn` returns;
 batches are dicts of numpy arrays, as the JAX harness takes them. With
 `device_preprocess`, the batches carry the raw uint8 frames and the crop
 (`data/pipeline.device_preprocess`) runs on `device`, the model's device,
-before `infer_fn`. The stages carry `record_function` ranges pose.crop /
-infer / metrics / read for torch.profiler.
+before `infer_fn`. The stages carry spans (`utils.profiling.annotate`)
+pose.crop / infer / metrics / read for torch.profiler.
 
 With `mesh` (`parallel.make_mesh`) the eval is data-parallel, as JAX's with
 batch-sharded inputs and outputs: every rank is handed the global batch,
@@ -22,7 +22,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.constants import H36M_TO_J14, H36M_TO_J17, J24_TO_J14, J24_TO_J17
 from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess as crop_on_device
@@ -31,6 +30,7 @@ from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
 from danet_densepose2smpl_tpu_torch.parallel.mesh import all_gather_rows
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward, smpl_forward_aa
+from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 
 def synthetic_h36m_regressor(num_verts: int, seed: int = 0) -> np.ndarray:
@@ -125,12 +125,12 @@ def make_eval_step(
 
     def local_step(images, gt_pose, gt_betas, gender, pose_3d, centers, scales):
         if device_preprocess:
-            with record_function("pose.crop"):
+            with annotate("pose.crop"):
                 images = crop_on_device(torch.as_tensor(np.asarray(images)).to(device),
                                         torch.as_tensor(np.asarray(centers)), torch.as_tensor(np.asarray(scales)))
-        with record_function("pose.infer"):
+        with annotate("pose.infer"):
             para = infer_fn(images)
-        with record_function("pose.metrics"):
+        with annotate("pose.metrics"):
             return score(para, gt_pose, gt_betas, gender, pose_3d), para
 
     def score(para, gt_pose, gt_betas, gender, pose_3d):
@@ -198,7 +198,7 @@ def run_pose_eval(
             images, extra = batch["img"], ()
         (mpjpe, pa), _ = step(torch.as_tensor(np.asarray(images)), batch["pose"], batch["betas"],
                               batch["gender"], batch["pose_3d"], *extra)
-        with record_function("pose.read"):
+        with annotate("pose.read"):
             all_mpjpe.append(mpjpe.cpu().numpy())
             all_pa.append(pa.cpu().numpy())
         all_idx.append(np.asarray(batch["sample_index"]))

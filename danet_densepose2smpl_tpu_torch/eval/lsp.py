@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess as crop_on_device
 from danet_densepose2smpl_tpu_torch.data.transforms import uncrop
@@ -21,6 +20,7 @@ from danet_densepose2smpl_tpu_torch.eval.metrics import SegmentationScores
 from danet_densepose2smpl_tpu_torch.kernels.part_renderer import PartRenderer
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward, smpl_forward_aa
+from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 IGNORE = 255   # the part label of pixels the reference leaves out
 
@@ -40,9 +40,9 @@ def run_lsp_eval(infer_fn, loader, smpl: SMPLModel, img_size: int = 224, face_pa
     `infer_fn(images) -> para (B, 229)` runs the model; everything after it
     runs on `para`'s device. `face_parts` and `backend` go to
     `PartRenderer`. Prints the reference's four "Final Results" lines and
-    returns them as {name: value}. The stages of a batch carry
-    `record_function` ranges lsp.crop / infer / render / uncrop / score for
-    torch.profiler; nothing here turns it on."""
+    returns them as {name: value}. The stages of a batch carry spans
+    (`utils.profiling.annotate`) lsp.crop / infer / render / uncrop /
+    score for torch.profiler; nothing here turns it on."""
     if device_preprocess and device is None:
         raise ValueError("device_preprocess crops on the model's device: pass device=")
     if face_parts is not None:
@@ -59,13 +59,13 @@ def run_lsp_eval(infer_fn, loader, smpl: SMPLModel, img_size: int = 224, face_pa
 
     for b, batch in loader:
         if device_preprocess:
-            with record_function("lsp.crop"):
+            with annotate("lsp.crop"):
                 images = crop_on_device(torch.as_tensor(np.asarray(batch["raw_img"])).to(device),
                                         torch.as_tensor(np.asarray(batch["center"])),
                                         torch.as_tensor(np.asarray(batch["scale"])))
         else:
             images = torch.as_tensor(np.asarray(batch["img"]))
-        with record_function("lsp.infer"):
+        with annotate("lsp.infer"):
             para = infer_fn(images)
         dev = para.device
         key = (str(dev), para.dtype)
@@ -79,7 +79,7 @@ def run_lsp_eval(infer_fn, loader, smpl: SMPLModel, img_size: int = 224, face_pa
                   "LSP protocol; numbers are not comparable to eval.py.")
             warned = True
 
-        with record_function("lsp.render"):
+        with annotate("lsp.render"):
             out = smpl_forward(body, para[:, 3:13], para[:, 13:].reshape(-1, 24, 3, 3))
             mask, part = renderer(out.vertices, para[:, :3])
             if not have_gt:
@@ -88,7 +88,7 @@ def run_lsp_eval(infer_fn, loader, smpl: SMPLModel, img_size: int = 224, face_pa
 
                 gt_body = smpl_forward_aa(body, gt(batch["betas"]), gt(batch["pose"]))
                 gt_mask_r, gt_parts_r = renderer(gt_body.vertices, para[:, :3])
-        with record_function("lsp.uncrop"):
+        with annotate("lsp.uncrop"):
             frame = (batch["center"], batch["scale"], batch["orig_shape"])
             pred_mask = [m > 0 for m in uncrop(mask.to(torch.uint8), *frame)]
             pred_parts = uncrop(part.to(torch.uint8), *frame)
@@ -99,7 +99,7 @@ def run_lsp_eval(infer_fn, loader, smpl: SMPLModel, img_size: int = 224, face_pa
                 gt_mask = [m > 0 for m in uncrop(gt_mask_r.to(torch.uint8), *frame)]
                 gt_parts = uncrop(gt_parts_r.to(torch.uint8), *frame)
 
-        with record_function("lsp.score"):
+        with annotate("lsp.score"):
             for pm, gm, pp, gp in zip(pred_mask, gt_mask, pred_parts, gt_parts):
                 masks.update(pm, gm)
                 gp, pp = gp.long(), pp.long()

@@ -46,6 +46,7 @@ from danet_densepose2smpl_tpu_torch.ops.iuvmap import iuv_img2map, iuvmap_clean
 from danet_densepose2smpl_tpu_torch.ops.structure import DP2SMPL_MAPPING
 from danet_densepose2smpl_tpu_torch.parallel.mesh import active_mesh
 from danet_densepose2smpl_tpu_torch.train.objective import part_iuv_gt_crops
+from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 # the input modes whose forward takes the GT IUV render
 GT_MODES = ("iuv_gt", "iuv_gt_feat")
@@ -179,7 +180,9 @@ class DaNet(nn.Module):
         from `generator`; `pretrain_mode` stops after the IUV estimator.
         'iuv_gt' takes the GT IUV render `uv_image_gt` (B, S, S, 3) and the
         GT SMPL keypoints `smpl_kps_gt` (B, 24, 3), 'iuv_gt_feat' the
-        render; other modes ignore both."""
+        render; other modes ignore both. The estimator's spans are
+        `danet.backbone` and `danet.heads`; the rest is `danet.regressor`
+        (`regress`)."""
         c = self.cfg
         b = image.shape[0]
         mode = c.input_mode
@@ -198,6 +201,15 @@ class DaNet(nn.Module):
                                    c.stn_center_jitter if self.training else 0.0, noise)
         else:
             est = self.img2iuv(image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last), noise)
+        with annotate("danet.regressor"):
+            return self.regress(est, noise, uv_image_gt, pretrain_mode, image.device)
+
+    def regress(self, est: dict, noise: dict | None, uv_image_gt: torch.Tensor | None, pretrain_mode: bool,
+                device: torch.device) -> dict:
+        """The estimator's outputs -> PartDrop (train mode), the cleaned
+        maps and part stacks, the regressor and `para`'s views."""
+        c = self.cfg
+        mode = c.input_mode
         out = {"iuv_raw": est}
         part_iuv = est.get("part_iuv")
         # GT crops skip the per-part clean (the reference consumes them as
@@ -208,7 +220,7 @@ class DaNet(nn.Module):
             # takes GT crops with the estimator's (detached) thetas, at eval
             # the estimator's stacks; iuv_raw keeps the estimator's stacks,
             # which the part losses read
-            with _fp32_region(image.device):
+            with _fp32_region(device):
                 u, v, index, ann = iuv_img2map(uv_image_gt)
                 if self.training:
                     part_iuv, part_is_gt = part_iuv_gt_crops(u, v, index, est["stn_theta"]), True

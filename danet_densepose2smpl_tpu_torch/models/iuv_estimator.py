@@ -45,6 +45,7 @@ from danet_densepose2smpl_tpu_torch.nn.resnet import PoseResNet
 from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights, separable_crop, separable_crop_concat
 from danet_densepose2smpl_tpu_torch.ops.keypoints import soft_argmax_2d
 from danet_densepose2smpl_tpu_torch.ops.structure import SMPL_CHILD2, SMPL_PARENT, smpl2dp_channel_mask
+from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 # the input modes whose regressor takes the backbone features and their
 # part crops
@@ -197,9 +198,17 @@ class IUVEstimator(nn.Module):
         stn_theta (B, 24, 2, 3); stn_scale (B, 24); part_iuv
         (B, 24, S, S, 3, 7); feats (B, S, S, C); in the feature modes
         part_feats (B, 24, S, S, C). Without `decomposed`, the maps of the
-        heads and feats only."""
+        heads and feats only. Spans: `danet.backbone`, the trunk;
+        `danet.heads`, the rest (`heads`)."""
+        with annotate("danet.backbone"):
+            feats = remat(self.iuv_est, image) if self.remat_whole and self.training else self.iuv_est(image)
+        with annotate("danet.heads"):
+            return self.heads(feats, noise)
+
+    def heads(self, feats: torch.Tensor, noise: dict | None) -> dict:
+        """The global IUV heads, the STN crop parameters, and the part
+        crops with the partial head, from the backbone's features."""
         c = self.cfg
-        feats = remat(self.iuv_est, image) if self.remat_whole and self.training else self.iuv_est(image)
         out = self.iuv_est.final_pred(feats)
         # the kernel and the crops take dense NHWC; a free view of the
         # channels_last output

@@ -20,7 +20,6 @@ import contextlib
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.models.danet import GT_MODES, DaNet
@@ -28,6 +27,7 @@ from danet_densepose2smpl_tpu_torch.nn.gcn import GraphConv
 from danet_densepose2smpl_tpu_torch.ops.procrustes import full_fp32
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, synthetic_smpl_model, to_torch
 from danet_densepose2smpl_tpu_torch.smpl.model import smpl_forward
+from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 SERVING_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -123,7 +123,7 @@ class Predictor:
             images_nhwc = torch.from_numpy(images_nhwc)
         x = images_nhwc.to(device=self.device, dtype=self.dtype)
         fp32 = full_fp32() if self.dtype == torch.float32 else contextlib.nullcontext()
-        with record_function("serve.model"), fp32:
+        with annotate("serve.model"), fp32:
             return self.model(x)
 
     @torch.inference_mode()
@@ -134,9 +134,10 @@ class Predictor:
         pred_rotmat (B, 24, 3, 3), vertices (B, V, 3) and joints (B, 49, 3),
         all fp32 (the regressor promotes to fp32 from its first graph
         stage, as JAX's bf16 path does)."""
-        out = self.run_model(images_nhwc)
-        with record_function("serve.smpl"):
-            body = smpl_forward(self.smpl, out["pred_shape"].float(), out["pred_rotmat"].float())
+        with annotate("serve.request"):
+            out = self.run_model(images_nhwc)
+            with annotate("serve.smpl"):
+                body = smpl_forward(self.smpl, out["pred_shape"].float(), out["pred_rotmat"].float())
         return {
             "para": out["para"],
             "pred_cam": out["pred_cam"],

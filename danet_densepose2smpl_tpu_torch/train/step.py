@@ -15,10 +15,13 @@ in TF32: PyTorch leaves `torch.backends.cuda.matmul.allow_tf32` off, and
 nothing here turns it on. A batch of raw uint8 frames (`raw_img`, from
 `NpzDataset(return_raw=True)`) is first cropped, flipped, noised and
 normalized on the model's device, in fp32 and outside autocast
-(`data/pipeline.device_preprocess_train`). The stages carry
-`record_function` ranges (train.ingest, .prepare_targets, .forward,
-.losses, .backward, .optimizer) for `torch.profiler`; outside a profile
-they cost a few microseconds a step.
+(`data/pipeline.device_preprocess_train`). The stages carry the port's
+spans (`utils.profiling.annotate`): each step is an item, `train.step`,
+holding train.ingest, .prepare_targets, .forward, .losses, .backward and
+.optimizer; outside a profile they are `record_function` ranges and cost
+a few microseconds a step. Autograd launches the backward's
+kernels on the forward's stream, so `train.backward`'s device time brackets
+them whichever thread launches them.
 
 With `mesh` (`parallel.make_mesh`) the step is data-parallel, as the JAX
 step with `mesh=` (a GSPMD `jit`, the single-device step on the global
@@ -39,7 +42,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from danet_densepose2smpl_tpu_torch.config import Config
 from danet_densepose2smpl_tpu_torch.data.pipeline import device_preprocess_train
@@ -48,6 +50,7 @@ from danet_densepose2smpl_tpu_torch.parallel.mesh import Mesh, data_parallel, su
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel, to_torch
 from danet_densepose2smpl_tpu_torch.train.objective import compute_losses
 from danet_densepose2smpl_tpu_torch.train.prepare import prepare_targets
+from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -138,19 +141,23 @@ def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, render
     smpl_on = {}
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
+        with annotate("train.step"):
+            return run_step(state, batch, generator)
+
+    def run_step(state: TrainState, batch: dict, generator: torch.Generator | None):
         net, opt = state.model, state.optimizer
         device = next(net.parameters()).device
         if device not in smpl_on:
             smpl_on[device] = smpl if torch.is_tensor(smpl.v_template) else to_torch(smpl, device)
         smpl_t = smpl_on[device]
         if "raw_img" in batch:
-            with record_function("train.ingest"):
+            with annotate("train.ingest"):
                 batch = dict(batch)
                 batch["img"] = device_preprocess_train(
                     batch.pop("raw_img"), batch["center"], batch["scale"], batch["rot_angle"],
                     batch["is_flipped"], batch.pop("pixel_noise"), out_size=cfg.danet.img_size)
         if "opt_pose" in batch and "opt_rotmat" not in batch:
-            with record_function("train.prepare_targets"):
+            with annotate("train.prepare_targets"):
                 batch = prepare_targets(cfg, smpl_t, batch, renderer=renderer, is_itw=is_itw)
 
         gt = {}
@@ -164,15 +171,15 @@ def make_train_step(model: torch.nn.Module, smpl: SMPLModel, cfg: Config, render
         autocast = (torch.autocast(device.type, dtype=torch.bfloat16) if mixed
                     else contextlib.nullcontext())
         with data_parallel(mesh) if mesh is not None else contextlib.nullcontext():
-            with record_function("train.forward"), autocast:
+            with annotate("train.forward"), autocast:
                 out = net(batch["img"], pretrain_mode=pretrain_mode, generator=generator, **gt)
-            with record_function("train.losses"):
+            with annotate("train.losses"):
                 total, losses = compute_losses(
                     cfg.danet, smpl_t, _to_fp32(out), batch, pretrain_mode=pretrain_mode,
                     openpose_weight=cfg.train.openpose_train_weight, gt_weight=cfg.train.gt_train_weight)
-            with record_function("train.backward"):
+            with annotate("train.backward"):
                 total.backward()
-        with record_function("train.optimizer"):
+        with annotate("train.optimizer"):
             for group in opt.param_groups:
                 group["lr"] = schedule(state.step)
                 for p in group["params"]:

@@ -1,0 +1,10 @@
+"""backward_ms.train: device ms per step of the port's `train.backward`
+span (the backward, with the kernels that autograd launches from its own
+thread on the forward's stream): the time between the span's two CUDA
+events, averaged over the profiled slice's steps."""
+
+from port_bench.harness.spans import device_ms_per_item
+
+
+def read(ctx: dict):
+    return device_ms_per_item(ctx, "train.step", ("train.backward",))

@@ -1,0 +1,10 @@
+"""heads_ms.serve: device ms per request of the port's `danet.heads` span
+(the global IUV heads, the STN crop parameters, and the part crops with the
+partial head (K1)): the time between the span's two CUDA events,
+averaged over the profiled slice's requests."""
+
+from port_bench.harness.spans import device_ms_per_item
+
+
+def read(ctx: dict):
+    return device_ms_per_item(ctx, "serve.request", ("danet.heads",))

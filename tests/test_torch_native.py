@@ -1,13 +1,13 @@
 """The port's native RLE codec (`csrc/rle.cpp`, built with the host
-compiler by `kernels.build.build_host`) and its profiling module, against
-the JAX package's `native/rle.cpp`, `data/rle.py` and `utils/profiling.py`.
+compiler by `kernels.build.build_host`) against the JAX package's
+`native/rle.cpp` and `data/rle.py`, and the port's profiling module.
 
 The C++ source is a byte-for-byte copy; its decode of random masks and of
 DensePose `dp_masks` lists (uncompressed, compressed, with empty slots) is
 bit-equal to the port's numpy codec and to JAX's `data/rle.py`; a
-malformed RLE and a build with a compiler that is not there raise. The
-port's `Timer` gives JAX's counts and averages on the same clock, and
-`trace` writes a Chrome trace with the annotated range on the CPU."""
+malformed RLE and a build with a compiler that is not there raise.
+`trace` writes a Chrome trace with the annotated range on the CPU (the
+spans themselves: `test_torch_spans.py`)."""
 
 import json
 from pathlib import Path
@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 
 from danet_densepose2smpl_tpu.data import rle as jrle
-from danet_densepose2smpl_tpu.utils import profiling as jprofiling
 
 from danet_densepose2smpl_tpu_torch.data import rle
 from danet_densepose2smpl_tpu_torch.kernels import build
@@ -90,23 +89,6 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="failed"):
         build.build_host("rle.cpp", compiler="false")
     assert not list(tmp_path.glob("*.so"))
-
-
-def test_timer_matches_jax(monkeypatch):
-    ticks = [0.0, 0.5, 1.0, 1.25, 3.0, 3.0, 4.0, 4.125]
-    for module in (profiling, jprofiling):
-        clock = iter(ticks)
-        monkeypatch.setattr(module.time, "perf_counter", lambda: next(clock))
-        t = module.Timer()
-        assert t.average == 0.0
-        lasts = []
-        for _ in range(4):
-            t.tic()
-            lasts.append(t.toc())
-        assert lasts == [0.5, 0.25, 0.0, 0.125]
-        assert (t.calls, t.total, t.average, t.last) == (4, 0.875, 0.21875, 0.125)
-        t.reset()
-        assert (t.calls, t.total, t.average) == (0, 0.0, 0.0)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
