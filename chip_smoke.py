@@ -272,6 +272,28 @@ cameras frame body-sized silhouettes. In phases:
      fp32 kernel's device ms inside it (its name must show) and the idle
      share, beside the scalar kernel's time from (b).
 
+ 17. the eval BatchNorm kernel (`csrc/bn_act.cu`: BatchNorm, optional
+     residual add and ReLU in one pass), run standalone by
+     `python3 -c "import chip_smoke; chip_smoke.phase17_main()"` too: (a)
+     against its plain version (`bn_act_plain`) on every (C, H, W,
+     residual, ReLU) of the `bn_act` calls of one bf16 request (B=2) of
+     HRNet-W48 and of configs/danet_resnet.yaml, in bf16 and fp32, with and
+     without residual and ReLU, channels-last and NCHW, fp32 x into bf16
+     statistics; the shapes of 28x28 and more at the served batches (bf16
+     B=256, fp32 B=64), whose grids take several strides; odd C over
+     several strides, a transposed view and an unaligned one (the scalar
+     instance): bf16 within 1e-2 of max|ref|, fp32 within 1e-5; (b) by CUDA
+     events, medians of two turns of 20 calls: B=256 bf16 56x56x48 without
+     and with residual (+ ReLU), B=64 fp32 without, each first checked
+     against plain under (a)'s bars, beside its bytes bound at 3.35 TB/s
+     and the plain route the model ran before (the module's BatchNorm, the
+     add, F.relu), and the host's us a call; (c) W48 requests of B=64 in
+     bf16 and fp32 with the kernel, with the plain route (`kernel_dtypes`
+     refused), and with the plain route on images one ulp of the dtype
+     away: every BatchNorm takes the kernel (no plain count), and image by
+     image the route moves para, vertices and joints at most twice as far
+     as the ulp does (largest and median gap over the plain output's max).
+
 Any failed check raises and the exit code is non-zero. The last three lines
 of standard output are the card's name and power limit, one JSON object
 describing each kernel (with the path its launch count was read from;
@@ -3296,6 +3318,254 @@ def phase16_requests(dev, card, timing: dict) -> dict:
     return launches
 
 
+BN_SOURCE = "danet_densepose2smpl_tpu_torch/csrc/bn_act.cu"
+BN_TIMED = ((256, torch.bfloat16, False), (256, torch.bfloat16, True), (64, torch.float32, False))   # at 56x56x48
+
+
+def bn_act_calls(dev) -> set:
+    """(C, H, W, residual, ReLU) of every `bn_act` call that reaches the
+    kernel in one bf16 request (B=2) of HRNet-W48 and of
+    configs/danet_resnet.yaml."""
+    from danet_densepose2smpl_tpu_torch.config import load_config
+    from danet_densepose2smpl_tpu_torch.kernels import bn_act
+    from danet_densepose2smpl_tpu_torch.serve import Predictor
+
+    seen = set()
+    launch = bn_act.launch
+
+    def recording(x, mean, var, weight, bias, eps, residual=None, relu=False):
+        seen.add((x.shape[1], *(tuple(x.shape[2:]) + (1, 1))[:2], residual is not None, relu))
+        return launch(x, mean, var, weight, bias, eps, residual, relu)
+
+    images = torch.from_numpy(np.random.RandomState(3).rand(2, 224, 224, 3).astype(np.float32))
+    bn_act.launch = recording
+    try:
+        for cfg in (None, load_config(os.path.join(REPO, RESNET_CFG)).danet):
+            Predictor(dev, torch.bfloat16, cfg, seed=0).predict(images)
+    finally:
+        bn_act.launch = launch
+    return seen
+
+
+def bn_inputs(b, c, h, w, dtype, dev, seed, channels_last=True):
+    """x, residual and a BatchNorm's (mean, var, weight, bias) of the
+    scale of a served model's (`serve.random_init_`)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.randn(b, c, h, w, device=dev, generator=g).to(dtype).contiguous(memory_format=fmt)
+    r = torch.randn(b, c, h, w, device=dev, generator=g).to(dtype).contiguous(memory_format=fmt)
+    mean = (torch.randn(c, device=dev, generator=g) * 0.1).to(dtype)
+    var = (torch.rand(c, device=dev, generator=g) + 0.5).to(dtype)
+    weight = (torch.rand(c, device=dev, generator=g) + 0.5).to(dtype)
+    bias = (torch.randn(c, device=dev, generator=g) * 0.1).to(dtype)
+    return x, r, (mean, var, weight, bias)
+
+
+def cuda_ms_queued(fn, n):
+    """Mean device ms per call of `fn()` over `n` calls queued behind a
+    spin of the card (`torch.cuda._sleep`), after one warm-up: CUDA events
+    that the host's launch cost does not reach."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_us(fn, n=2000):
+    """Host us per call of `fn()` at a shape the card finishes at once."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def bn_act_error(x, r, stats, relu) -> float:
+    """The kernel's largest gap from `bn_act_plain` over max|ref|."""
+    from danet_densepose2smpl_tpu_torch.kernels.bn_act import bn_act_plain, launch
+
+    got = launch(x, *stats, 1e-5, r, relu)
+    ref = bn_act_plain(x, *stats, 1e-5, r, relu)
+    check(got.shape == ref.shape and got.dtype == x.dtype, "bn_act keeps x's shape and dtype")
+    check(got.stride() == x.stride() or not (x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last)),
+          "bn_act keeps x's layout")
+    return ((got.double() - ref.double()).abs().max() / ref.double().abs().max().clamp_min(1e-30)).item()
+
+
+def phase17_bn_act(dev, card) -> dict:
+    """(a)-(c) of phase 17; returns its `kernels` entry."""
+    from danet_densepose2smpl_tpu_torch.kernels import bn_act
+    from danet_densepose2smpl_tpu_torch.kernels.bn_act import launch, load_library
+    from danet_densepose2smpl_tpu_torch.nn import layers
+    from danet_densepose2smpl_tpu_torch.serve import Predictor
+    from danet_densepose2smpl_tpu_torch.utils.profiling import annotate, recorded_items, RECORDER
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    _, log = load_library()
+    print(f"phase 17: ptxas report of {BN_SOURCE}:\n" + "\n".join(
+        line for line in log.splitlines() if "registers" in line or "spill" in line))
+    # (a) every served shape, both dtypes and layouts, with and without residual and ReLU
+    calls = bn_act_calls(dev)
+    shapes = sorted({(c, h, w) for c, h, w, _, _ in calls}) + [(21, 7, 5), (3, 5, 3), (12, 56, 56)]
+    bars = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+    worst = {}
+    with torch.no_grad():
+        for i, (c, h, w) in enumerate(shapes):
+            for dtype in bars:
+                for cl in (True, False):
+                    x, r, stats = bn_inputs(2, c, h, w, dtype, dev, seed=i, channels_last=cl)
+                    for res in (None, r):
+                        for relu in (False, True):
+                            key = (str(dtype)[6:], 2, c, h, w, "cl" if cl else "nchw", res is not None, relu)
+                            worst[key] = bn_act_error(x, res, stats, relu)
+            # fp32 x into bf16 statistics: the GCN's flow, the scale in bf16
+            x, _, stats = bn_inputs(2, c, h, w, torch.float32, dev, seed=i, channels_last=False)
+            stats = tuple(t.bfloat16() for t in stats)
+            worst[("float32", 2, c, h, w, "bf16_statistics", False, True)] = bn_act_error(x, None, stats, True)
+        # the served batches of the large shapes: grids of several strides
+        for i, (c, h, w) in enumerate(s for s in shapes if s[1] * s[2] >= 28 * 28):
+            for b, dtype in ((SERVE_BIG_BATCH, torch.bfloat16), (SERVE_BATCH, torch.float32)):
+                x, r, stats = bn_inputs(b, c, h, w, dtype, dev, seed=100 + i, channels_last=True)
+                for res, relu in ((None, False), (r, True)):
+                    key = (str(dtype)[6:], b, c, h, w, "cl", res is not None, relu)
+                    worst[key] = bn_act_error(x, res, stats, relu)
+                del x, r
+        for dtype in bars:   # an odd C over several strides, NCHW; a transposed view (copied to the kernel's layout)
+            x, r, stats = bn_inputs(SERVE_BATCH, 21, 57, 55, dtype, dev, seed=98, channels_last=False)
+            worst[(str(dtype)[6:], SERVE_BATCH, 21, 57, 55, "nchw", True, True)] = bn_act_error(x, r, stats, True)
+            x, r, stats = bn_inputs(8, 48, 28, 28, dtype, dev, seed=97)
+            worst[(str(dtype)[6:], 8, 48, 28, 28, "transposed", True, True)] = bn_act_error(
+                x.transpose(2, 3), r.transpose(2, 3), stats, True)
+        for dtype in bars:   # an unaligned view: the scalar instance
+            _, _, stats = bn_inputs(1, 9, 1, 1, dtype, dev, seed=99)
+            xs = torch.randn(2 * 9 * 5 * 7 + 1, device=dev).to(dtype)[1:].view(2, 9, 5, 7)
+            check(xs.data_ptr() % 16 != 0, "the view is unaligned")
+            worst[(str(dtype)[6:], 2, 9, 5, 7, "unaligned", False, True)] = bn_act_error(xs, None, stats, True)
+        torch.cuda.synchronize()
+    for dtype, bar in bars.items():
+        cases = {k: v for k, v in worst.items() if k[0] == str(dtype)[6:]}
+        top = max(cases, key=cases.get)
+        big = max((v for k, v in cases.items() if k[1] > 2), default=float("nan"))
+        print(f"phase 17: (a) bn_act {str(dtype)[6:]} vs plain, {len(cases)} cases over {len(shapes)} shapes: "
+              f"largest gap over max|ref| {cases[top]!r} at {top} (bar {bar}); at served batches {big!r}")
+        check(cases[top] <= bar, f"bn_act {dtype} vs plain: {cases[top]} at {top}")
+    print(f"phase 17: (a) the served calls (C, H, W, residual, ReLU): {sorted(calls)}")
+
+    # (b) the kernel alone at the W48 branch-0 shape against its bound and the plain route
+    timed = {}
+    bn = layers.bn(48).to(dev).eval()
+    for b, dtype, res in BN_TIMED:
+        x, r, stats = bn_inputs(b, 48, 56, 56, dtype, dev, seed=7)
+        bn = bn.to(dtype)
+        for t, v in zip((bn.running_mean, bn.running_var, bn.weight, bn.bias), stats):
+            t.data.copy_(v)
+        r = r if res else None
+        n_bytes = nbytes(x, x) + (nbytes(r) if res else 0)
+        bound_ms, _ = bound(n_bytes, 0, "fp32")
+        fns = {"kernel": lambda: launch(x, *stats, 1e-5, r, res),
+               "plain": (lambda: torch.relu(bn.plain_forward(x) + r)) if res else (lambda: bn.plain_forward(x))}
+        times = {k: [] for k in fns}
+        with torch.no_grad():
+            err = bn_act_error(x, r, stats, res)
+            check(err <= bars[dtype], f"bn_act at B={b} {dtype}: {err}")
+            for name in ("kernel", "plain", "plain", "kernel"):
+                times[name].append(cuda_ms_queued(fns[name], 20))
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        key = f"B{b}_{str(dtype)[6:]}_56x56x48" + ("_residual_relu" if res else "")
+        timed[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": "bytes",
+                      "share_of_bound": bound_ms / ms["kernel"], "bytes": n_bytes, "max_err": err}
+        print(f"phase 17: (b) {key}: kernel {times['kernel']} ms, plain route {times['plain']} ms "
+              f"({'BN, add, ReLU' if res else 'BN'}), bound {bound_ms!r} ms ({n_bytes} bytes at 3.35 TB/s): "
+              f"{100 * bound_ms / ms['kernel']!r}% of HBM bandwidth (CUDA events, calls queued behind a spin, "
+              f"medians of two turns of 20); against plain {err!r} of max|ref|; card {card}")
+        del x, r, stats, fns
+    torch.cuda.empty_cache()
+    x, r, stats = bn_inputs(1, 48, 8, 8, torch.bfloat16, dev, seed=8)
+    bn = bn.to(torch.bfloat16)
+    with torch.no_grad():
+        host = {"kernel": host_us(lambda: layers.bn_act(bn, x, r, True)),
+                "plain": host_us(lambda: torch.relu(bn.plain_forward(x) + r))}
+        with profile(activities=[ProfilerActivity.CPU]), annotate("serve.request"):   # a profiled request's state
+            host |= {"kernel_recorded": host_us(lambda: layers.bn_act(bn, x, r, True), n=500),
+                     "plain_recorded": host_us(lambda: torch.relu(bn.plain_forward(x) + r), n=500)}
+    RECORDER.clear()
+    timed["host_us_per_call"] = host
+    print(f"phase 17: (b) host us a call (B=1 bf16 8x8x48, BN + residual + ReLU, 2000 calls after one, "
+          f"perf_counter over the loop, the card finishing each call at once): `bn_act` with the kernel "
+          f"{host['kernel']!r}, the plain route {host['plain']!r}; inside a recorded `serve.request` (torch.profiler "
+          f"on, the span recorder's item open, 500 calls): {host['kernel_recorded']!r}, {host['plain_recorded']!r}")
+
+    # (c) W48 requests of B=64, bf16 and fp32, with the kernel and with the plain route (`kernel_dtypes`
+    # refused), and the plain route on the images one ulp of the dtype away: the route's output gap
+    # against the one-ulp gap, image by image
+    base = torch.from_numpy(np.random.RandomState(5).rand(SERVE_BATCH, 224, 224, 3).astype(np.float32)).to(dev)
+    kernel_dtypes = layers.kernel_dtypes
+    gaps, counts, launches = {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        predictor = Predictor(dev, dtype, seed=0)
+        images = base.to(dtype)
+        bumped = torch.nextafter(images, torch.full_like(images, 2.0)).float()
+        outs = {}
+        for route, x in (("fused", images.float()), ("plain", images.float()), ("plain_ulp", bumped)):
+            layers.kernel_dtypes = kernel_dtypes if route == "fused" else (lambda m, x: False)
+            try:
+                predictor.predict(x)
+                torch.cuda.synchronize()
+                RECORDER.clear()
+                before = bn_act.launches
+                with profile(activities=[ProfilerActivity.CPU]):
+                    outs[route] = predictor.predict(x)
+                torch.cuda.synchronize()
+                launches[name, route] = bn_act.launches - before
+                counts[name, route] = recorded_items()[-1]["counts"]
+            finally:
+                layers.kernel_dtypes = kernel_dtypes
+        for k in ("para", "vertices", "joints"):
+            ref = outs["plain"][k].float().flatten(1)
+            per = {r: ((outs[r][k].float().flatten(1) - ref).abs().amax(1) / ref.abs().amax(1))
+                   for r in ("fused", "plain_ulp")}
+            gaps[name, k] = {r: (v.max().item(), v.median().item()) for r, v in per.items()}
+        fused = counts[name, "fused"]
+        check(launches[name, "plain"] == launches[name, "plain_ulp"] == 0
+              and launches[name, "fused"] == fused.get("bn_act.fused", 0) > 0 and "bn_act.plain" not in fused,
+              f"bn_act {name}: launches {launches}, counts {counts}")
+        print(f"phase 17: (c) W48 {name} B={SERVE_BATCH} request: kernel launches {launches[name, 'fused']}, route "
+              f"counts with the kernel {fused}, with it refused {counts[name, 'plain']}; card {card}")
+        for k in ("para", "vertices", "joints"):
+            g = gaps[name, k]
+            print(f"phase 17: (c) {name} {k}: gap over the plain output's max, image by image (max, median): "
+                  f"the kernel's route {g['fused']}, the plain route one input ulp away {g['plain_ulp']}")
+            check(all(f <= 2 * u for f, u in zip(g["fused"], g["plain_ulp"])),
+                  f"bn_act {name} {k}: the route moves the outputs more than twice as far as one input ulp: {g}")
+        del predictor, outs
+        torch.cuda.empty_cache()
+    counts = counts["bfloat16", "fused"]
+    launches = launches["bfloat16", "fused"]
+    return {"name": "bn_act", "route": "cuda", "source": BN_SOURCE, "replaces": None,
+            "launches": launches, "path": f"serving: Predictor.predict, bf16, B={SERVE_BATCH}, 1 request",
+            "max_abs_err": max(worst.values()), "library_ms": None, "counts": counts,
+            "output_gaps": {f"{d}.{k}": v for (d, k), v in gaps.items()}, **timed}
+
+
+def phase17_main():
+    """Phase 17 alone, after phase 0's checks."""
+    phase0_environment()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(json.dumps({"kernels": [phase17_bn_act(dev, card)]}))
+
+
 def main():
     k1_report = phase0_environment()
     dev = torch.device("cuda", 0)
@@ -3324,6 +3594,7 @@ def main():
     # phase 16 runs before 14 and 15: after phase 14's NCCL group and spawned
     # ranks torch.profiler has recorded no device event, and 16 profiles
     k1_f32 = timed(16, lambda: phase16_k1_fp32(dev, card))
+    bn = timed(17, lambda: phase17_bn_act(dev, card))
     last = timed(14, lambda: phase14_chunks_dp(dev, card))
     final = timed(15, lambda: phase15_remat_pad(dev, card))
     kernels = [{"name": "part_crop_head", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -3402,6 +3673,7 @@ def main():
         if k["name"] == "rasterize_flat_masked":                  # phase 15 (a): 3 steps per scope
             k["remat_launches"] = {scope: v["launches"]["rasterize_flat_masked"]
                                    for scope, v in final["remat"]["b128"].items()}
+    kernels.append(bn)
     print("phase seconds: " + ", ".join(f"{n}: {t:.1f}" for n, t in sorted(timings.items())))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from danet_densepose2smpl_tpu_torch.nn.layers import Bottleneck, ResLayer, bn, conv, max_pool_3x3_s2
+from danet_densepose2smpl_tpu_torch.nn.layers import Bottleneck, ResLayer, bn, bn_act, conv, max_pool_3x3_s2
 from danet_densepose2smpl_tpu_torch.ops.rotations import rot6d_to_rotmat
 
 NPOSE = 24 * 6
@@ -46,7 +45,7 @@ class HMR(nn.Module):
         (B, 24, 3, 3), shape (B, 10), cam (B, 3))."""
         b = image.shape[0]
         x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        x = max_pool_3x3_s2(bn_act(self.bn1, self.conv1(x), relu=True))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         xf = x.mean(dim=(2, 3))                                        # (B, 2048)
         pose = init_pose.to(xf.dtype).expand(b, NPOSE)

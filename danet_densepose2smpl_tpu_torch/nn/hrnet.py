@@ -24,7 +24,7 @@ from typing import Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
-from danet_densepose2smpl_tpu_torch.nn.layers import BasicBlock, BNReLU, Bottleneck, ResLayer, bn, conv, remat
+from danet_densepose2smpl_tpu_torch.nn.layers import BasicBlock, BNReLU, Bottleneck, ResLayer, bn, bn_act, conv, remat
 
 # (num_modules, num_branches, num_blocks per branch, channels per branch)
 HRNET_W48_STAGES = (
@@ -78,11 +78,20 @@ class HRModule(nn.Module):
             self.fuse_layers.append(row)
 
     def forward(self, xs):
+        """Row i sums its terms in branch order, then ReLU. A higher-res
+        term (j < i) ends in a BatchNorm, which `bn_act` adds to the sum so
+        far in the same pass (the sum's order kept: acc + term)."""
         ys = [branch(x) for branch, x in zip(self.branches, xs)]
         outs = []
-        for row in self.fuse_layers:
+        for i, row in enumerate(self.fuse_layers):
             acc = None
-            for f, y in zip(row, ys):
+            for j, (f, y) in enumerate(zip(row, ys)):
+                if j < i:
+                    *steps, last = f
+                    for step in steps:
+                        y = bn_act(step[1], step[0](y), relu=True)
+                    acc = bn_act(last[1], last[0](y), residual=acc)
+                    continue
                 y = f(y)
                 acc = y if acc is None else acc + y
             outs.append(F.relu(acc))
@@ -136,8 +145,8 @@ class PoseHighResolutionNet(nn.Module):
         def run(block, stage, inputs):
             return remat(block, inputs) if per_module and stage not in self.remat_skip_stages else block(inputs)
 
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = bn_act(self.bn1, self.conv1(x), relu=True)
+        x = bn_act(self.bn2, self.conv2(x), relu=True)
         xs = [run(self.layer1, 1, x)]
         for s_idx, (_, num_branches, _, _) in enumerate(self.stages):
             t = s_idx + 1

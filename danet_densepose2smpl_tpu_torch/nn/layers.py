@@ -9,6 +9,11 @@ biased batch variance, as flax's does (see `FlaxRunningVar`), and inside
 (`GlobalBatchNorm`). `remat` runs a block under activation
 checkpointing; a BatchNorm that its backward recomputes leaves its
 running statistics alone.
+
+Every BatchNorm, and the residual add and ReLU after it, goes through
+`bn_act`: on the card, in eval with autograd off, one kernel pass
+(`kernels/bn_act.py`); elsewhere the module's forward, the add and the
+ReLU, as separate ops.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from danet_densepose2smpl_tpu_torch.kernels import bn_act as bn_act_kernel
 from danet_densepose2smpl_tpu_torch.parallel.mesh import active_mesh, data_parallel
+from danet_densepose2smpl_tpu_torch.utils.profiling import count
 
 BN_EPS = 1e-5
 
@@ -89,9 +96,15 @@ class FlaxRunningVar:
 
     Under `remat`'s recompute the forward is the same computation and
     leaves `running_mean`, `running_var` and `num_batches_tracked` as they
-    are."""
+    are.
+
+    `forward` goes through `bn_act`, which takes the kernel or comes back
+    to `plain_forward`."""
 
     def forward(self, x):
+        return bn_act(self, x)
+
+    def plain_forward(self, x):
         if not (self.training and self.track_running_stats):
             if x.dtype != self.weight.dtype and not torch.is_autocast_enabled(x.device.type):
                 return _eval_bn_promoted(self, x)
@@ -190,6 +203,48 @@ def _eval_bn_promoted(m, x):
     return (x - m.running_mean.reshape(shape)) * mul.reshape(shape) + m.bias.reshape(shape)
 
 
+def on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def kernel_dtypes(m, x) -> bool:
+    """Whether the kernel computes `m`'s eval forward of x: x and m's
+    statistics and affine in one of its dtypes (bf16, fp32), or fp32 x into
+    bf16 ones outside autocast (`_eval_bn_promoted`'s flow, which the
+    kernel follows). Any other mix (and fp64, fp16) widens the output to
+    another dtype than x's: the module's forward computes it."""
+    s = m.weight.dtype
+    if not (m.bias.dtype == m.running_mean.dtype == m.running_var.dtype == s):
+        return False
+    if x.dtype == s:
+        return s in bn_act_kernel.DTYPE_CODE
+    return x.dtype == torch.float32 and s == torch.bfloat16 and not torch.is_autocast_enabled(x.device.type)
+
+
+def bn_act(m, x, residual=None, relu: bool = False):
+    """BatchNorm `m` of x, then `+ residual` and ReLU where given.
+
+    One pass of the kernel (`kernels/bn_act.py::launch`) where x is on the
+    card, `m` is in eval mode with running statistics and an affine on the
+    card, autograd is off and `kernel_dtypes` holds; x and the residual in
+    another layout than the kernel's are copied to one there, and a
+    residual of another shape or dtype raises. Every other call (train
+    mode, autograd on, the CPU, fp64, other dtype mixes) is
+    `m.plain_forward(x)`, `+ residual`, `F.relu`, in that order. Each call
+    on the card is counted into the span recorder's open item
+    (`utils.profiling.count`): 'bn_act.fused' or 'bn_act.plain'."""
+    if on_card(x):
+        fused = (not m.training and m.track_running_stats and m.affine and not torch.is_grad_enabled()
+                 and on_card(m.weight) and kernel_dtypes(m, x))
+        count("bn_act.fused" if fused else "bn_act.plain")
+        if fused:
+            return bn_act_kernel.launch(x, m.running_mean, m.running_var, m.weight, m.bias, m.eps, residual, relu)
+    y = m.plain_forward(x)
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
+
+
 class BatchNorm2d(FlaxRunningVar, nn.BatchNorm2d):
     pass
 
@@ -203,10 +258,14 @@ def bn(channels: int) -> BatchNorm2d:
 
 
 class BNReLU(nn.Sequential):
-    """Conv -> BN -> ReLU as a Sequential (torch keys `.0`, `.1`)."""
+    """Conv -> BN -> ReLU as a Sequential (torch keys `.0`, `.1`); the BN
+    and ReLU through `bn_act`."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
         super().__init__(conv(cin, cout, kernel, stride), bn(cout), nn.ReLU(inplace=True))
+
+    def forward(self, x):
+        return bn_act(self[1], self[0](x), relu=True)
 
 
 def _downsample(cin: int, cout: int, stride: int, groups: int) -> nn.Sequential | None:
@@ -229,9 +288,8 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         r = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return F.relu(y + r)
+        y = bn_act(self.bn1, self.conv1(x), relu=True)
+        return bn_act(self.bn2, self.conv2(y), residual=r, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -250,10 +308,9 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         r = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + r)
+        y = bn_act(self.bn1, self.conv1(x), relu=True)
+        y = bn_act(self.bn2, self.conv2(y), relu=True)
+        return bn_act(self.bn3, self.conv3(y), residual=r, relu=True)
 
 
 class ResLayer(nn.Sequential):

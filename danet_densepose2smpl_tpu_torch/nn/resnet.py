@@ -5,9 +5,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from danet_densepose2smpl_tpu_torch.nn.layers import RESNET_SPEC, ResLayer, bn, conv, max_pool_3x3_s2
+from danet_densepose2smpl_tpu_torch.nn.layers import RESNET_SPEC, ResLayer, bn, bn_act, conv, max_pool_3x3_s2
 
 
 def deconv_layer(cin: int, cout: int) -> list:
@@ -40,9 +39,12 @@ class PoseResNet(nn.Module):
         self.out_channels = ch
 
     def forward(self, x):
-        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        x = max_pool_3x3_s2(bn_act(self.bn1, self.conv1(x), relu=True))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return self.deconv_layers(x)
+        d = self.deconv_layers
+        for i in range(0, len(d), 3):   # (deconv, BN, ReLU) triples
+            x = bn_act(d[i + 1], d[i](x), relu=True)
+        return x
 
 
 class SmplResNet(nn.Module):
@@ -73,7 +75,7 @@ class SmplResNet(nn.Module):
             self.final_layer = nn.Linear(ch, num_classes)
 
     def forward(self, x):
-        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        x = max_pool_3x3_s2(bn_act(self.bn1, self.conv1(x), relu=True))
         x = self.layer2(self.layer1(x))
         if self.truncate < 2:
             x = self.layer3(x)

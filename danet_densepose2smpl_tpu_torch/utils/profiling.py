@@ -30,6 +30,11 @@ keeps besides, in memory:
   (`torch.cuda.synchronize()`, a device synchronize, is not flagged by the
   mode; the port makes none inside a request or a step.)
 
+`count(name)` adds one to the counter `name` of the item open on the
+calling thread, and does nothing where none is open (no profiler recording):
+the port counts what its layers did inside an item, as `nn.layers.bn_act`
+counts its routes.
+
 The store keeps the last `ITEMS_KEPT` items; `recorded_items()` reads them
 out, oldest first.
 """
@@ -68,6 +73,7 @@ class Item:
     id: int
     spans: list = field(default_factory=list)
     open: list = field(default_factory=list)    # the open spans, innermost last
+    counts: collections.Counter = field(default_factory=collections.Counter)   # `count`'s counters
 
 
 def recording() -> bool:
@@ -175,7 +181,7 @@ class Recorder:
                 spans.append({"name": s.name, "parent": s.parent, "device_ms": s.device_ms,
                               "syncs": len(s.waits), "waits": list(s.waits)})
             out.append({"id": item.id, "name": spans[0]["name"], "syncs": sum(s["syncs"] for s in spans),
-                        "spans": spans})
+                        "counts": dict(item.counts), "spans": spans})
         return out
 
     def clear(self) -> None:
@@ -187,10 +193,18 @@ RECORDER = Recorder()
 
 def recorded_items() -> list:
     """The kept items, oldest first: {'id', 'name' (its first span's),
-    'syncs' (its blocking waits), 'spans': [{'name', 'parent', 'device_ms'
-    (None without CUDA events), 'syncs', 'waits' (their `file:line`)}]}, the
-    spans in the order they opened. Waits for the spans' end events."""
+    'syncs' (its blocking waits), 'counts' ({name: n} of `count`), 'spans':
+    [{'name', 'parent', 'device_ms' (None without CUDA events), 'syncs',
+    'waits' (their `file:line`)}]}, the spans in the order they opened.
+    Waits for the spans' end events."""
     return RECORDER.read()
+
+
+def count(name: str) -> None:
+    """One more `name` in the item open on this thread, if one is open."""
+    item = RECORDER.current()
+    if item is not None:
+        item.counts[name] += 1
 
 
 class annotate:
