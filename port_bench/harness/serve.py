@@ -1,16 +1,18 @@
 """The serve cells: one client in a closed loop, requests back to back.
 
-Set-up builds the port's `Predictor` with the seed's weights (made on the
-device, `harness.weights`) and the synthetic SMPL arrays, makes a pool of
-distinct image batches on the device and warms up on them. The window
-sends requests until `seconds` have passed: a request is
-`Predictor.predict` on the next batch of the pool, and its latency runs
-from the call to the end of its `torch.cuda.synchronize()`. A sample of
+Set-up builds the port's serving entry of the cell's model family
+(`families/<family>.py::port_server`; for DaNet `Predictor.predict`) with
+the seed's weights (made on the device, `harness.weights`) and the
+synthetic SMPL arrays, makes a pool of distinct image batches of the
+family's image size on the device and warms up on them. The window
+sends requests until `seconds` have passed: a request is the entry called
+on the next batch of the pool, and its latency runs from the call to the
+end of its `torch.cuda.synchronize()`. A sample of
 the finished requests, drawn from the seed as the window goes (a
 reservoir), is kept; once the window has closed (and the profiled slice,
 with `--trace 1`), the peak memory is read, the port is freed, and the
-plain reference recomputes each sampled request from the same images and
-weights: `para`, `vertices` and `joints` are compared.
+plain reference of the family recomputes each sampled request from the
+same images and weights: `para`, `vertices` and `joints` are compared.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from port_bench.harness import spec
 from port_bench.harness.precision import computed_in
 from port_bench.harness.trace import profile_slice, sync
-from port_bench.harness.weights import derive_seed, reference_model
+from port_bench.harness.weights import derive_seed
 from port_bench.harness.yardstick import counting_flops
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -34,9 +36,10 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def make_pool(traffic: dict, img_size: int, seed: int, device) -> torch.Tensor:
+def make_pool(traffic: dict, hw, seed: int, device) -> torch.Tensor:
     """(pool, B, H, W, 3) normalized RGB batches in the served dtype, made
-    on the device from the seed: uniform pixels, ImageNet-normalized; or,
+    on the device from the seed, `hw` (H, W) or one side of a square:
+    uniform pixels, ImageNet-normalized; or,
     where the traffic gives `images`, a pixel is per image a brightness
     per channel and a contrast times a smooth field (normal draws on a
     `grid` x `grid` lattice per channel, upsampled bicubically), plus
@@ -45,8 +48,9 @@ def make_pool(traffic: dict, img_size: int, seed: int, device) -> torch.Tensor:
     their noise."""
     import torch.nn.functional as F
 
+    h, w = (hw, hw) if isinstance(hw, int) else hw
     gen = torch.Generator(device=device).manual_seed(derive_seed(seed, "images"))
-    shape = (traffic["pool"], traffic["batch"], img_size, img_size, 3)
+    shape = (traffic["pool"], traffic["batch"], h, w, 3)
     look = traffic.get("images")
     if look is None:
         pixels = torch.rand(shape, generator=gen, device=device)
@@ -58,8 +62,8 @@ def make_pool(traffic: dict, img_size: int, seed: int, device) -> torch.Tensor:
             return lo + (hi - lo) * torch.rand(size, generator=gen, device=device)
 
         field = F.interpolate(torch.randn((n, 3, g, g), generator=gen, device=device),
-                              size=(img_size, img_size), mode="bicubic", align_corners=False)
-        grain = torch.rand((n, img_size, img_size, 3), generator=gen, device=device) - 0.5
+                              size=(h, w), mode="bicubic", align_corners=False)
+        grain = torch.rand((n, h, w, 3), generator=gen, device=device) - 0.5
         pixels = (uniform(look["brightness"], n, 1, 1, 3) + uniform(look["contrast"], n, 1, 1, 1)
                   * field.permute(0, 2, 3, 1) + look["grain"] * grain).clamp_(0.0, 1.0).view(shape)
     mean = torch.tensor(IMAGENET_MEAN, device=device)
@@ -74,49 +78,25 @@ def smpl_arrays():
 
 
 def port_server(cfg_port, ref_cfg, seed: int, dtype: torch.dtype, device, smpl):
-    """The system under test: the port's `Predictor.predict` with the
-    seed's weights (the reference model's state dict, loaded as a
-    checkpoint) and `smpl`'s arrays."""
-    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
-    from danet_densepose2smpl_tpu_torch.serve import Predictor
-    from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel
+    """DaNet's serving entry (`families/danet.py::port_server`), by the
+    name that callers outside the harness use."""
+    from port_bench.families.danet import port_server as danet_server
 
-    weights = reference_model(ref_cfg, seed, device).state_dict()
-    with torch.device(device):
-        model = DaNet(cfg_port.danet)
-    model.load_state_dict(weights)
-    del weights
-    predictor = Predictor(device, dtype, model=model, smpl=SMPLModel(*smpl))
-    return predictor.predict
+    return danet_server(cfg_port, ref_cfg, seed, dtype, device, smpl)
 
 
-def reference_outputs(model, smpl_t, images: torch.Tensor, block: int) -> dict:
-    """The reference's para, vertices and joints of `images`, in blocks of
-    `block` images, fp32."""
-    from port_bench.reference.smpl.model import smpl_forward
-
-    outs = {k: [] for k in COMPARED}
-    for i in range(0, images.shape[0], block):
-        out = model(images[i:i + block].float())
-        body = smpl_forward(smpl_t, out["pred_shape"], out["pred_rotmat"])
-        outs["para"].append(out["para"])
-        outs["vertices"].append(body.vertices)
-        outs["joints"].append(body.joints)
-    return {k: torch.cat(v) for k, v in outs.items()}
-
-
-def control_server(ref_cfg, seed: int, dtype: torch.dtype, device, smpl, kind: str, block: int):
-    """The reference put in the port's place, computed in `kind` (a
-    precision below the cell's): the control of the comparison."""
+def control_server(family, ref_cfg, seed: int, dtype: torch.dtype, device, smpl, kind: str, block: int):
+    """The family's reference put in the port's place, computed in `kind`
+    (a precision below the cell's): the control of the comparison."""
     from port_bench.reference.smpl.loader import to_torch
 
-    model = reference_model(ref_cfg, seed, device, dtype).eval()
+    model = family.reference_model(ref_cfg, seed, device, dtype).eval()
     smpl_t = to_torch(smpl, device)
 
     @torch.no_grad()
     def serve(images):
         with computed_in(kind, model):
-            return reference_outputs(model, smpl_t, images, block)
+            return family.reference_outputs(model, smpl_t, images, block)
 
     return serve
 
@@ -188,9 +168,11 @@ def unexplained(got: torch.Tensor, ref: torch.Tensor) -> float:
     return share if share == share else float("inf")
 
 
-def compare(served: list, ref_cfg, seed: int, dtype: torch.dtype, device, smpl, pool, block: int) -> tuple:
+def compare(family, served: list, ref_cfg, seed: int, dtype: torch.dtype, device, smpl, pool,
+            block: int) -> tuple:
     """({number: reading}, {'flops_per_image', 'k1_call'}) over the sampled
-    requests; the reference computes each distinct sampled batch once.
+    requests; the family's reference computes each distinct sampled batch
+    once.
     Readings, for each output k of `COMPARED`: `k`, the widest image gap
     (`image_gaps`); `k_nearest`, the largest of `nearest_ratios` (over 1
     where an answer lies nearer another sampled image's reference answer
@@ -203,10 +185,11 @@ def compare(served: list, ref_cfg, seed: int, dtype: torch.dtype, device, smpl, 
     little from image to image, so an image's gap swings with rounding:
     the low percentiles read where the decisions agree, and the shares
     read the sample as a whole. The yardstick's counts come from the
-    reference's first sampled request."""
+    reference's first sampled request: its FLOPs, and K1's call where the
+    reference made part crops (none: no `k1_call`)."""
     from port_bench.reference.smpl.loader import to_torch
 
-    model = reference_model(ref_cfg, seed, device, dtype).eval()
+    model = family.reference_model(ref_cfg, seed, device, dtype).eval()
     smpl_t = to_torch(smpl, device)
     slots = sorted({slot for slot, _ in served})
     ref = {}
@@ -216,13 +199,15 @@ def compare(served: list, ref_cfg, seed: int, dtype: torch.dtype, device, smpl, 
             images = pool[slot]
             if not counts:
                 with counting_flops() as c:
-                    ref[slot] = reference_outputs(model, smpl_t, images, block)
+                    ref[slot] = family.reference_outputs(model, smpl_t, images, block)
+                counts = {"flops_per_image": c["flops"] / images.shape[0]}
                 calls = c["crops"]
-                b = sum(call[0] for call in calls)
-                merged = (b, *calls[0][1:6], sum(call[6] for call in calls), sum(call[7] for call in calls))
-                counts = {"flops_per_image": c["flops"] / images.shape[0], "k1_call": merged}
+                if calls:
+                    b = sum(call[0] for call in calls)
+                    counts["k1_call"] = (b, *calls[0][1:6], sum(call[6] for call in calls),
+                                         sum(call[7] for call in calls))
             else:
-                ref[slot] = reference_outputs(model, smpl_t, images, block)
+                ref[slot] = family.reference_outputs(model, smpl_t, images, block)
     b = pool.shape[1]
     own = torch.cat([slots.index(slot) * b + torch.arange(b, device=device) for slot, _ in served])
     readings = {}
@@ -251,25 +236,22 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device, t_start
     'port', or a control precision ('tf32', 'fp8') in whose place the
     reference serves; `wrap(predict) -> predict` plants a fault in the
     served path (the checks of the comparison)."""
-    from danet_densepose2smpl_tpu_torch import config as port_config
-    from port_bench.reference import config as ref_config
-
     t = cell.traffic
-    cfg = spec.build_config(port_config, cell.config, t, overrides)
-    ref_cfg = spec.build_config(ref_config, cell.config, t, overrides)
+    family = cell.family
+    cfg, ref_cfg = family.configs(cell.config, t, overrides)
     dtype = DTYPES[t["dtype"]]
     block = t["reference_block"]
     marks = [("start", time.perf_counter())]
     smpl = smpl_arrays()
     marks.append(("smpl", time.perf_counter()))
     if server == "port":
-        predict = port_server(cfg, ref_cfg, seed, dtype, device, smpl)
+        predict = family.port_server(cfg, ref_cfg, seed, dtype, device, smpl)
     else:
-        predict = control_server(ref_cfg, seed, dtype, device, smpl, server, block)
+        predict = control_server(family, ref_cfg, seed, dtype, device, smpl, server, block)
     if wrap is not None:
         predict = wrap(predict)
     marks.append(("model", time.perf_counter()))
-    pool = make_pool(t, cfg.danet.img_size, seed, device)
+    pool = make_pool(t, family.image_hw(cfg), seed, device)
     marks.append(("pool", time.perf_counter()))
     for i in range(t["warmup"]):
         predict(pool[i % len(pool)])
@@ -318,7 +300,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device, t_start
         torch.cuda.empty_cache()
 
     t_check = time.perf_counter()
-    readings, counts = compare(served, ref_cfg, seed, dtype, device, smpl, pool, block)
+    readings, counts = compare(family, served, ref_cfg, seed, dtype, device, smpl, pool, block)
     check_s = time.perf_counter() - t_check
     b = t["batch"]
     ms = [x * 1e3 for x in latency]

@@ -1,15 +1,13 @@
 """Cells by name: a workload of BENCHMARK.json, its configuration file
-(`configs/<config>.json`), its traffic mix (`traffic/<traffic>.json`) and
-its limits (`limits/<workload>.json`), and the two `Config`s built from
-them, the port's and the reference's.
-
-A configuration file holds the reference YAML's sections as JSON with
-lower-case keys: `danet` (DaNetConfig's fields, `refinement` nested) and
-`solver`. A traffic mix may override `danet` fields of the operating point
-it runs (`compute_dtype`, `part_head_chunks`)."""
+(`configs/<config>.json`), its traffic mix (`traffic/<traffic>.json`), its
+limits (`limits/<workload>.json`) and its model family
+(`families/<family>.py`, the configuration file's `"family"`, `danet`
+where it has none), which builds the port's and the reference's
+configurations from the other files (`families/__init__.py`)."""
 
 from __future__ import annotations
 
+import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
@@ -17,6 +15,9 @@ from pathlib import Path
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
 BENCHMARK_JSON = ROOT / "BENCHMARK.json"
+FAMILIES_DIR = BENCH_DIR / "families"
+LIMITS_DIR = BENCH_DIR / "limits"
+DEFAULT_FAMILY = "danet"
 
 
 @dataclass
@@ -27,6 +28,7 @@ class Cell:
     limits: dict      # {number: limit}
     end_to_end: list  # BENCHMARK.json's end-to-end metrics that this cell reports
     per_layer: list   # and its per-layer metrics
+    family: object    # the model family's module (families/__init__.py)
 
     @property
     def name(self) -> str:
@@ -49,9 +51,24 @@ def reported_in(metric: dict, workload: str, end_to_end_names) -> bool:
     return True
 
 
+def load_family(name: str):
+    """The module `FAMILIES_DIR/<name>.py`, loaded from its file; raises
+    FileNotFoundError, naming the families there, where it is missing."""
+    path = FAMILIES_DIR / f"{name}.py"
+    if not path.is_file():
+        have = sorted(p.name for p in FAMILIES_DIR.glob("*.py") if not p.name.startswith("_"))
+        raise FileNotFoundError(f"unknown model family '{name}': no {path.name} under {FAMILIES_DIR} "
+                                f"(have: {have})")
+    loaded = importlib.util.spec_from_file_location(f"port_bench_family_{name}", path)
+    module = importlib.util.module_from_spec(loaded)
+    loaded.loader.exec_module(module)
+    return module
+
+
 def load_cell(workload: str, benchmark: dict | None = None) -> Cell:
-    """The cell named `workload`; raises KeyError for an unknown name and
-    FileNotFoundError for a missing file."""
+    """The cell named `workload`; raises KeyError for an unknown name,
+    FileNotFoundError for a missing file or an unknown family, and
+    ValueError for a family without a harness for the traffic's kind."""
     benchmark = benchmark if benchmark is not None else read_json(BENCHMARK_JSON)
     cells = {w["name"]: w for w in benchmark["workloads"]}
     if workload not in cells:
@@ -60,29 +77,21 @@ def load_cell(workload: str, benchmark: dict | None = None) -> Cell:
     configs = {c["name"]: c for c in benchmark["configs"]}
     config = read_json(ROOT / configs[w["config"]]["file"])
     traffic = read_json(BENCH_DIR / "traffic" / f"{w['traffic']}.json")
-    limits = read_json(BENCH_DIR / "limits" / f"{workload}.json")
+    limits = read_json(LIMITS_DIR / f"{workload}.json")
+    name = config.get("family", DEFAULT_FAMILY)
+    family = load_family(name)
+    if traffic["kind"] not in family.kinds:
+        raise ValueError(f"model family '{name}' has no harness for traffic kind '{traffic['kind']}' of "
+                         f"{w['traffic']} (its kinds: {list(family.kinds)})")
     e2e = [m for m in benchmark["end_to_end"] if reported_in(m, workload, ())]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in benchmark["per_layer"] if reported_in(m, workload, names)]
-    return Cell(w, config, traffic, limits, e2e, per_layer)
-
-
-def danet_fields(config: dict, traffic: dict) -> dict:
-    """DaNetConfig keyword arguments of the configuration with the traffic
-    mix's operating point over it (`refinement` still a dict)."""
-    fields = dict(config["danet"])
-    fields.update(traffic.get("danet", {}))
-    return fields
+    return Cell(w, config, traffic, limits, e2e, per_layer, family)
 
 
 def build_config(module, config: dict, traffic: dict, overrides: dict | None = None):
-    """A `Config` of `module` (the port's `config` module or the
-    reference's copy) from a configuration file and a traffic mix;
-    `overrides` replaces DaNetConfig fields (the CPU tests' small sizes)."""
-    fields = danet_fields(config, traffic)
-    fields.update(overrides or {})
-    refinement = module.RefinementConfig(**fields.pop("refinement", {}))
-    danet = module.DaNetConfig(refinement=refinement, **fields)
-    solver = config.get("solver", {})
-    solver = module.SolverConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in solver.items()})
-    return module.Config(solver=solver, danet=danet)
+    """DaNet's `Config` of `module` (`families/danet.py::build_config`), by
+    the name that callers outside the harness use."""
+    from port_bench.families.danet import build_config as danet_config
+
+    return danet_config(module, config, traffic, overrides)

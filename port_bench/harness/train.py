@@ -1,4 +1,6 @@
-"""The train cell: training steps back to back from raw batches.
+"""The train cell: training steps back to back from raw batches. The
+training harness is DaNet's (`families/danet.py` builds its
+configurations, weights and the port's training state).
 
 Set-up makes the seed's weights on the device, builds the port's training
 state (the model and its Adam) and its step (`make_train_step`, the closed
@@ -27,10 +29,11 @@ import time
 import numpy as np
 import torch
 
+from port_bench.families.danet import configs, port_step, reference_model
 from port_bench.harness import spec
 from port_bench.harness.precision import computed_in
 from port_bench.harness.trace import profile_slice, sync
-from port_bench.harness.weights import derive_seed, reference_model
+from port_bench.harness.weights import derive_seed
 from port_bench.harness.yardstick import counting_flops
 
 CHECKED_STEPS = 3
@@ -137,27 +140,6 @@ def leaf_gaps(got: dict, ref: dict, keys=None) -> dict:
     return out
 
 
-def port_step(cfg, ref_cfg, seed: int, device, smpl, atlas, template):
-    """The system under test: the port's training state and step, with the
-    seed's weights."""
-    from danet_densepose2smpl_tpu_torch.kernels.rasterizer import IUVRenderer
-    from danet_densepose2smpl_tpu_torch.models.danet import DaNet
-    from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import DensePoseAtlas
-    from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel
-    from danet_densepose2smpl_tpu_torch.train.step import create_train_state, make_train_step
-
-    weights = reference_model(ref_cfg, seed, device).state_dict()
-    with torch.device(device):
-        model = DaNet(cfg.danet)
-    model.load_state_dict(weights)
-    del weights
-    model = model.to(memory_format=torch.channels_last)
-    state = create_train_state(model, cfg)
-    renderer = IUVRenderer(DensePoseAtlas(*atlas), 224, cfg.danet.heatmap_size, cull_verts=template)
-    step = make_train_step(model, SMPLModel(*smpl), cfg, renderer=renderer)
-    return state, step
-
-
 class _ControlState:
     def __init__(self, model, optimizer):
         self.model, self.optimizer, self.step = model, optimizer, 0
@@ -245,14 +227,11 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device, t_start
     'port', or a control precision ('fp8') in which the reference takes
     the port's place; `wrap(step) -> step` plants a fault in the trained
     path (the checks of the comparison)."""
-    from danet_densepose2smpl_tpu_torch import config as port_config
-    from port_bench.reference import config as ref_config
     from port_bench.reference.smpl.densepose_atlas import closed_synthetic_atlas
     from port_bench.reference.smpl.loader import synthetic_smpl_model
 
     t = cell.traffic
-    cfg = spec.build_config(port_config, cell.config, t, overrides)
-    ref_cfg = spec.build_config(ref_config, cell.config, t, overrides)
+    cfg, ref_cfg = configs(cell.config, t, overrides)
     marks = [("start", time.perf_counter())]
     smpl = synthetic_smpl_model()
     atlas, template = closed_synthetic_atlas(smpl.num_verts)

@@ -2,25 +2,31 @@
 
 The layout is the reference model's (`port_bench/reference`), which is
 the checkpoint layout of the shipped model; the port loads the same state
-dict through `load_state_dict`, as it loads a checkpoint. The draws follow
-the distributions of the port's `serve.random_init_` (conv, linear and
-graph-conv weights N(0, 1/fan_in), biases N(0, 0.01), BatchNorm scale and
-running variance in [0.5, 1], shift and running mean N(0, 0.01)), so the
-full backbone's activations stay in range and the outputs vary with the
-image. The regressor's output layers (the body net's camera and shape
-layer, the rotation and position heads) start near zero, as a fresh
-HMR-style regressor does (weights at a hundredth of that scale, biases
-0), so the first predictions are the mean parameters: without it a random
-camera scale near 0 sends the reprojection loss to 1e13 and a bf16 step
-to non-finite weights within two steps. One `randn` and one `rand` of the
-total size, from a generator on the device seeded from the run's seed,
-then a scale and a copy per leaf.
+dict through `load_state_dict`, as it loads a checkpoint. The generic
+draws follow the distributions of the port's `serve.random_init_` (conv,
+linear and graph-conv weights N(0, 1/fan_in), biases N(0, 0.01),
+BatchNorm scale and running variance in [0.5, 1], shift and running mean
+N(0, 0.01)), so the full backbone's activations stay in range and the
+outputs vary with the image; a model family appends its own draws for
+what these rules do not cover (`families/<family>.py::leaves`). The
+family's output layers (`output_layers`: for DaNet the body net's camera
+and shape layer, the rotation and position heads) start near zero, as a
+fresh HMR-style regressor does (weights at a hundredth of that scale,
+biases 0), so the first predictions are the mean parameters: without it
+a random camera scale near 0 sends the reprojection loss to 1e13 and a
+bf16 step to non-finite weights within two steps. One `randn` and one
+`rand` of the total size, from a generator on the device seeded from the
+run's seed, then a scale and a copy per leaf. A floating parameter or
+buffer that gets no draw is a constant a module names in `CONSTANTS` or
+one the family leaves to the constructor (`left_to_construction`); any
+other raises, so a new model never runs on torch's default
+initialisation unnoticed.
 """
 
 from __future__ import annotations
 
 import hashlib
-import re
+from collections import Counter
 
 import torch
 import torch.nn as nn
@@ -35,21 +41,20 @@ def derive_seed(seed: int, *tags) -> int:
     return int.from_bytes(hashlib.sha256(text.encode()).digest()[:8], "little") >> 1
 
 
-OUTPUT_LAYERS = re.compile(r"iuv2smpl\.smpl_para_Outs\.(body_net\.\d+\.final_layer|pose_regressors\.\d+\.1"
-                           r"|coord_regressors\.\d+\.1)$")
 OUTPUT_GAIN = 0.01
 
 
-def _leaves(model: nn.Module):
-    """(tensor, distribution, scale, shift) for every leaf that gets a draw:
-    'n' normal, 'u' uniform in [0, 1)."""
+def _leaves(model: nn.Module, output_layers):
+    """(tensor, distribution, scale, shift) for every leaf that the generic
+    rules draw: 'n' normal, 'u' uniform in [0, 1); the modules whose names
+    `output_layers` matches at a hundredth of the scale, biases 0."""
     out = []
     for name, m in model.named_modules():
         if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             fan_in = m.weight[0].numel()
             if isinstance(m, nn.ConvTranspose2d):   # weight (I, O, kh, kw), stride s: I kh kw / s^2
                 fan_in = m.weight.shape[0] * m.weight[0, 0].numel() // (m.stride[0] * m.stride[1])
-            head = OUTPUT_LAYERS.match(name) is not None
+            head = output_layers.match(name) is not None
             out.append((m.weight, "n", fan_in ** -0.5 * (OUTPUT_GAIN if head else 1.0), 0.0))
             if m.bias is not None:
                 out.append((m.bias, "n", 0.0 if head else 0.01, 0.0))
@@ -64,10 +69,35 @@ def _leaves(model: nn.Module):
     return out
 
 
+def _constants(model: nn.Module) -> set:
+    """The ids of the constant tables that modules name in `CONSTANTS`."""
+    return {id(m._buffers[name]) for m in model.modules() for name in getattr(m, "CONSTANTS", ())}
+
+
+def _check_drawn(model: nn.Module, leaves: list, left_to_construction) -> None:
+    """Raise where a tensor is drawn twice, or a floating parameter or
+    buffer gets no draw and is neither a constant nor left to the
+    constructor; the error names the tensors."""
+    tensors = [*model.named_parameters(), *model.named_buffers()]
+    names = {id(t): name for name, t in reversed(tensors)}
+    drawn = Counter(id(t) for t, _, _, _ in leaves)
+    twice = sorted(names.get(i, "?") for i, n in drawn.items() if n > 1)
+    if twice:
+        raise ValueError(f"drawn twice: {twice}")
+    covered = set(drawn) | _constants(model)
+    missing = [name for name, t in tensors
+               if t.is_floating_point() and id(t) not in covered and name not in left_to_construction]
+    if missing:
+        raise ValueError(f"no draw for {missing}: draw them in the family's `leaves`, or name them in its "
+                         f"`left_to_construction` or in a module's `CONSTANTS`")
+
+
 @torch.no_grad()
-def fill_weights_(model: nn.Module, seed: int) -> nn.Module:
-    """Draw `model`'s weights from `seed` on its device."""
-    leaves = _leaves(model)
+def fill_weights_(model: nn.Module, seed: int, extra, output_layers, left_to_construction) -> nn.Module:
+    """Draw `model`'s weights from `seed` on its device: the generic rules'
+    leaves (`output_layers` near zero), then the family's `extra` ones."""
+    leaves = _leaves(model, output_layers) + list(extra)
+    _check_drawn(model, leaves, left_to_construction)
     device = leaves[0][0].device
     gen = torch.Generator(device=device).manual_seed(derive_seed(seed, "weights"))
     sizes = {kind: sum(t.numel() for t, k, _, _ in leaves if k == kind) for kind in ("n", "u")}
@@ -89,19 +119,8 @@ def round_to_(model: nn.Module, served_dtype: torch.dtype) -> nn.Module:
     (the regressor's mean parameters and adjacencies), which the port
     keeps in fp32 when it casts the model."""
     if served_dtype != torch.float32:
-        kept = {id(m._buffers[name]) for m in model.modules() for name in getattr(m, "CONSTANTS", ())}
+        kept = _constants(model)
         for t in [*model.parameters(), *model.buffers()]:
             if t.is_floating_point() and id(t) not in kept:
                 t.copy_(t.to(served_dtype).to(t.dtype))
     return model
-
-
-def reference_model(cfg, seed: int, device, served_dtype: torch.dtype = torch.float32) -> nn.Module:
-    """The reference DaNet of `cfg` on `device` with the seed's weights,
-    rounded to `served_dtype` (`round_to_`)."""
-    from port_bench.reference.models.danet import DaNet
-
-    torch.manual_seed(derive_seed(seed, "module-init"))   # leaves without a draw (constants) alike each time
-    with torch.device(device):
-        model = DaNet(cfg.danet)
-    return round_to_(fill_weights_(model, seed), served_dtype)

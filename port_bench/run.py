@@ -62,8 +62,9 @@ def checks_of(readings: dict, limits: dict) -> dict:
 def execute(workload: str, seed: int, seconds: float, trace: bool, device, overrides=None, limits=None,
             **kw) -> dict:
     """One run of `workload` on `device`: the result line's dict.
-    `overrides` ({'danet': {...}, 'traffic': {...}}) shrinks a cell for
-    the CPU tests, and `limits` replaces the cell's limits there."""
+    `overrides` ({<family>: {...}, 'traffic': {...}}, the family's fields
+    under its name, `danet` for DaNet) shrinks a cell for the CPU tests,
+    and `limits` replaces the cell's limits there."""
     import torch
 
     from port_bench.harness import serve, spec, train
@@ -72,7 +73,8 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device, overr
     overrides = overrides or {}
     cell.traffic.update(overrides.get("traffic", {}))
     runner = {"serve_closed": serve.run, "train_steps": train.run}[cell.traffic["kind"]]
-    out = runner(cell, seed, seconds, trace, device, T_START, overrides=overrides.get("danet"), **kw)
+    family = cell.config.get("family", spec.DEFAULT_FAMILY)
+    out = runner(cell, seed, seconds, trace, device, T_START, overrides=overrides.get(family), **kw)
 
     checks = checks_of(out["readings"], cell.limits if limits is None else limits)
     correct = all(c["value"] <= c["limit"] for c in checks.values())
