@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from danet_densepose2smpl_tpu_torch.config import DaNetConfig
 from danet_densepose2smpl_tpu_torch.nn.gcn import GCN, normalize_undigraph
-from danet_densepose2smpl_tpu_torch.nn.layers import BNReLU, bn, conv
+from danet_densepose2smpl_tpu_torch.nn.layers import BNReLU, FP32Constants, bn, conv
 from danet_densepose2smpl_tpu_torch.nn.resnet import LimbResLayers, SmplResNet
 from danet_densepose2smpl_tpu_torch.ops.rotations import rot6d_to_rotmat
 from danet_densepose2smpl_tpu_torch.ops.structure import (
@@ -189,7 +189,7 @@ class GlobalPredictor(nn.Module):
         return {"para": para}
 
 
-class DecomposedPredictor(nn.Module):
+class DecomposedPredictor(FP32Constants):
     CONSTANTS = ("mean_cam_shape", "mean_pose", "r2p_A", "p2r_A", "A_mask")
 
     def __init__(self, cfg: DaNetConfig, mean_params: MeanParams, feat_channels: int = 0):
@@ -256,17 +256,6 @@ class DecomposedPredictor(nn.Module):
         self.register_buffer("r2p_A", const(rot2pos_adjacency()), persistent=False)
         self.register_buffer("p2r_A", const(pos2rot_adjacency()), persistent=False)
         self.register_buffer("A_mask", const(refine_edge_mask()), persistent=False)
-
-    def _apply(self, fn, recurse=True):
-        # keep the constant tables at promote(fp32, target dtype): .to(bf16)
-        # moves them but leaves them fp32, .double() makes them f64
-        kept = {name: self._buffers[name] for name in self.CONSTANTS}
-        super()._apply(fn, recurse)
-        for name, t in kept.items():
-            moved = self._buffers[name]
-            self._buffers[name] = t.to(device=moved.device,
-                                       dtype=torch.promote_types(torch.float32, moved.dtype))
-        return self
 
     def _to_rotmat_flat(self, pose6d: torch.Tensor) -> torch.Tensor:
         b = pose6d.shape[0]

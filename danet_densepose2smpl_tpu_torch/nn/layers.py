@@ -203,6 +203,24 @@ def _eval_bn_promoted(m, x):
     return (x - m.running_mean.reshape(shape)) * mul.reshape(shape) + m.bias.reshape(shape)
 
 
+class FP32Constants(nn.Module):
+    """A module whose buffers named in `CONSTANTS` (mean parameters,
+    adjacencies) stay at promote(fp32, target dtype) when it is moved or
+    cast: `.to(bf16)` moves them but leaves them fp32, `.double()` makes
+    them f64, so what reads them computes in fp32 under bf16 serving."""
+
+    CONSTANTS: tuple = ()
+
+    def _apply(self, fn, recurse=True):
+        kept = {name: self._buffers[name] for name in self.CONSTANTS}
+        super()._apply(fn, recurse)
+        for name, t in kept.items():
+            moved = self._buffers[name]
+            self._buffers[name] = t.to(device=moved.device,
+                                       dtype=torch.promote_types(torch.float32, moved.dtype))
+        return self
+
+
 def on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 

@@ -45,3 +45,21 @@ def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
     b2 = a2_perp / torch.linalg.vector_norm(a2_perp, dim=-1, keepdim=True).clamp_min(_EPS)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-1)
+
+
+def rot6d_rows_to_rotmat(x: torch.Tensor) -> torch.Tensor:
+    """HMR 2.0's 6D rotation (..., 6) -> rotation matrix (..., 3, 3)
+    (`hmr2/utils/geometry.py::rot6d_to_rotmat` of 4D-Humans).
+
+    The 6 values are read as two rows, a1 = x[0:3] and a2 = x[3:6], so
+    its identity is (1, 0, 0, 0, 1, 0); the frame is normalized as
+    `F.normalize` does (norms clamped at 1e-12) and stacked as matrix
+    columns. Away from degenerate pairs it is `rot6d_to_rotmat` of the
+    values interleaved (a1[0], a2[0], a1[1], a2[1], a1[2], a2[2]).
+    """
+    a1, a2 = x[..., 0:3], x[..., 3:6]
+    b1 = a1 / torch.linalg.vector_norm(a1, dim=-1, keepdim=True).clamp_min(1e-12)
+    a2_perp = a2 - (b1 * a2).sum(dim=-1, keepdim=True) * b1
+    b2 = a2_perp / torch.linalg.vector_norm(a2_perp, dim=-1, keepdim=True).clamp_min(1e-12)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)

@@ -3,14 +3,17 @@
 `Predictor` is the counterpart of the JAX package's serving forward
 (`bench.py::bench_inference.forward`, and `cli/demo.py` without the
 rendering): DaNet eval, then SMPL LBS on the predicted shape and rotations.
-The model lives on one explicit device in float32 or bfloat16; bf16 serving
-casts parameters, BatchNorm statistics and activations to bf16 and keeps
-the regressor's constant tables and SMPL in fp32. As in the JAX package's
-bf16 path, the regressor's graph stages then promote to fp32, so `para`
-comes out fp32. fp32 serving runs without TF32 whatever the caller set:
-under PyTorch's default (cuDNN convolutions in TF32) `para` came 0.088 off
-the f64 result on an H100, outside the weight bridge's fp32 bar (atol 0.05,
-rtol 1e-3); without TF32, 0.006 (`chip_smoke.py` phase 2).
+It serves any model that returns `para`, `pred_cam`, `pred_shape` and
+`pred_rotmat` the same way (HMR 2.0, `models/hmr2.py`). The model lives
+on one explicit device in float32 or bfloat16; bf16 serving casts
+parameters, BatchNorm statistics and activations to bf16 and keeps the
+constant tables (DaNet's regressor's, HMR 2.0's mean parameters) and SMPL
+in fp32. As in the JAX package's bf16 path, DaNet's regressor's graph
+stages then promote to fp32, so `para` comes out fp32. fp32 serving runs
+without TF32 whatever the caller set: under PyTorch's default (cuDNN
+convolutions in TF32) `para` came 0.088 off the f64 result on an H100,
+outside the weight bridge's fp32 bar (atol 0.05, rtol 1e-3); without TF32,
+0.006 (`chip_smoke.py` phase 2).
 """
 
 from __future__ import annotations
@@ -83,15 +86,18 @@ def refuse_gt_modes(cfg: DaNetConfig, entry: str) -> None:
 
 
 class Predictor:
-    """DaNet + SMPL on one device.
+    """A model + SMPL on one device.
 
     device: where the model and SMPL arrays live (required: no silent
-    default); dtype: torch.float32 or torch.bfloat16; model: a built DaNet
-    to serve (the eval CLIs pass the one `cli/common.build_model_and_params`
-    loaded; it is moved and cast in place), else one built from `cfg` with
-    `state_dict`'s weights (e.g. from `port.state_dict_from_flax`), else
-    seeded random weights from `seed`. The GT input modes ('iuv_gt',
-    'iuv_gt_feat') raise (`refuse_gt_modes`).
+    default); dtype: torch.float32 or torch.bfloat16; model: a built model
+    to serve, DaNet or any other whose forward of (B, H, W, 3) images
+    returns `para`, `pred_cam`, `pred_shape` and `pred_rotmat` (HMR 2.0,
+    `models/hmr2.py`; the eval CLIs pass the DaNet that
+    `cli/common.build_model_and_params` loaded; it is moved and cast in
+    place), else a DaNet built from `cfg` with `state_dict`'s weights
+    (e.g. from `port.state_dict_from_flax`), else seeded random weights
+    from `seed`. A DaNet in a GT input mode ('iuv_gt', 'iuv_gt_feat')
+    raises (`refuse_gt_modes`).
     """
 
     def __init__(self, device, dtype: torch.dtype = torch.float32, cfg: DaNetConfig | None = None,
@@ -102,7 +108,7 @@ class Predictor:
         self.device = torch.device(device)
         self.dtype = dtype
         model_cfg = getattr(model, "cfg", None) if model is not None else cfg or DaNetConfig()
-        if model_cfg is not None:   # HMR has no input mode
+        if isinstance(model_cfg, DaNetConfig):   # HMR and HMR 2.0 have no input mode
             refuse_gt_modes(model_cfg, "Predictor")
         if model is None:
             model = DaNet(cfg)
@@ -115,10 +121,11 @@ class Predictor:
 
     @torch.inference_mode()
     def run_model(self, images_nhwc) -> dict:
-        """The DaNet outputs of (B, H, W, 3) normalized RGB (numpy or
-        tensor): para (fp32) and the estimator's maps under iuv_raw (in the
-        serving dtype; `iuv_raw['index']` holds the (B, S, S, 25) part-index
-        logits), without SMPL."""
+        """The model's outputs of (B, H, W, 3) normalized RGB (numpy or
+        tensor), without SMPL: para (fp32), pred_cam, pred_shape,
+        pred_rotmat and, for DaNet, the estimator's maps under iuv_raw (in
+        the serving dtype; `iuv_raw['index']` holds the (B, S, S, 25)
+        part-index logits)."""
         if isinstance(images_nhwc, np.ndarray):
             images_nhwc = torch.from_numpy(images_nhwc)
         x = images_nhwc.to(device=self.device, dtype=self.dtype)
@@ -132,8 +139,9 @@ class Predictor:
 
         Returns para (B, 229), pred_cam (B, 3), pred_shape (B, 10),
         pred_rotmat (B, 24, 3, 3), vertices (B, V, 3) and joints (B, 49, 3),
-        all fp32 (the regressor promotes to fp32 from its first graph
-        stage, as JAX's bf16 path does)."""
+        all fp32 (DaNet's regressor promotes to fp32 from its first graph
+        stage, as JAX's bf16 path does; HMR 2.0 adds its fp32 mean
+        parameters)."""
         with annotate("serve.request"):
             out = self.run_model(images_nhwc)
             with annotate("serve.smpl"):
