@@ -44,7 +44,7 @@ from danet_densepose2smpl_tpu_torch.nn.layers import remat
 from danet_densepose2smpl_tpu_torch.nn.resnet import PoseResNet
 from danet_densepose2smpl_tpu_torch.ops.imwarp import _axis_weights, separable_crop, separable_crop_concat
 from danet_densepose2smpl_tpu_torch.ops.keypoints import soft_argmax_2d
-from danet_densepose2smpl_tpu_torch.ops.structure import SMPL_CHILD2, SMPL_PARENT, smpl2dp_channel_mask
+from danet_densepose2smpl_tpu_torch.ops.structure import SMPL_CHILD2, SMPL_PARENT, device_table, smpl2dp_channel_mask
 from danet_densepose2smpl_tpu_torch.utils.profiling import annotate
 
 # the input modes whose regressor takes the backbone features and their
@@ -118,8 +118,8 @@ def stn_affine_params(centers, ratio, offset, part_hidden=None, scale_jitter: fl
     centers = centers.detach()
     box_diag = centers.amax(dim=1) - centers.amin(dim=1)          # (B, 2)
     scale_box = box_diag.amax(dim=-1) / 2.0                       # (B,)
-    child = torch.as_tensor(SMPL_CHILD2, device=centers.device, dtype=torch.long)
-    parent = torch.as_tensor(SMPL_PARENT, device=centers.device, dtype=torch.long)
+    child = device_table(SMPL_CHILD2, centers.device)
+    parent = device_table(SMPL_PARENT, centers.device)
     d_child = torch.linalg.vector_norm(centers[:, child] - centers, dim=-1) / 2.0
     d_parent = torch.linalg.vector_norm(centers[:, parent] - centers, dim=-1) / 2.0
     scale = 2.0 * torch.maximum(d_child, d_parent)                # (B, 24)

@@ -1,12 +1,14 @@
 """SMPL kinematic-structure tables and skeleton-graph adjacency (numpy).
 
 Copy of the tables the serving path needs from the JAX package's
-`ops/structure.py`; tests pin them equal to the originals.
+`ops/structure.py`; tests pin them equal to the originals. `device_table`
+gives a table as an index tensor on a device, made once.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 NUM_SMPL_JOINTS = 24
 
@@ -52,6 +54,29 @@ DP2SMPL_MAPPING = np.array(
 # Extra symmetric links of the 2-neighbour refinement mask: hip-hip/spine
 # and collar/neck.
 REFINE_EXTRA_LINKS = ((1, 2), (1, 3), (2, 3), (13, 14), (12, 13), (12, 14))
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def device_table(table: np.ndarray, device) -> torch.Tensor:
+    """The constant integer array `table` as an int64 tensor on `device`,
+    made on the first call for that pair and the same tensor after.
+
+    Indexing with a numpy array or a Python list copies it from pageable
+    host memory on every call, and that copy waits for the device's queue to
+    drain. The tensor is made outside inference mode, so a table first
+    asked for while serving can be saved for an autograd backward later.
+    """
+    key = (id(table), torch.device(device))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None:
+        with torch.inference_mode(False):
+            made = torch.as_tensor(table, dtype=torch.long, device=device)
+        # the entry holds `table` itself, so its id is not reused; where two
+        # threads race, both return the first entry stored
+        hit = _DEVICE_TABLES.setdefault(key, (table, made))
+    return hit[1]
 
 
 def hop_distance(num_nodes: int, edges: np.ndarray, max_hop: int) -> np.ndarray:

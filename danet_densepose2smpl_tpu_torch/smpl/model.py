@@ -21,7 +21,7 @@ import torch
 
 from danet_densepose2smpl_tpu_torch.constants import J24_TO_J19
 from danet_densepose2smpl_tpu_torch.ops.rotations import batch_rodrigues
-from danet_densepose2smpl_tpu_torch.ops.structure import NUM_SMPL_JOINTS, SMPL_PARENT
+from danet_densepose2smpl_tpu_torch.ops.structure import NUM_SMPL_JOINTS, SMPL_PARENT, device_table
 from danet_densepose2smpl_tpu_torch.smpl.loader import SMPLModel
 
 
@@ -36,8 +36,9 @@ def _rigid_transforms(rotmats: torch.Tensor, joints: torch.Tensor):
     """Forward-kinematics skinning transforms (B, 24, 3, 4) and the posed
     joint positions (B, 24, 3). rotmats: (B, 24, 3, 3) local rotations;
     joints: (B, 24, 3) rest joint locations."""
-    parents = [int(p) for p in SMPL_PARENT]
-    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parents[1:]]], dim=1)
+    parents = [int(p) for p in SMPL_PARENT]   # host ints for the chain below
+    parent = device_table(SMPL_PARENT, joints.device)
+    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parent[1:]]], dim=1)
 
     world_rot = [rotmats[:, 0]]
     world_t = [joints[:, 0]]
@@ -93,8 +94,7 @@ def smpl_forward(
     extra = torch.einsum("jv,bvc->bjc", model.J_regressor_extra.to(dt), verts)
     all_joints = torch.cat([joints_world, vertex_joints, extra], dim=1)
     joints49 = all_joints[:, model.joint_map]
-    j19 = torch.as_tensor(J24_TO_J19, device=verts.device, dtype=torch.long)
-    joints_j19 = joints49[:, 25:][:, j19]
+    joints_j19 = joints49[:, 25:][:, device_table(J24_TO_J19, verts.device)]
 
     return SMPLOutput(
         vertices=verts, joints=joints49, smpl_joints=joints_world, joints_j19=joints_j19,

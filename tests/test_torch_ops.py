@@ -19,6 +19,7 @@ from danet_densepose2smpl_tpu.ops.rotations import rot6d_to_rotmat as jax_rot6d
 from danet_densepose2smpl_tpu.smpl.loader import synthetic_smpl_model as jax_synthetic_smpl
 from danet_densepose2smpl_tpu.smpl.model import smpl_forward as jax_smpl_forward
 
+from danet_densepose2smpl_tpu_torch.constants import J24_TO_J19
 from danet_densepose2smpl_tpu_torch.models import iuv_estimator as est
 from danet_densepose2smpl_tpu_torch.models.smpl_regressor import default_mean_params
 from danet_densepose2smpl_tpu_torch.ops import imwarp, structure
@@ -146,3 +147,47 @@ def test_smpl_forward_full_body(rng):
     for name in ("vertices", "joints", "smpl_joints", "joints_j19"):
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(exp, name)),
                                    atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["SMPL_CHILD2", "SMPL_PARENT", "J24_TO_J19"])
+def test_device_table_is_the_table_made_once(name):
+    table = J24_TO_J19 if name == "J24_TO_J19" else getattr(structure, name)
+    got = structure.device_table(table, "cpu")
+    assert got.dtype == torch.long and got.device == torch.device("cpu") and not got.is_inference()
+    np.testing.assert_array_equal(got.numpy(), table)
+    assert structure.device_table(table, torch.device("cpu")) is got
+    with torch.inference_mode():
+        assert structure.device_table(table, "cpu") is got
+
+
+@pytest.mark.parametrize("path", ["stn_affine_params", "smpl_forward"])
+def test_tables_first_made_while_serving_take_a_backward_later(monkeypatch, rng, path):
+    """A table first asked for under `torch.inference_mode()` (as
+    `Predictor.predict` runs) is no inference tensor, so the same path run
+    later with autograd saves it for its backward."""
+    monkeypatch.setattr(structure, "_DEVICE_TABLES", {})
+    if path == "stn_affine_params":
+        centers = _t(rng.uniform(-0.8, 0.8, (2, 24, 2)).astype(np.float32))
+        ratio, offset = _t(est.LEARNED_RATIO), _t(est.LEARNED_OFFSET)
+
+        def run(grad):
+            r, o = ratio.clone().requires_grad_(grad), offset.clone().requires_grad_(grad)
+            theta, scale = est.stn_affine_params(centers, r, o)
+            return theta.sum() + scale.sum(), (r, o)
+    else:
+        model = to_torch(synthetic_smpl_model(300), "cpu")
+        betas = _t(rng.randn(2, 10).astype(np.float32))
+        rotmats = rot6d_to_rotmat(_t(rng.randn(2 * 24, 6).astype(np.float32))).reshape(2, 24, 3, 3)
+
+        def run(grad):
+            b, r = betas.clone().requires_grad_(grad), rotmats.clone().requires_grad_(grad)
+            out = smpl_forward(model, b, r)
+            return out.vertices.sum() + out.joints_j19.sum(), (b, r)
+
+    with torch.inference_mode():
+        served, _ = run(False)
+    assert structure._DEVICE_TABLES and not any(t.is_inference() for _, t in structure._DEVICE_TABLES.values())
+    loss, leaves = run(True)
+    loss.backward()
+    assert torch.equal(loss.detach(), served)
+    assert all(leaf.grad is not None and torch.isfinite(leaf.grad).all() for leaf in leaves)

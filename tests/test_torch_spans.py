@@ -10,7 +10,9 @@ open span, and with a stand-in card each span reads its device ms from
 its two events while the sync debug mode is on. On the card (`cuda`
 marker; this file imports no JAX, so it runs there with
 `python -m pytest --noconftest -m cuda tests/test_torch_spans.py`): a copy
-from pageable memory inside a span raises its count by exactly one.
+from pageable memory inside a span raises its count by exactly one, and a
+served request of a narrow DaNet or of the tiny HMR 2.0 of
+`test_torch_hmr2.py` makes no blocking wait.
 """
 
 import warnings
@@ -245,3 +247,29 @@ def test_a_pageable_copy_is_one_wait_on_the_card():
     assert "test_torch_spans.py:" in planted["spans"][1]["waits"][-1]
     assert all(s["device_ms"] > 0 for it in (clean, planted) for s in it["spans"])
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,dtype", [("danet", torch.float32), ("danet", torch.bfloat16),
+                                          ("hmr2", torch.bfloat16)])
+def test_a_served_request_makes_no_blocking_wait_on_the_card(family, dtype):
+    """After a warm-up, the request's item counts no wait: the index tables
+    of the STN and of SMPL are on the card, so nothing in the request is
+    copied from host memory (the images are on the card already, as the
+    benchmark's are)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the sync debug mode flags CUDA calls only")
+    smpl = synthetic_smpl_model(500)
+    if family == "danet":
+        predictor = Predictor("cuda", dtype, DaNetConfig(**TINY), seed=0, smpl=smpl)
+    else:
+        from test_torch_hmr2 import tiny_pair
+        predictor = Predictor("cuda", dtype, model=tiny_pair()[0], smpl=smpl)
+    images = torch.from_numpy(tiny_images()).cuda()
+    predictor.predict(images)
+    with profiled():
+        out = predictor.predict(images)
+    torch.cuda.synchronize()
+    (item,) = recorded_items()
+    assert item["name"] == "serve.request" and torch.isfinite(out["vertices"]).all()
+    assert item["syncs"] == 0, [w for s in item["spans"] for w in s["waits"]]
