@@ -24,15 +24,17 @@ cameras frame body-sized silhouettes. In phases:
      (HMMA/HGMMA) in the built library's SASS (`cuobjdump --dump-sass`):
      the bf16 kernel's two instances (channel chunks of 16 and 32) and the
      fp32 (3xTF32) kernel's two (chunks of 8 and 16) must have some and spill
-     nothing, the f64 (scalar) kernel none;
+     nothing;
   1. the kernel against its plain PyTorch version at the production shape
      (B=8, 56x56x48, S=56, 24 parts, 21 outputs), fed by bilinear
      `_axis_weights` matrices and by random dense ones: fp32 (TF32 off)
-     max abs error <= 1e-4, bf16 <= 2e-2 * max|ref|, f64 (small shape)
-     <= 1e-10; and bf16 where nothing is a multiple of the tensor-core
-     kernel's tiles (B=1, S=57, C=8 and 20, 5 outputs);
+     max abs error <= 1e-4, bf16 <= 2e-2 * max|ref|, one kernel launch
+     each; f64 (small shape), which has no kernel, the plain version bit
+     for bit and no launch; and bf16 where nothing is a multiple of the
+     tensor-core kernel's tiles (B=1, S=57, C=8 and 20, 5 outputs);
   2. the whole slice in f64 on the card against the same model on the CPU
-     (B=2, 224 px): para and vertices within atol 1e-6 / rtol 1e-9; then
+     (B=2, 224 px): para and vertices within atol 1e-6 / rtol 1e-9, and no
+     K1 launch (f64 runs the plain version); then
      fp32 `Predictor` on the card against that f64 result, para within the
      weight bridge's fp32 bar (atol 0.05, rtol 1e-3), and, for the record,
      the model under PyTorch's TF32 defaults;
@@ -63,17 +65,18 @@ cameras frame body-sized silhouettes. In phases:
      the closed test mesh (local faces, the real mesh's kind) through
      `rasterize_flat`, and (t) an exact depth tie between a live and a dead
      filler face through `rasterize_flat_culled`. At most 1e-5 of the pixels
-     may differ, foreground must cover > 2%; then, for (a)-(c), (a64),
-     (b64), (c64) and (e),
-     the fp32 pair kernel must equal the tile kernel bit for bit, and the
-     times of the entry, the tile kernel (fp64's route, the yardstick) and
-     the plain version (CUDA events, turns); the pairs the kernel
+     may differ, foreground must cover > 2%, and each call launches the
+     kernel once, except (d): f64 has no kernel, so it launches none and
+     equals the plain version bit for bit; then, for (a)-(c), (a64),
+     (b64), (c64) and (e), the times of the entry and the plain version
+     (CUDA events, turns); the pairs the kernel
      enumerated must equal `pixel_spans`' count and be at least
      `raster_bound`'s exact-box count, with how they spread over the faces;
   6. one training step in f64, card against CPU: full W48 at 64 px, B=4,
      soup atlas, PartDrop and jitter off, the same seeded weights and batch;
      every loss term, every gradient and the parameters after one Adam
-     step agree at the stated tolerances, and the raster kernel launched;
+     step agree at the stated tolerances, and no raster kernel launched
+     (f64 runs the plain versions);
   7. bf16 mixed-precision training at full size (`DaNetConfig()`, 224 px,
      B=64, the closed atlas with culling): 1 warm-up and 5 timed steps (the
      main path), then one step each in `pretrain_mode` and through the
@@ -83,13 +86,14 @@ cameras frame body-sized silhouettes. In phases:
      and peak memory; then two more steps under `torch.profiler` (kernel
      time per step, the stage spans, the 25 largest kernels);
   8. eval: (a) the banded raster (K3, `rasterize_flat_banded`) against its
-     plain version and bit-equal to the `rasterize_flat` kernel at 224x224,
-     B=16 fp32 and B=2 f64, with `PartRenderer`'s 2-channel texture on two
-     meshes of the real counts (the synthetic SMPL body under posed
+     plain version and bit-equal to the `rasterize_flat` entry at 224x224,
+     B=16 fp32 (one launch of each kernel) and B=2 f64 (no launch, the
+     plain version bit for bit), with `PartRenderer`'s 2-channel texture on
+     two meshes of the real counts (the synthetic SMPL body under posed
      cameras, and the closed test mesh), with the pairs the kernel
      enumerated against `pixel_spans` and the exact boxes; (b) the times of
-     K3, of `rasterize_flat`, of the tile kernel and of the plain version
-     (CUDA events, turns); (c) the same on the eval's own render, then
+     K3, of `rasterize_flat` and of the plain version (CUDA events,
+     turns); (c) the same on the eval's own render, then
      `run_lsp_eval` through `Predictor` in bf16 over 4 batches of B=16
      with `PartRenderer('pallas_banded')` and with 'auto': the same printed
      metrics, and K1 and the raster launched once per batch for the
@@ -167,15 +171,16 @@ cameras frame body-sized silhouettes. In phases:
  12. slice D's architectures: (a) K1 at the ResNet backbone's width
      (56x56x256; the kernels take the channels in chunks) against its
      plain version, bilinear and dense weights: B=64 bf16 within 2e-2 of
-     max|ref|, B=16 fp32 within 1e-4 (TF32 off), B=2 f64 within 1e-10, and
-     B=1 at C=264, 200, 201 and 72 (partial last chunks); then its time at
+     max|ref|, B=16 fp32 within 1e-4 (TF32 off), B=2 f64 the plain version
+     bit for bit with no launch, and B=1 at C=264, 200, 201 and 72 (partial
+     last chunks); then its time at
      B=64 bf16 by CUDA events (medians of two turns of 20 calls) beside its
      earlier time, the plain version, the unfused route and its conv alone, the
      launch alone at the wrapper's plan and at each channel chunk, and its
      bound; (b)
      `configs/danet_resnet.yaml` (ResNet-50 backbone, seeded random
      weights): f64 B=2 on the card against the CPU (para atol 1e-6, rtol
-     1e-9), fp32 `Predictor` against that f64 result (atol 0.05, rtol
+     1e-9; no K1 launch), fp32 `Predictor` against that f64 result (atol 0.05, rtol
      1e-3), and 8 bf16 requests of B=64 with K1 launched once each, imgs/s,
      one under `torch.profiler`; (c) `cli.train --cfg
      configs/danet_resnet.yaml` in-process as phase 9 (a) (4 steps, B=64,
@@ -193,7 +198,7 @@ cameras frame body-sized silhouettes. In phases:
      weights: (a) the eval forward of 'iuv_gt', 'iuv_feat', 'iuv_gt_feat',
      'feat' and 'seg' (the GT modes given a synthetic GT IUV image and GT
      keypoints) in f64 at B=2, card against CPU (para atol 1e-6, rtol
-     1e-9; K1 once for 'seg', never for the others); (b) one bf16
+     1e-9; no K1 launch: f64 runs the plain version); (b) one bf16
      `Predictor` request of B=64 for 'iuv' (the comparison), 'iuv_feat',
      'feat' and 'seg' after a warm-up request: finite, K1 once for 'iuv'
      and 'seg' and never for the feature modes, its host ms; `Predictor`
@@ -223,7 +228,7 @@ cameras frame body-sized silhouettes. In phases:
      group (CUDA tensors): the data-parallel f64 step (W48, 64 px, PartDrop
      and jitter on) of a global batch of 8 whose masks differ between the
      halves against one process's step on the card, the ranks' parameters
-     bit-equal after Adam, K4 once per rank, and `make_eval_step(mesh=)`
+     bit-equal after Adam, no kernel launched (f64), and `make_eval_step(mesh=)`
      against one rank. f64 bars: losses rtol 1e-9, gradients 1e-9 of each
      tensor's largest entry (+1e-12), BatchNorm statistics rtol 1e-9, atol
      1e-10.
@@ -239,7 +244,8 @@ cameras frame body-sized silhouettes. In phases:
      B=64, bf16); (b) the padded HRNet (`hrnet_pad_channels`): K1 at C=64
      and C=48 against its plain version, bilinear and dense weights (B=64
      bf16 within 2e-2 of max|ref|, B=16 fp32 within 1e-4 with TF32 off, B=2
-     f64 within 1e-10; C=48 at B=1), its time at B=64 bf16, C=64, as phase
+     f64 the plain version with no launch; C=48 at B=1), its time at B=64
+     bf16, C=64, as phase
      12 (a) has it beside its earlier time, with the launch at C=48 in the
      same turns (and their ratio);
      the padded DaNet f64 B=2 on the card against the CPU (para atol 1e-6,
@@ -262,15 +268,14 @@ cameras frame body-sized silhouettes. In phases:
      O=5), B=64 at C=48, B=16 at C=256; (b) at B=64 fp32 and C=48, 64, 256,
      by CUDA events in turns (medians of two turns): the wrapper, the plain
      version (3 calls), the unfused route (TF32 off) and its conv alone,
-     then the launch alone at `f32_plan`, at each channel chunk and of the
-     scalar kernel it replaced (the C entry `part_crop_head`, dtype 0), the
-     kernel's device ms by torch.profiler, both bounds (3xTF32 at 495
-     TFLOP/s, FFMA at 67) and a check that it beats the scalar kernel; (c)
+     then the launch alone at `f32_plan` and at each channel chunk, the
+     kernel's device ms by torch.profiler and both bounds (3xTF32 at 495
+     TFLOP/s, FFMA at 67); (c)
      8 fp32 `Predictor` requests of B=64 on HRNet-W48, the padded HRNet and
      configs/danet_resnet.yaml (K1 at C=48, 64, 256; launches counted):
      host ms and imgs/s, then one profiled request each: kernel ms, the
      fp32 kernel's device ms inside it (its name must show) and the idle
-     share, beside the scalar kernel's time from (b).
+     share, beside the launch's time from (b).
 
  17. the eval BatchNorm kernel (`csrc/bn_act.cu`: BatchNorm, optional
      residual add and ReLU in one pass), run standalone by
@@ -447,8 +452,6 @@ def phase0_environment():
             r = tc[name] = reports.get(name)
             check(r is not None and r["mma"] > 0 and r["spill_stores"] == 0,
                   f"the {kind} K1 kernel {name} runs on the tensor cores and spills nothing: {r}")
-    r = reports.get("part_crop_head_kernel<double>")
-    check(r is not None and r["mma"] == 0, f"the f64 K1 kernel is the scalar one: {r}")
     return tc
 
 
@@ -478,10 +481,7 @@ def kernel_reports(lib_path: str, log: str) -> dict:
 
     def short(mangled):
         m = re.search(r"part_crop_head_(bf16|f32)_kernelILi(\d+)E", mangled)   # one instance per channel chunk
-        if m:
-            return f"part_crop_head_{m.group(1)}_kernel<{m.group(2)}>"
-        m = re.search(r"part_crop_head_kernelI([fd])E", mangled)
-        return f"part_crop_head_kernel<{'float' if m.group(1) == 'f' else 'double'}>" if m else mangled
+        return f"part_crop_head_{m.group(1)}_kernel<{m.group(2)}>" if m else mangled
 
     out, name = {}, None
     for line in log.splitlines():
@@ -520,18 +520,24 @@ def phase1_kernel_vs_plain(dev):
     for name, dt, b, hw, c, o in cases:
         for dense in (False, True):
             feats, wy, wx, kernel, bias = k1_inputs(b, hw, hw, c, hw, dt, dev, seed=1, dense=dense, o=o)
+            before = fused_part_predict.launches
             got = fused_part_predict(feats, wy, wx, kernel, bias, hw)
             torch.cuda.synchronize()
+            launched = fused_part_predict.launches - before
             ref = part_crop_head_plain(feats, wy, wx, kernel, bias, hw)
             err = (got.double() - ref.double()).abs().max().item()
             ref_max = ref.double().abs().max().item()
-            tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 1e-10}[name]
+            tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 0.0}[name]
             weights = "dense" if dense else "bilinear"
             print(f"phase 1: K1 {name} B={b} {hw}x{hw}x{c} S={hw} O={o} {weights} weights: max abs err "
-                  f"{err!r} (max|ref| {ref_max!r}, tolerance {tol!r})")
+                  f"{err!r} (max|ref| {ref_max!r}, tolerance {tol!r}), {launched} kernel launches")
             check(got.shape == (b, 24, hw, hw, o) and bool(torch.isfinite(got).all()),
                   f"K1 {name} output shape/finite")
             check(err <= tol, f"K1 {name} {weights}: {err} > {tol}")
+            if name == "float64":   # no kernel: the plain version on the card, bit for bit
+                check(launched == 0 and torch.equal(got, ref), f"K1 f64 {weights}: the plain version, no launch")
+            else:
+                check(launched == 1, f"K1 {name} {weights}: one kernel launch")
 
 
 def phase2_slice_f64(dev):
@@ -555,7 +561,7 @@ def phase2_slice_f64(dev):
                                  out["pred_rotmat"]).vertices
         if d.type == "cuda":
             torch.cuda.synchronize()
-            check(fused_part_predict.launches > before, "the f64 slice on the card launched K1")
+            check(fused_part_predict.launches == before, "the f64 slice on the card launched no K1 kernel")
         outs[where] = (out["para"].cpu(), verts.cpu())
         print(f"phase 2: f64 slice on {where}: {time.perf_counter() - t0:.2f} s")
     for i, name in enumerate(("para", "vertices")):
@@ -824,9 +830,12 @@ def phase5_raster(dev, card) -> dict:
               lambda: R.rasterize_flat_culled_plain(tv, tf, tt, 16, 16.0, 1024, 0.55), None),
     }
     errs = {}
+    entries = (R.rasterize_flat, R.rasterize_flat_masked)
     for key, (what, kernel, plain, _) in runs.items():
+        before = sum(e.launches for e in entries)
         got = kernel()
         torch.cuda.synchronize()
+        launched = sum(e.launches for e in entries) - before
         exp = plain()
         off = (got != exp).any(-1)
         n_off, frac = int(off.sum()), off.float().mean().item()
@@ -839,30 +848,31 @@ def phase5_raster(dev, card) -> dict:
         check(tuple(got.shape) == tuple(exp.shape) and bool(torch.isfinite(got).all()), f"raster ({key}) shape")
         check(frac <= PIXELS_OFF_MAX, f"raster ({key}): {frac} of the pixels differ")
         check(cover > 0.02 and empty == 0, f"raster ({key}): foreground {cover}, {empty} empty images")
+        if key == "d":   # f64 has no kernel: the plain version on the card, bit for bit
+            check(launched == 0 and torch.equal(got, exp), f"raster (d) f64: the plain version, {launched} launches")
+        else:
+            check(launched == 1, f"raster ({key}): {launched} kernel launches, not 1")
     tie = runs["t"][1]()[0][runs["t"][2]()[0, ..., 0] > 0]
     check(bool((tie == tt[1]).all()), "the exact tie goes to the live face")
 
-    # times, in turns: the entry (the pair kernel), its plain version, and the
-    # tile kernel that fp64 runs (the yardstick of the pair kernel)
+    # times, in turns: the entry (the pair kernel) and its plain version
     times = {}
     for key, (what, kernel, plain, spec) in runs.items():
         if spec is None:
             continue
         v, f, tex, kw = spec
-        tiles = lambda: R._launch(v, f, tex, 56, 224.0, route="tiles", **kw)   # noqa: E731
-        check(torch.equal(kernel(), tiles()), f"raster ({key}): the pair kernel and the tile kernel differ")
-        t = {"plain": [], "kernel": [], "tiles": []}
-        for turn in ("plain", "kernel", "tiles", "tiles", "kernel", "plain"):
-            t[turn].append(cuda_ms(plain, 1) if turn == "plain" else cuda_ms(kernel if turn == "kernel" else tiles, 20))
+        t = {"plain": [], "kernel": []}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            t[turn].append(cuda_ms(plain, 1) if turn == "plain" else cuda_ms(kernel, 20))
         _, pairs = R._launch(v, f, tex, 56, 224.0, with_pairs=True, **kw)
         pairs = int(pairs.item())
         mirror, stats = pair_stats(v, f, 56, kw.get("skip"))
         exact = exact_box_pairs(v, f, 56, skip=kw.get("skip"))
         bnd = raster_bound(v, f, tex, 56, skip=kw.get("skip"))
         times[key] = (min(t["kernel"]), min(t["plain"]), bnd)
-        print(f"phase 5: ({key}) B={v.shape[0]} fp32 {what}: kernel {t['kernel']} ms, tile kernel {t['tiles']} ms, "
+        print(f"phase 5: ({key}) B={v.shape[0]} fp32 {what}: kernel {t['kernel']} ms, "
               f"plain {t['plain']} ms (CUDA events, mean of 20 / 1 call after a warm-up, turns "
-              f"plain/kernel/tiles/tiles/kernel/plain, plain chunk {chunk}); bound {bnd!r} (ms, by); "
+              f"plain/kernel/kernel/plain, plain chunk {chunk}); bound {bnd!r} (ms, by); "
               f"library call: none; card {card}")
         print(f"phase 5: ({key}) pairs the kernel enumerated {pairs} (pixel_spans: {mirror}), in the exact boxes "
               f"(raster_bound) {exact}: {pairs / max(exact, 1)!r}x; {stats}")
@@ -973,7 +983,7 @@ def phase6_step_f64(dev):
         if d.type == "cuda":
             torch.cuda.synchronize()
             launches = (R.rasterize_flat.launches, R.rasterize_flat_masked.launches)
-            check(launches[0] >= 1, f"the f64 step on the card launched rasterize_flat: {launches}")
+            check(launches == (0, 0), f"the f64 step on the card launched no raster kernel: {launches}")
         print(f"phase 6: f64 step on {where}: {time.perf_counter() - t0:.2f} s, "
               f"loss_total {metrics['loss_total'].item()!r}")
         res[where] = ({k: v.item() for k, v in metrics.items()},
@@ -1232,9 +1242,11 @@ def phase8_eval(dev, card) -> dict:
         tex = torch.as_tensor(np.stack([np.ones_like(p), p], 1), device=dev)
         meshes[mesh] = (vpx, faces, tex)
         for what, v in ((f"fp32, B={EVAL_BATCH}", vpx), ("f64, B=2", vpx[:2].double())):
+            before = (R.rasterize_flat_banded.launches, R.rasterize_flat.launches)
             got = R.rasterize_flat_banded(v, faces, tex, s)
             flat = R.rasterize_flat(v, faces, tex, s)
             torch.cuda.synchronize()
+            launched = tuple(e.launches - n for e, n in zip((R.rasterize_flat_banded, R.rasterize_flat), before))
             plain = R.rasterize_flat_banded_plain(v, faces, tex, s, 224.0, 256)
             off = (got != plain).any(-1)
             frac = off.float().mean().item()
@@ -1244,11 +1256,16 @@ def phase8_eval(dev, card) -> dict:
             err = e if err is None else max(err, e)
             print(f"phase 8: (a) K3 {mesh}, {what}, S={s}, F={faces.shape[0]}: {int(off.sum())} of {off.numel()} "
                   f"pixels differ from the plain version ({frac!r}), max abs err {e!r}; bit-equal to the "
-                  f"rasterize_flat kernel: {torch.equal(got, flat)}; foreground {cover!r}, {empty} empty images")
+                  f"rasterize_flat entry: {torch.equal(got, flat)}; foreground {cover!r}, {empty} empty images; "
+                  f"kernel launches (K3, rasterize_flat) {launched}")
             check(tuple(got.shape) == (v.shape[0], s, s, 2) and bool(torch.isfinite(got).all()), f"K3 {what} shape")
             check(frac <= PIXELS_OFF_MAX, f"K3 {mesh} {what}: {frac} of the pixels differ from the plain version")
             check(torch.equal(got, flat), f"K3 {mesh} {what}: not bit-equal to the rasterize_flat kernel")
             check(cover > 0.02 and empty == 0, f"K3 {mesh} {what}: foreground {cover}, {empty} empty images")
+            if v.dtype == torch.float64:   # no kernel: the plain versions on the card, bit for bit
+                check(launched == (0, 0) and torch.equal(got, plain), f"K3 {mesh} f64: the plain version, no launch")
+            else:
+                check(launched == (1, 1), f"K3 {mesh} {what}: kernel launches {launched}, not (1, 1)")
         _, pairs = R._launch(vpx, faces, tex, s, 224.0, with_pairs=True)
         pairs = int(pairs.item())
         mirror, stats = pair_stats(vpx, faces, s)
@@ -1258,17 +1275,14 @@ def phase8_eval(dev, card) -> dict:
         check(pairs == mirror, f"K3 {mesh}: the kernel's pairs {pairs} != pixel_spans' {mirror}")
         check(pairs >= exact, f"K3 {mesh}: {pairs} pairs enumerated < {exact} in the exact boxes")
 
-        # (b) times at B=16 fp32, in turns: the entry (the pair kernel), the
-        # rasterize_flat entry, and the tile kernel (fp64's route, the pair
-        # kernel's yardstick)
+        # (b) times at B=16 fp32, in turns: the entry (the pair kernel) and the
+        # rasterize_flat entry
         calls = {
             "K3": lambda: R.rasterize_flat_banded(vpx, faces, tex, s),
             "rasterize_flat": lambda: R.rasterize_flat(vpx, faces, tex, s),
-            "tiles": lambda: R._launch(vpx, faces, tex, s, 224.0, route="tiles"),
         }
-        check(torch.equal(calls["tiles"](), calls["K3"]()), f"K3 {mesh}: the tile kernel differs from the entry")
         t = {k: [] for k in (*calls, "plain")}
-        for turn in ("K3", "rasterize_flat", "tiles", "plain", "K3", "rasterize_flat", "tiles", "plain"):
+        for turn in ("K3", "rasterize_flat", "plain", "K3", "rasterize_flat", "plain"):
             if turn == "plain":
                 t[turn].append(cuda_ms(lambda: R.rasterize_flat_banded_plain(vpx, faces, tex, s, 224.0, 256), 1))
             else:
@@ -1280,7 +1294,7 @@ def phase8_eval(dev, card) -> dict:
         bnd = raster_bound(vpx, faces, tex, s)
         print(f"phase 8: (b) {mesh}, B={EVAL_BATCH} S={s} fp32: K3 {t['K3']} ms; "
               f"rasterize_flat {t['rasterize_flat']} ms; "
-              f"tile kernel {t['tiles']} ms; plain (chunk 256) {t['plain']} ms (CUDA events, mean of 20 / 1 after a "
+              f"plain (chunk 256) {t['plain']} ms (CUDA events, mean of 20 / 1 after a "
               f"warm-up, in turns); bound {bnd!r} (ms, by); library call: none; card {card}")
     vpx, faces, tex = meshes["synthetic SMPL"]
     bound_ms, bound_by = raster_bound(vpx, faces, tex, s)
@@ -1307,20 +1321,17 @@ def phase8_eval(dev, card) -> dict:
     img0 = R.rasterize_flat_banded(vpx0, faces_s, tex_s, s)
     check(torch.equal(img0, R.rasterize_flat(vpx0, faces_s, tex_s, s)),
           "K3 on the eval's predicted bodies: not bit-equal to the rasterize_flat kernel")
-    check(torch.equal(img0, R._launch(vpx0, faces_s, tex_s, s, 224.0, route="tiles")),
-          "K3 on the eval's predicted bodies: the pair kernel and the tile kernel differ")
     own_plain = lambda: R.rasterize_flat_banded_plain(vpx0, faces_s, tex_s, s, 224.0, 256)   # noqa: E731
     check(torch.equal(img0, own_plain()), "K3 on the eval's predicted bodies: not bit-equal to its plain version")
     own_calls = {"K3": lambda: R.rasterize_flat_banded(vpx0, faces_s, tex_s, s),
-                 "rasterize_flat": lambda: R.rasterize_flat(vpx0, faces_s, tex_s, s),
-                 "tiles": lambda: R._launch(vpx0, faces_s, tex_s, s, 224.0, route="tiles"), "plain": own_plain}
+                 "rasterize_flat": lambda: R.rasterize_flat(vpx0, faces_s, tex_s, s), "plain": own_plain}
     own = {name: [] for name in own_calls}
-    for name in ("K3", "rasterize_flat", "tiles", "plain", "plain", "tiles", "rasterize_flat", "K3"):
+    for name in ("K3", "rasterize_flat", "plain", "plain", "rasterize_flat", "K3"):
         own[name].append(cuda_ms(own_calls[name], 1 if name == "plain" else 20))
     _, pairs = R._launch(vpx0, faces_s, tex_s, s, 224.0, with_pairs=True)
     _, stats = pair_stats(vpx0, faces_s, s)
     print(f"phase 8: (c) the eval's render of batch 0's predicted bodies, B={EVAL_BATCH} S={s}: K3 {own['K3']} ms, "
-          f"rasterize_flat {own['rasterize_flat']} ms, tile kernel {own['tiles']} ms, plain version (banded, on "
+          f"rasterize_flat {own['rasterize_flat']} ms, plain version (banded, on "
           f"the card, chunk 256) {own['plain']} ms (CUDA events, mean of 20 / 1 call, in turns); bound {raster_bound(vpx0, faces_s, tex_s, s)!r} (ms, by); foreground "
           f"{(img0[..., 0] > 0).float().mean().item()!r}; pairs enumerated {int(pairs.item())}, in the exact boxes "
           f"{exact_box_pairs(vpx0, faces_s, s)}; {stats}; card {card}")
@@ -1950,15 +1961,13 @@ def phase12_archs(dev, card) -> dict:
     return out
 
 
-def k1_launch(args, s, plan=None, scalar=False):
+def k1_launch(args, s, plan=None):
     """A function that launches one K1 kernel alone on `args` (the wrapper's
     checks, plan and weight packing done once, here): for bf16 or fp32 args
     the tensor-core kernel of that dtype at `plan` = (tile rows, channel
-    chunk) if given, else the wrapper's `bf16_plan` / `f32_plan`; with
-    `scalar`, the scalar kernel (fp32 or f64) through the C entry
-    `part_crop_head`. Its output buffer is `.out`."""
+    chunk) if given, else the wrapper's `bf16_plan` / `f32_plan`. Its output
+    buffer is `.out`."""
     from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
-        _SCALAR_DTYPE_CODE,
         bf16_plan,
         f32_plan,
         load_library,
@@ -1971,24 +1980,14 @@ def k1_launch(args, s, plan=None, scalar=False):
     out = torch.empty((b, k, s, s, o), dtype=feats.dtype, device=feats.device)
     lib = load_library()[0]
     ptrs = (feats.data_ptr(), wy.data_ptr(), wx.data_ptr())
-    if scalar:
-        kern = kernel.reshape(3, 3, c, k, o).permute(3, 0, 1, 2, 4).contiguous()   # (K, 3, 3, C, O)
-
-        def call(stream):
-            return lib.part_crop_head(_SCALAR_DTYPE_CODE[feats.dtype], *ptrs, kern.data_ptr(), bias.data_ptr(),
-                                      out.data_ptr(), b, h, w, c, s, k, o, stream)
-    else:
-        f32 = feats.dtype == torch.float32
-        rows, chunk = plan or (f32_plan if f32 else bf16_plan)(h, w, c, s, o)
-        wpack = pack_head_weights(kernel, k, chunk, split=f32)
-        entry = lib.part_crop_head_f32 if f32 else lib.part_crop_head_bf16
-
-        def call(stream):
-            return entry(*ptrs, wpack.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, rows, chunk,
-                         stream)
+    f32 = feats.dtype == torch.float32
+    rows, chunk = plan or (f32_plan if f32 else bf16_plan)(h, w, c, s, o)
+    wpack = pack_head_weights(kernel, k, chunk, split=f32)
+    entry = lib.part_crop_head_f32 if f32 else lib.part_crop_head_bf16
 
     def launch():
-        err = call(torch.cuda.current_stream().cuda_stream)
+        err = entry(*ptrs, wpack.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, s, k, o, rows, chunk,
+                    torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"K1 launch: cudaError {err}")
 
     launch.out = out
@@ -2007,7 +2006,8 @@ K1_AB_MS = (1.161, 0.834, "the ring layout at d34c60c against this kernel, PERF.
 def k1_check_cases(phase: str, dev, cases, seed: int, errors: dict | None = None) -> float:
     """K1 against its plain version on each (dtype, B, S, C, O) case, fed by
     bilinear and by dense interpolation matrices: fp32 (TF32 off) within
-    1e-4, bf16 within 2e-2 of max|ref|, f64 within 1e-10. Returns the first
+    1e-4 and bf16 within 2e-2 of max|ref|, one kernel launch each; f64 has
+    no kernel: the plain version, bit for bit, no launch. Returns the first
     bf16 case's error on bilinear weights; `errors`, if given, gets every
     case's error by (dtype, B, S, C, O, weights)."""
     from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
@@ -2023,11 +2023,13 @@ def k1_check_cases(phase: str, dev, cases, seed: int, errors: dict | None = None
         dt = getattr(torch, name)
         for dense in (False, True):
             args = k1_inputs(b, hw, hw, c, hw, dt, dev, seed=seed, dense=dense, o=o)
+            before = fused_part_predict.launches
             got = fused_part_predict(*args, hw)
             torch.cuda.synchronize()
+            launched = fused_part_predict.launches - before
             ref = part_crop_head_plain(*args, hw)
             err, ref_max = (got.double() - ref.double()).abs().max().item(), ref.double().abs().max().item()
-            tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 1e-10}[name]
+            tol = {"float32": 1e-4, "bfloat16": 2e-2 * ref_max, "float64": 0.0}[name]
             weights = "dense" if dense else "bilinear"
             plan = {"bfloat16": bf16_plan, "float32": f32_plan}.get(name)
             plan = f", tile rows and chunk {plan(hw, hw, c, hw, o)}" if plan else ""
@@ -2035,6 +2037,7 @@ def k1_check_cases(phase: str, dev, cases, seed: int, errors: dict | None = None
                   f"(max|ref| {ref_max!r}, tolerance {tol!r}{plan})")
             check(got.shape == (b, 24, hw, hw, o) and bool(torch.isfinite(got).all()), f"K1 {name} C={c}: shape")
             check(err <= tol, f"K1 {name} C={c} {weights}: {err} > {tol}")
+            check(launched == (0 if name == "float64" else 1), f"K1 {name} C={c} {weights}: {launched} launches")
             if first is None and name == "bfloat16" and not dense:
                 first = err
             if errors is not None:
@@ -2152,7 +2155,7 @@ def phase12_models(dev, card) -> dict:
     err = (got - ref).abs().max().item()
     print(f"phase 12: (b) {RESNET_CFG}, f64 B=2 224 px: para card vs CPU max abs err {err!r} (max|cpu| "
           f"{ref.abs().max().item()!r}; bar atol 1e-6, rtol 1e-9); launches {counts}")
-    check(counts["part_crop_head"] == 1 and torch.allclose(got, ref, atol=1e-6, rtol=1e-9), "resnet f64 card vs CPU")
+    check(counts["part_crop_head"] == 0 and torch.allclose(got, ref, atol=1e-6, rtol=1e-9), "resnet f64 card vs CPU")
     del gpu_model, cpu_model
     para32 = Predictor(dev, torch.float32, cfg=cfg, seed=0).predict(x.float())["para"].double().cpu()
     err32 = (para32 - ref).abs().max().item()
@@ -2361,7 +2364,7 @@ def phase13_input_modes(dev, card) -> dict:
         print(f"phase 13: (a) {mode}: f64 B=2 224 px eval para card vs CPU max abs err {err!r} (max|cpu| "
               f"{ref.abs().max().item()!r}; bar atol 1e-6, rtol 1e-9); launches {counts}")
         check(torch.allclose(got, ref, atol=1e-6, rtol=1e-9), f"{mode}: f64 card vs CPU")
-        check(counts["part_crop_head"] == (1 if mode == "seg" else 0), f"{mode}: K1 launches {counts}")
+        check(counts["part_crop_head"] == 0, f"{mode}: f64 launches no K1 kernel ({counts})")
         out["forward"][mode] = {"err": err, "k1": counts["part_crop_head"]}
         del cpu_model, gpu_model
 
@@ -2758,7 +2761,7 @@ def phase14_chunks_dp(dev, card) -> dict:
         print(f"phase 14: (a) f64 step W48 64 px B=4, part_head_chunks=3 (CPU step {cpu_s:.1f} s): card vs CPU "
               f"worst error / bar {vs_cpu}; chunked vs one-shot on the card {vs_one}; launches {card3['launches']}")
         check(max(vs_cpu.values()) <= 1 and max(vs_one.values()) <= 1, "f64 chunked step bars")
-        check(card3["launches"]["rasterize_flat_masked"] == 1, f"f64 chunked step: {card3['launches']}")
+        check(not any(card3["launches"].values()), f"f64 chunked step: no kernel ({card3['launches']})")
         out["f64_chunks"] = {"vs_cpu": vs_cpu, "vs_one_shot": vs_one}
 
         # (b) data parallel at one rank over NCCL: cli.train --data_parallel
@@ -2803,7 +2806,7 @@ def phase14_chunks_dp(dev, card) -> dict:
             print(f"phase 14: (b) f64 step W48 64 px B=4 at one NCCL rank vs plain: worst error / bar {err}; "
                   f"launches {dp['launches']}")
             check(max(err.values()) <= 1, "f64 step at one rank vs plain")
-            check(dp["launches"]["rasterize_flat_masked"] == 1, f"world-1 f64 step: {dp['launches']}")
+            check(not any(dp["launches"].values()), f"world-1 f64 step: no kernel ({dp['launches']})")
             out["world1_f64"] = {"err": err, "launches": dp["launches"]}
         finally:
             mesh.close()
@@ -2838,7 +2841,7 @@ def phase14_chunks_dp(dev, card) -> dict:
         check(equal, "the ranks' parameters are bit-equal after the step")
         check(eval_err <= 1e-12 and all(r["eval"][2].shape == (DP_GLOBAL_BATCH, 229) for r in ranks),
               f"two-rank eval vs one rank: {eval_err}")
-        check(all(r["launches"]["rasterize_flat_masked"] == 1 for r in ranks), "K4 once per rank per step")
+        check(not any(n for r in ranks for n in r["launches"].values()), "f64 ranks: no kernel launched")
         out["two_ranks"] = {"errs": errs, "launches": [r["launches"] for r in ranks], "eval_err": eval_err}
         return out
     finally:
@@ -2965,7 +2968,7 @@ def phase15_remat(dev, card, root: str) -> dict:
         check(max(err.values()) <= 1, f"f64 remat {scope} step bars")
         check(got["tracked"] == plain["tracked"] and set(plain["tracked"].values()) == {1},
               f"remat {scope}: each BatchNorm counted one batch")
-        check(got["launches"]["rasterize_flat_masked"] == 1, f"f64 remat {scope}: {got['launches']}")
+        check(not any(got["launches"].values()), f"f64 remat {scope}: no kernel ({got['launches']})")
         out["f64"][scope] = {"err": err, "stats_bit_equal": same_stats}
 
     # two gloo ranks on cuda:0 under 'modules' against one process without remat
@@ -2995,7 +2998,7 @@ def phase15_remat(dev, card, root: str) -> dict:
           f"{[r['launches'] for r in ranks]}; {time.perf_counter() - t0:.1f} s")
     check(all(max(e.values()) <= 1 for e in errs), "two-rank remat f64 step vs one process")
     check(equal and all(r["tracked"] == single["tracked"] for r in ranks), "the ranks agree")
-    check(all(r["launches"]["rasterize_flat_masked"] == 1 for r in ranks), "K4 once per rank per step")
+    check(not any(n for r in ranks for n in r["launches"].values()), "f64 ranks: no kernel launched")
     out["two_ranks"] = {"errs": errs, "launches": [r["launches"] for r in ranks]}
 
     # cli.train --remat in-process
@@ -3049,7 +3052,7 @@ def phase15_pad_models(dev, card) -> dict:
     err = (got - ref).abs().max().item()
     print(f"phase 15: (b) padded DaNet f64 B=2 224 px, card vs CPU: para max abs err {err!r}; launches {counts}")
     check(torch.allclose(got, ref, atol=1e-6, rtol=1e-9), f"padded f64 serving: {err}")
-    check(counts["part_crop_head"] == 1, f"padded f64 serving: K1 once ({counts})")
+    check(counts["part_crop_head"] == 0, f"padded f64 serving: no K1 kernel ({counts})")
     del model
     torch.cuda.empty_cache()
 
@@ -3185,8 +3188,8 @@ K1_F32_BATCH = 64
 
 def phase16_k1_fp32(dev, card) -> dict:
     """K1's fp32 kernel (`part_crop_head_f32_kernel<CH>`, 3xTF32): (a) against
-    its plain version, (b) its time at B=64, C=48, 64, 256 beside the scalar
-    kernel it replaced, the plain version and the unfused route, (c) fp32
+    its plain version, (b) its time at B=64, C=48, 64, 256 beside the plain
+    version and the unfused route, (c) fp32
     `Predictor` requests of W48, the padded HRNet and the ResNet-50 config.
     Returns {C: the numbers of the `kernels` line's `fp32` object}."""
     # (a) every width and odd shape, bilinear and dense weights, TF32 off
@@ -3208,10 +3211,8 @@ def k1_f32_timing(dev, card, c: int) -> dict:
     """(b): K1 at B=64 fp32 on 56x56xC, TF32 off: the wrapper, the plain
     version (3 calls), the unfused route (`separable_crop_concat`, then
     cuDNN's grouped conv) and its conv alone in turns; then the launch alone
-    at `f32_plan`, at each channel chunk and of the scalar kernel (the C
-    entry `part_crop_head` with dtype 0, the kernel fp32 ran before) in
-    turns: medians of two turns by CUDA events, and the kernel's device ms
-    by torch.profiler."""
+    at `f32_plan` and at each channel chunk in turns: medians of two turns
+    by CUDA events, and the kernel's device ms by torch.profiler."""
     from danet_densepose2smpl_tpu_torch.kernels.part_crop_head import (
         F32_CHUNKS,
         f32_plan,
@@ -3236,7 +3237,7 @@ def k1_f32_timing(dev, card, c: int) -> dict:
         "unfused conv": lambda: head(crops),
     }
     plan = f32_plan(56, 56, c, 56, 21)
-    launches = {"plan": k1_launch(args, 56, plan), "scalar": k1_launch(args, 56, scalar=True)}
+    launches = {"plan": k1_launch(args, 56, plan)}
     for chunk in F32_CHUNKS:
         launches[f"chunk {chunk}"] = k1_launch(args, 56, (f32_rows(56, 56, 21, chunk), chunk))
     times = {name: [] for name in [*calls, *launches]}
@@ -3245,7 +3246,7 @@ def k1_f32_timing(dev, card, c: int) -> dict:
             times[name].append(cuda_ms(calls[name], 3 if name == "plain" else 20))
         for order in (list(launches), list(launches)[::-1]):
             for name in order:
-                times[name].append(cuda_ms(launches[name], 5 if name == "scalar" else 10))
+                times[name].append(cuda_ms(launches[name], 10))
         by_kernel = device_ms_by_kernel(calls["kernel"], 10)
         alone = [v for key, v in by_kernel.items() if "part_crop_head_f32_kernel" in key]
         check(len(alone) == 1, f"the profiler sees the fp32 kernel: {by_kernel}")
@@ -3262,16 +3263,13 @@ def k1_f32_timing(dev, card, c: int) -> dict:
           f"3; TF32 off): kernel {times['kernel']} ms, plain {times['plain']} ms, unfused route {times['unfused']} "
           f"ms, its conv alone {times['unfused conv']} ms; the launch alone (weights packed once) at the plan "
           f"{plan} (tile rows, chunk) {times['plan']} ms, "
-          + ", ".join(f"{name} {times[name]} ms" for name in launches if name not in ("plan", "scalar"))
-          + f"; the scalar kernel it replaced (5 calls) {times['scalar']} ms, {ms['scalar'] / ms['plan']!r}x the "
-          f"launch; device ms (torch.profiler, 10 calls) {alone[0]!r}; max abs err vs plain {err!r} (the "
-          f"scalar kernel {errs['scalar']!r}, the unfused route {err_u!r}); bound {bound_ms!r} ms ({bound_by}, "
-          f"3xTF32 at 495 TFLOP/s), FFMA bound {ffma_ms!r} ms ({ffma_by}, 67 TFLOP/s); card {card}")
-    check(ms["plan"] < ms["scalar"], f"K1 fp32 C={c}: the kernel ({ms['plan']} ms) is faster than the scalar "
-                                     f"kernel it replaced ({ms['scalar']} ms)")
+          + ", ".join(f"{name} {times[name]} ms" for name in launches if name != "plan")
+          + f"; device ms (torch.profiler, 10 calls) {alone[0]!r}; max abs err vs plain {err!r} (the unfused "
+          f"route {err_u!r}); bound {bound_ms!r} ms ({bound_by}, 3xTF32 at 495 TFLOP/s), FFMA bound {ffma_ms!r} ms "
+          f"({ffma_by}, 67 TFLOP/s); card {card}")
     del args, feats, kernel, bias, head, crops, calls, launches, ref
     torch.cuda.empty_cache()
-    return {"ms": ms["kernel"], "scalar_ms": ms["scalar"], "plain_ms": ms["plain"], "unfused_ms": ms["unfused"],
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "unfused_ms": ms["unfused"],
             "unfused_conv_ms": ms["unfused conv"], "launch_ms": ms["plan"], "device_ms": alone[0],
             "bound_ms": bound_ms, "bound_by": bound_by, "ffma_bound_ms": ffma_ms, "plan": plan,
             "chunk_ms": {name: ms[name] for name in ms if name.startswith("chunk")}, "max_abs_err": err}
@@ -3282,8 +3280,8 @@ def phase16_requests(dev, card, timing: dict) -> dict:
     HRNet and configs/danet_resnet.yaml (K1 at C=48, 64, 256), the counts
     zeroed just before and read just after: host ms and imgs/s; then one
     request of each under torch.profiler: kernel ms, the fp32 kernel's
-    device ms inside it and the idle share, beside the scalar kernel's time
-    from (b). Returns {C: K1 launches in the 8 requests}."""
+    device ms inside it and the idle share, beside the launch's time from
+    (b). Returns {C: K1 launches in the 8 requests}."""
     from danet_densepose2smpl_tpu_torch.config import DaNetConfig, load_config
     from danet_densepose2smpl_tpu_torch.serve import Predictor
 
@@ -3310,8 +3308,8 @@ def phase16_requests(dev, card, timing: dict) -> dict:
                                 f"({label})", card)
         k1_ms = sum(e.self_device_time_total for e in events if "part_crop_head_f32_kernel" in e.key) / 1e3
         check(k1_ms > 0, f"the profiled fp32 request of {label} ran part_crop_head_f32_kernel")
-        print(f"profile: K1 (part_crop_head_f32_kernel) inside it: {k1_ms!r} ms on the card; the scalar kernel it "
-              f"replaced took {timing[c]['scalar_ms']!r} ms at this shape in (b); card {card}")
+        print(f"profile: K1 (part_crop_head_f32_kernel) inside it: {k1_ms!r} ms on the card; the launch alone "
+              f"took {timing[c]['launch_ms']!r} ms at this shape in (b); card {card}")
         timing[c]["request"] = {"imgs_per_s": K1_F32_BATCH * SERVE_REQUESTS / dt, "k1_device_ms": k1_ms}
         del predictor, outs
         torch.cuda.empty_cache()
@@ -3666,9 +3664,9 @@ def main():
         if k["name"] == "part_crop_head":                         # phase 16: the fp32 kernel at each C
             k["fp32"] = {str(c): {"launches": v["launches"], "path": f"fp32 serving: Predictor.predict, "
                                   f"B={K1_F32_BATCH}, {SERVE_REQUESTS} requests",
-                                  **{key: v[key] for key in ("ms", "scalar_ms", "plain_ms", "unfused_ms",
-                                                             "unfused_conv_ms", "device_ms", "bound_ms", "bound_by",
-                                                             "ffma_bound_ms", "plan", "max_abs_err")},
+                                  **{key: v[key] for key in ("ms", "plain_ms", "unfused_ms", "unfused_conv_ms",
+                                                             "device_ms", "bound_ms", "bound_by", "ffma_bound_ms",
+                                                             "plan", "max_abs_err")},
                                   "library_ms": None} for c, v in k1_f32.items()}
         if k["name"] == "rasterize_flat_masked":                  # phase 15 (a): 3 steps per scope
             k["remat_launches"] = {scope: v["launches"]["rasterize_flat_masked"]

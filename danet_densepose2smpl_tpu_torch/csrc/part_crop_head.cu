@@ -8,10 +8,12 @@
 //   out  = round(conv3x3(zero_pad(crop), weight[k]) + bias[k])
 //
 // with round() = cast to the input dtype, exactly where the TPU kernel rounds;
-// the conv accumulates in fp32 (f64 for f64 inputs) and adds the bias there.
+// the conv accumulates in fp32 and adds the bias there.
 // The (B, 24, S, S, C) crop tensor never reaches device memory.
 //
-// Three kernels; the dtype alone picks one.
+// Two kernels, one per served precision; the dtype alone picks one. f64 (the
+// tests' precision) runs the plain PyTorch version on the card, as on the CPU
+// (`kernels/part_crop_head.py::part_crop_head_plain`).
 //
 // bf16 (serving and eval): `part_crop_head_bf16_kernel<CH>`, for every C (the
 // HRNet's 48, the padded HRNet's 64, the ResNet backbone's 256). At B=64,
@@ -97,25 +99,6 @@
 //   - Six warps of up to five MMA tiles: two blocks of 192 threads share an
 //     SM with room for the registers (~155 a thread) and shared memory
 //     (~110 KB at CH = 16 and 8 rows).
-//
-// f64 (the tests): `part_crop_head_kernel<double>`, scalar CUDA-core FMAs
-// (its bar, 1e-10, rules out the tensor cores). One block per (image, part,
-// tile of output rows) builds the crop rows of its tile plus a one-row halo
-// in shared memory (from zero-skipping lists of the interpolation weights)
-// and runs the conv from there. Where all of C does not fit, the channels
-// pass in chunks of CC = 32, each rebuilding the crop, its sums carried in
-// shared memory. Its fp32 instance, the kernel fp32 ran before the 3xTF32
-// one, stays as the yardstick `chip_smoke.py` times that one against.
-//
-// Shared memory of a scalar block, for R = rows + 2 crop rows and a chunk
-// of CC channels (CC = C when it fits):
-//   crop     [R][CC][S+2]      input dtype, zero columns at both ends
-//   then a region used twice:
-//     phase 1: tmp [R][CC][WP]  (WP = W rounded up to odd: no bank conflicts)
-//              y lists: count[R], idx[R][H], val[R][H]
-//              x lists: count[S], idx[S][W], val[S][W]
-//     phase 2: weight [3][3][CC][O] input dtype, bias [O] accumulator dtype
-//   in chunks, then: acc [rows][S][O] accumulator dtype
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,253 +106,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kOutChunk = 8;  // output channels accumulated per thread
-
-template <typename T> struct Acc { using type = float; };
-template <> struct Acc<double> { using type = double; };
-
-__device__ __forceinline__ float to_acc(float x) { return x; }
-__device__ __forceinline__ double to_acc(double x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_acc(typename Acc<T>::type x);
-template <> __device__ __forceinline__ float from_acc<float>(float x) { return x; }
-template <> __device__ __forceinline__ double from_acc<double>(double x) { return x; }
-
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
-struct Layout {
-  size_t crop, tmp, ycnt, yidx, yval, xcnt, xidx, xval, weight, bias, acc, total;
-};
-
-// Byte offsets of every shared-memory array for a tile of `rows` output rows
-// and a chunk of CC channels; `chunked` adds the accumulators that carry the
-// conv's sums from one chunk to the next.
-__host__ __device__ inline Layout make_layout(int rows, int H, int W, int CC, int S, int O,
-                                              size_t elem, size_t acc, bool chunked) {
-  Layout L;
-  const size_t R = rows + 2;
-  const size_t WP = W | 1;
-  L.crop = 0;
-  size_t a = align16(R * CC * (S + 2) * elem);
-  L.tmp = a;
-  size_t p = align16(a + R * CC * WP * elem);
-  L.ycnt = p; p = align16(p + R * sizeof(int));
-  L.yidx = p; p = align16(p + R * H * sizeof(int16_t));
-  L.yval = p; p = align16(p + R * H * elem);
-  L.xcnt = p; p = align16(p + S * sizeof(int));
-  L.xidx = p; p = align16(p + size_t(S) * W * sizeof(int16_t));
-  L.xval = p; p = align16(p + size_t(S) * W * elem);
-  size_t q = a;
-  L.weight = q; q = align16(q + size_t(9) * CC * O * elem);
-  L.bias = q; q = align16(q + O * acc);
-  L.acc = p > q ? p : q;
-  L.total = L.acc + (chunked ? align16(size_t(rows) * S * O * acc) : 0);
-  return L;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-part_crop_head_kernel(const T* __restrict__ feats,   // (B, H, W, C)
-                      const T* __restrict__ wy,      // (B, K, S, H)
-                      const T* __restrict__ wx,      // (B, K, S, W)
-                      const T* __restrict__ weight,  // (K, 3, 3, C, O)
-                      const T* __restrict__ bias,    // (K * O)
-                      T* __restrict__ out,           // (B, K, S, S, O)
-                      int H, int W, int C, int S, int K, int O, int rows, int CC) {
-  using A = typename Acc<T>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_chunks = (C + CC - 1) / CC;
-  const Layout L = make_layout(rows, H, W, CC, S, O, sizeof(T), sizeof(A), n_chunks > 1);
-  T* crop = reinterpret_cast<T*>(smem + L.crop);
-  T* tmp = reinterpret_cast<T*>(smem + L.tmp);
-  int* ycnt = reinterpret_cast<int*>(smem + L.ycnt);
-  int16_t* yidx = reinterpret_cast<int16_t*>(smem + L.yidx);
-  T* yval = reinterpret_cast<T*>(smem + L.yval);
-  int* xcnt = reinterpret_cast<int*>(smem + L.xcnt);
-  int16_t* xidx = reinterpret_cast<int16_t*>(smem + L.xidx);
-  T* xval = reinterpret_cast<T*>(smem + L.xval);
-  T* wsm = reinterpret_cast<T*>(smem + L.weight);
-  A* bsm = reinterpret_cast<A*>(smem + L.bias);
-  A* asm_ = reinterpret_cast<A*>(smem + L.acc);   // [rows][S][O], between chunks
-
-  const int tid = threadIdx.x;
-  const int y0 = blockIdx.x * rows;        // first output row of the tile
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  const int R = rows + 2;                  // crop row r <-> image row y0 - 1 + r
-  const int SP = S + 2;
-  const int WP = W | 1;
-  const T zero = from_acc<T>(A(0));
-  const T* wy_bk = wy + (size_t(b) * K + k) * S * H;
-  const T* wx_bk = wx + (size_t(b) * K + k) * S * W;
-  const T* f_b = feats + size_t(b) * H * W * C;
-
-  // The channels pass in chunks of CC (one chunk when all of C fits); the
-  // conv's sums carry over in `asm_`. A chunk's phases 0-2 rebuild its crop
-  // (the weight tile of phase 3 overwrites the lists).
-  for (int cc = 0; cc < n_chunks; ++cc) {
-    const int cbase = cc * CC;
-    const int cn = min(CC, C - cbase);   // channels of this chunk
-    // Phase 0: zero the crop (padding and rows outside [0, S)) and compact
-    // the non-zero interpolation weights of this tile's rows and of all
-    // columns.
-    for (int i = tid; i < R * CC * SP; i += blockDim.x) crop[i] = zero;
-    for (int t = tid; t < R + S; t += blockDim.x) {
-      if (t < R) {
-        const int gy = y0 - 1 + t;
-        int n = 0;
-        if (gy >= 0 && gy < S) {
-          for (int h = 0; h < H; ++h) {
-            const T v = wy_bk[size_t(gy) * H + h];
-            if (to_acc(v) != A(0)) { yidx[t * H + n] = int16_t(h); yval[t * H + n] = v; ++n; }
-          }
-        }
-        ycnt[t] = n;
-      } else {
-        const int x = t - R;
-        int n = 0;
-        for (int w = 0; w < W; ++w) {
-          const T v = wx_bk[size_t(x) * W + w];
-          if (to_acc(v) != A(0)) { xidx[x * W + n] = int16_t(w); xval[x * W + n] = v; ++n; }
-        }
-        xcnt[x] = n;
-      }
-    }
-    __syncthreads();
-
-    // Phase 1: y-interpolation of the needed rows, tmp[r][c][w], rounded.
-    for (int r = 0; r < R; ++r) {
-      const int n = ycnt[r];
-      for (int i = tid; i < W * cn; i += blockDim.x) {
-        const int w = i / cn, c = i - w * cn;
-        const T* src = f_b + size_t(w) * C + cbase + c;
-        A acc = A(0);
-        for (int j = 0; j < n; ++j) acc += to_acc(yval[r * H + j]) * to_acc(src[size_t(yidx[r * H + j]) * W * C]);
-        tmp[(r * CC + c) * WP + w] = from_acc<T>(acc);
-      }
-    }
-    __syncthreads();
-
-    // Phase 2: x-interpolation, crop[r][c][x + 1], rounded. Rows outside the
-    // image stay zero (the conv's zero padding), as do a last chunk's
-    // channels past C.
-    for (int i = tid; i < R * CC * S; i += blockDim.x) {
-      const int x = i % S;
-      const int rc = i / S;
-      const int r = rc / CC;
-      const int gy = y0 - 1 + r;
-      if (gy < 0 || gy >= S || rc - r * CC >= cn) continue;
-      const int n = xcnt[x];
-      const T* trow = tmp + size_t(rc) * WP;
-      A acc = A(0);
-      for (int j = 0; j < n; ++j) acc += to_acc(xval[x * W + j]) * to_acc(trow[xidx[x * W + j]]);
-      crop[size_t(rc) * SP + x + 1] = from_acc<T>(acc);
-    }
-    __syncthreads();
-
-    // Phase 3: this part's conv weights of the chunk (zero past C) and the
-    // bias replace tmp and the lists.
-    const T* w_k = weight + size_t(k) * 9 * C * O;
-    for (int i = tid; i < 9 * CC * O; i += blockDim.x) {
-      const int o = i % O, tc = i / O, tap = tc / CC, c = tc - tap * CC;
-      wsm[i] = c < cn ? w_k[(size_t(tap) * C + cbase + c) * O + o] : zero;
-    }
-    for (int o = tid; o < O; o += blockDim.x) bsm[o] = to_acc(bias[size_t(k) * O + o]);
-    __syncthreads();
-
-    // Phase 4: 3x3 conv, one (pixel, chunk of kOutChunk outputs) per item;
-    // neighbouring threads take neighbouring x (contiguous crop reads) and
-    // read the same weights (broadcast). The first chunk starts from the
-    // bias, the last writes the output.
-    const int rv = min(rows, S - y0);
-    const int n_oc = (O + kOutChunk - 1) / kOutChunk;
-    const int n_pix = rv * S;
-    T* out_bk = out + (size_t(b) * K + k) * S * S * O;
-    for (int it = tid; it < n_pix * n_oc; it += blockDim.x) {
-      const int chunk = it / n_pix;
-      const int p = it - chunk * n_pix;
-      const int ty = p / S, x = p - ty * S;
-      const int o0 = chunk * kOutChunk;
-      A acc[kOutChunk];
-#pragma unroll
-      for (int j = 0; j < kOutChunk; ++j)
-        acc[j] = (o0 + j < O) ? (cc == 0 ? bsm[o0 + j] : asm_[p * O + o0 + j]) : A(0);
-      for (int dy = 0; dy < 3; ++dy) {
-        for (int dx = 0; dx < 3; ++dx) {
-          const T* crow = crop + size_t(ty + dy) * CC * SP + x + dx;
-          const T* wtap = wsm + size_t(dy * 3 + dx) * CC * O + o0;
-          for (int c = 0; c < cn; ++c) {
-            const A v = to_acc(crow[size_t(c) * SP]);
-            const T* wrow = wtap + size_t(c) * O;
-#pragma unroll
-            for (int j = 0; j < kOutChunk; ++j)
-              if (o0 + j < O) acc[j] += v * to_acc(wrow[j]);
-          }
-        }
-      }
-      if (cc + 1 < n_chunks) {
-#pragma unroll
-        for (int j = 0; j < kOutChunk; ++j)
-          if (o0 + j < O) asm_[p * O + o0 + j] = acc[j];
-      } else {
-        T* dst = out_bk + (size_t(y0 + ty) * S + x) * O + o0;
-#pragma unroll
-        for (int j = 0; j < kOutChunk; ++j)
-          if (o0 + j < O) dst[j] = from_acc<T>(acc[j]);
-      }
-    }
-    if (cc + 1 < n_chunks) __syncthreads();
-  }
-}
-
-// Largest tile height in (8, 4, 2, 1) that lets two blocks share an SM, else
-// the largest that fits one block; 0 if none fits. `total(rows)` is the
-// block's shared memory for a tile height.
-template <typename F>
-int pick_rows(F total, size_t* bytes) {
-  const size_t two_per_sm = 113 * 1024, one_per_sm = 227 * 1024;
-  const size_t budgets[2] = {two_per_sm, one_per_sm};
-  for (size_t budget : budgets) {
-    for (int rows = 8; rows >= 1; rows /= 2) {
-      const size_t t = total(rows);
-      if (t <= budget) { *bytes = t; return rows; }
-    }
-  }
-  return 0;
-}
-
-// Channels a chunk of the scalar kernel takes when all of C does not fit.
-constexpr int kScalarChunk = 32;
-
-template <typename T>
-int launch(const void* feats, const void* wy, const void* wx, const void* weight,
-           const void* bias, void* out, int B, int H, int W, int C, int S, int K, int O,
-           cudaStream_t stream) {
-  using A = typename Acc<T>::type;
-  if (H > 32767 || W > 32767) return int(cudaErrorInvalidValue);
-  size_t bytes = 0;
-  int rows = 0, CC = C;   // all of C at once where it fits, else chunks
-  const int candidates[2] = {C, kScalarChunk};
-  for (const int cc : candidates) {
-    if (cc > C) break;
-    rows = pick_rows(
-        [&](int r) { return make_layout(r, H, W, cc, S, O, sizeof(T), sizeof(A), cc < C).total; }, &bytes);
-    CC = cc;
-    if (rows != 0) break;
-  }
-  if (rows == 0) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(part_crop_head_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(bytes));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((S + rows - 1) / rows, K, B);
-  part_crop_head_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(feats), static_cast<const T*>(wy), static_cast<const T*>(wx),
-      static_cast<const T*>(weight), static_cast<const T*>(bias), static_cast<T*>(out),
-      H, W, C, S, K, O, rows, CC);
-  return int(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the conv on the tensor cores.
@@ -1294,21 +1031,6 @@ int launch_f32(const void* feats, const void* wy, const void* wx, const void* wp
 }
 
 }  // namespace
-
-// The scalar kernel, f64 (dtype 2) and fp32 (dtype 0); weight is (K, 3, 3,
-// C, O). `fused_part_predict` calls it for f64 only; fp32 here is the
-// yardstick `chip_smoke.py` times the fp32 kernel against. Returns a
-// cudaError_t.
-extern "C" int part_crop_head(int dtype, const void* feats, const void* wy, const void* wx,
-                              const void* weight, const void* bias, void* out, int B, int H,
-                              int W, int C, int S, int K, int O, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch<float>(feats, wy, wx, weight, bias, out, B, H, W, C, S, K, O, st);
-    case 2: return launch<double>(feats, wy, wx, weight, bias, out, B, H, W, C, S, K, O, st);
-    default: return int(cudaErrorInvalidValue);
-  }
-}
 
 // The bf16 kernel's shared memory in bytes for tiles of `rows` rows and a
 // channel chunk of `chunk` (`kernels/part_crop_head.py::bf16_rows` reads it).

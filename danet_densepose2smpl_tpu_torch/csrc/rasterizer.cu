@@ -13,9 +13,8 @@
 // plain PyTorch version is matched bit for bit: the file is built with
 // -fmad=false and IEEE division, so nvcc contracts nothing, and the two
 // multiply-adds that XLA fuses in the JAX function are explicit fmaf calls
-// in fp32 (the edge function as fma(ex, dy, -(ey * dx)), the depth as
-// fma(b2, z2, fma(b0, z0, b1 * z1))); fp64 leaves them unfused, as the
-// plain version must.
+// (the edge function as fma(ex, dy, -(ey * dx)), the depth as
+// fma(b2, z2, fma(b0, z0, b1 * z1))).
 //
 // What bounds it on the H100. The TPU kernels test every pixel against every
 // face with matmuls. The work that is needed is smaller: a (pixel centre,
@@ -25,7 +24,7 @@
 // them per image, a closed mesh ~1e5; the bytes (vertices in, the image
 // out) take microseconds. So the bound is instruction issue on those pairs,
 // and the design makes them the unit of work, spread evenly over the SMs
-// whatever the faces' sizes (fp32, the route of every entry):
+// whatever the faces' sizes (in fp32, the kernel's one dtype):
 //   1. face_setup, one thread per (image, face slot): gathers the corners,
 //      scales them to out-map units, and writes the face's pixel-centre span
 //      (the columns and rows j with j + 0.5 inside its box, widened by a
@@ -65,14 +64,10 @@
 // (three IEEE divisions are ~30 of them), not the bound's 26 operations, so
 // on large faces it is bound by instruction issue at a few times the bound.
 //
-// fp64 (the tests and the f64 training step) runs the tile kernel,
-// raster_tiles: one block per (16x16 tile, image) streams the face records
-// through shared memory in id order, compacts those whose box meets the
-// tile, and keeps (z, rank) per pixel in registers. A 64-bit key cannot hold
-// an fp64 depth and a rank, and a two-pass atomic (depth bits, then rank)
-// would add a second pass for a dtype that no timed path uses. The tile
-// kernel also stays callable in fp32 (route 1), as the yardstick of the pair
-// kernel.
+// fp64 (the tests and the f64 training step) has no kernel: on the card each
+// entry runs its plain PyTorch version, as on the CPU. A 64-bit key cannot
+// hold an fp64 depth and a rank, and no served or timed path rasterizes in
+// fp64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,10 +75,6 @@
 namespace {
 
 constexpr int kSetupThreads = 256;
-constexpr int kTile = 16;
-constexpr int kTileThreads = kTile * kTile;   // one pixel a thread
-constexpr int kChunk = kTileThreads;          // faces staged per round, one a thread
-constexpr int kWarps = kTileThreads / 32;
 constexpr int kScanThreads = 1024;
 constexpr int kPairThreads = 256;
 constexpr int kMinBudget = 4096;              // the fewest consecutive pairs a block takes at a time
@@ -95,51 +86,26 @@ constexpr unsigned long long kEmptyKey = ~0ull;
 // Corner k's edge function is w_k = ex[k] * (py - ay[k]) - ey[k] * (px - ax[k])
 // with a = v[(k+1)%3], e = v[(k+2)%3] - a: w0 = edge(v1, v2), w1 = edge(v2, v0),
 // w2 = edge(v0, v1), as in rasterizer.py.
-template <typename T>
 struct FaceRecord {
-  T ax[3], ay[3], ex[3], ey[3], z[3], area;
+  float ax[3], ay[3], ex[3], ey[3], z[3], area;
 };
-static_assert(sizeof(FaceRecord<float>) == 16 * sizeof(float), "record layout");
-static_assert(sizeof(FaceRecord<double>) == 16 * sizeof(double), "record layout");
-
-template <typename T>
-__device__ __forceinline__ T absval(T x) { return x < T(0) ? -x : x; }
-
-// a * b + c: one rounding in fp32, two in fp64 (see the note at the top)
-__device__ __forceinline__ float madd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double madd(double a, double b, double c) {
-  return __dadd_rn(__dmul_rn(a, b), c);
-}
 
 // The least depth of the face at pixel centre (px, py), or 0 when the centre
 // is outside the face (0 fails the caller's z > 1e-6 test).
-template <typename T>
-__device__ __forceinline__ T face_depth(const FaceRecord<T>& r, T px, T py) {
-  const T w0 = madd(r.ex[0], py - r.ay[0], -(r.ey[0] * (px - r.ax[0])));
-  const T w1 = madd(r.ex[1], py - r.ay[1], -(r.ey[1] * (px - r.ax[1])));
-  const T w2 = madd(r.ex[2], py - r.ay[2], -(r.ey[2] * (px - r.ax[2])));
-  const T sgn = r.area > T(0) ? T(1) : (r.area < T(0) ? T(-1) : T(0));
-  if (!(w0 * sgn >= T(0) && w1 * sgn >= T(0) && w2 * sgn >= T(0))) return T(0);
-  const T b0 = w0 / r.area, b1 = w1 / r.area, b2 = w2 / r.area;
-  return madd(b2, r.z[2], madd(b0, r.z[0], b1 * r.z[1]));
+__device__ __forceinline__ float face_depth(const FaceRecord& r, float px, float py) {
+  const float w0 = __fmaf_rn(r.ex[0], py - r.ay[0], -(r.ey[0] * (px - r.ax[0])));
+  const float w1 = __fmaf_rn(r.ex[1], py - r.ay[1], -(r.ey[1] * (px - r.ax[1])));
+  const float w2 = __fmaf_rn(r.ex[2], py - r.ay[2], -(r.ey[2] * (px - r.ax[2])));
+  const float sgn = r.area > 0.0f ? 1.0f : (r.area < 0.0f ? -1.0f : 0.0f);
+  if (!(w0 * sgn >= 0.0f && w1 * sgn >= 0.0f && w2 * sgn >= 0.0f)) return 0.0f;
+  const float b0 = w0 / r.area, b1 = w1 / r.area, b2 = w2 / r.area;
+  return __fmaf_rn(b2, r.z[2], __fmaf_rn(b0, r.z[0], b1 * r.z[1]));
 }
-
-// fp32 records are 64 bytes: four 16-byte stores (the struct's alignment
-// alone would give sixteen 4-byte ones)
-__device__ __forceinline__ void store_record(FaceRecord<float>* p, const FaceRecord<float>& r) {
-  float4* q = reinterpret_cast<float4*>(p);
-  q[0] = make_float4(r.ax[0], r.ax[1], r.ax[2], r.ay[0]);
-  q[1] = make_float4(r.ay[1], r.ay[2], r.ex[0], r.ex[1]);
-  q[2] = make_float4(r.ex[2], r.ey[0], r.ey[1], r.ey[2]);
-  q[3] = make_float4(r.z[0], r.z[1], r.z[2], r.area);
-}
-__device__ __forceinline__ void store_record(FaceRecord<double>* p, const FaceRecord<double>& r) { *p = r; }
 
 // Face f's corners in image b, in out-map units (x, y) and depth (z).
-template <typename T>
-__device__ __forceinline__ void gather_face(const T* __restrict__ verts, const int* __restrict__ faces, int V, int b,
-                                            int f, T scale, T* x, T* y, T* z) {
-  const T* vb = verts + (long long)b * V * 3;
+__device__ __forceinline__ void gather_face(const float* __restrict__ verts, const int* __restrict__ faces, int V,
+                                            int b, int f, float scale, float* x, float* y, float* z) {
+  const float* vb = verts + (long long)b * V * 3;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int vi = faces[f * 3 + k];
@@ -149,9 +115,8 @@ __device__ __forceinline__ void gather_face(const T* __restrict__ verts, const i
   }
 }
 
-template <typename T>
-__device__ __forceinline__ FaceRecord<T> make_record(const T* x, const T* y, const T* z) {
-  FaceRecord<T> r;
+__device__ __forceinline__ FaceRecord make_record(const float* x, const float* y, const float* z) {
+  FaceRecord r;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int a = (k + 1) % 3, c = (k + 2) % 3;
@@ -165,50 +130,43 @@ __device__ __forceinline__ FaceRecord<T> make_record(const T* x, const T* y, con
   return r;
 }
 
-// One block per (kSetupThreads faces, image), one face a thread. The tile
-// route gets the record and the float4 box; the pair route the span, rank
-// and pair count (its kernel rebuilds a record from the vertices, which
-// costs less than writing 64 bytes a face and reading them back).
-template <typename T>
+// One block per (kSetupThreads faces, image), one face a thread: the face's
+// span, rank and pair count (raster_pairs rebuilds a record from the
+// vertices, which costs less than writing 64 bytes a face and reading them
+// back).
 __global__ void __launch_bounds__(kSetupThreads)
-face_setup(const T* __restrict__ verts, const int* __restrict__ faces, const uint8_t* __restrict__ skip, int V,
-           int F, int S, T scale, FaceRecord<T>* __restrict__ rec, float4* __restrict__ box,
-           int4* __restrict__ span, long long* __restrict__ count) {
+face_setup(const float* __restrict__ verts, const int* __restrict__ faces, const uint8_t* __restrict__ skip, int V,
+           int F, int S, float scale, int4* __restrict__ span, long long* __restrict__ count) {
   const int b = blockIdx.y;
   const int f = blockIdx.x * kSetupThreads + threadIdx.x;
   if (f >= F) return;
   const long long i = (long long)b * F + f;
-  T x[3], y[3], z[3];
+  float x[3], y[3], z[3];
   gather_face(verts, faces, V, b, f, scale, x, y, z);
-  const FaceRecord<T> r = make_record(x, y, z);
-  const T area = r.area;
+  const float area = make_record(x, y, z).area;
   const int code = skip != nullptr ? skip[i] : 0;
-  const bool valid = absval(area) > T(1e-12) && z[0] > T(0) && z[1] > T(0) && z[2] > T(0) && !(code & 1);
-  if (rec != nullptr) store_record(rec + i, r);
+  const bool valid = fabsf(area) > 1e-12f && z[0] > 0.0f && z[1] > 0.0f && z[2] > 0.0f && !(code & 1);
   float4 bx = make_float4(kEmpty, -kEmpty, kEmpty, -kEmpty);   // (xmin, xmax, ymin, ymax)
   if (valid) {
-    bx.x = (float)fmin(fmin((double)x[0], (double)x[1]), (double)x[2]) - 1.0f;
-    bx.y = (float)fmax(fmax((double)x[0], (double)x[1]), (double)x[2]) + 1.0f;
-    bx.z = (float)fmin(fmin((double)y[0], (double)y[1]), (double)y[2]) - 1.0f;
-    bx.w = (float)fmax(fmax((double)y[0], (double)y[1]), (double)y[2]) + 1.0f;
+    bx.x = fminf(fminf(x[0], x[1]), x[2]) - 1.0f;
+    bx.y = fmaxf(fmaxf(x[0], x[1]), x[2]) + 1.0f;
+    bx.z = fminf(fminf(y[0], y[1]), y[2]) - 1.0f;
+    bx.w = fmaxf(fmaxf(y[0], y[1]), y[2]) + 1.0f;
   }
-  if (box != nullptr) box[i] = bx;
-  if (span != nullptr) {
-    // centres j + 0.5 in [lo, hi]: j from ceil(lo - 0.5) to floor(hi - 0.5),
-    // clamped to [0, S) (kernels/rasterizer.py::pixel_spans mirrors this)
-    const float fs = (float)S;
-    const int x0 = (int)fminf(fmaxf(ceilf(bx.x - 0.5f), 0.0f), fs);
-    const int x1 = (int)fminf(fmaxf(floorf(bx.y - 0.5f) + 1.0f, 0.0f), fs);
-    const int y0 = (int)fminf(fmaxf(ceilf(bx.z - 0.5f), 0.0f), fs);
-    const int y1 = (int)fminf(fmaxf(floorf(bx.w - 0.5f) + 1.0f, 0.0f), fs);
-    const int w = max(x1 - x0, 0), h = max(y1 - y0, 0);
-    const int dr = w > 0 ? 32 / w : 0, dc = w > 0 ? 32 % w : 0;
-    const int rank = (code & 2) ? f + F : f;
-    // (x0 | y0 << 16, w | (32 / w) << 16 | (32 % w) << 24, rank, the z-buffer
-    // index of pixel (y0, x0)); S < 2^15 and (B+1)*S*S < 2^31
-    span[i] = make_int4(x0 | y0 << 16, w | dr << 16 | dc << 24, rank, (b * S + y0) * S + x0);
-    count[i] = (long long)w * h;
-  }
+  // centres j + 0.5 in [lo, hi]: j from ceil(lo - 0.5) to floor(hi - 0.5),
+  // clamped to [0, S) (kernels/rasterizer.py::pixel_spans mirrors this)
+  const float fs = (float)S;
+  const int x0 = (int)fminf(fmaxf(ceilf(bx.x - 0.5f), 0.0f), fs);
+  const int x1 = (int)fminf(fmaxf(floorf(bx.y - 0.5f) + 1.0f, 0.0f), fs);
+  const int y0 = (int)fminf(fmaxf(ceilf(bx.z - 0.5f), 0.0f), fs);
+  const int y1 = (int)fminf(fmaxf(floorf(bx.w - 0.5f) + 1.0f, 0.0f), fs);
+  const int w = max(x1 - x0, 0), h = max(y1 - y0, 0);
+  const int dr = w > 0 ? 32 / w : 0, dc = w > 0 ? 32 % w : 0;
+  const int rank = (code & 2) ? f + F : f;
+  // (x0 | y0 << 16, w | (32 / w) << 16 | (32 % w) << 24, rank, the z-buffer
+  // index of pixel (y0, x0)); S < 2^15 and (B+1)*S*S < 2^31
+  span[i] = make_int4(x0 | y0 << 16, w | dr << 16 | dc << 24, rank, (b * S + y0) * S + x0);
+  count[i] = (long long)w * h;
 }
 
 // One block per row of `off` (F values each): the row becomes its exclusive
@@ -269,7 +227,7 @@ __device__ __forceinline__ void walk_pairs(const float* __restrict__ verts, cons
     const int4 sp = __ldg(span + slot);   // see face_setup for the packing
     float x[3], y[3], z[3];
     gather_face(verts, faces, V, slot / F, sp.z >= F ? sp.z - F : sp.z, scale, x, y, z);
-    const FaceRecord<float> r = make_record(x, y, z);
+    const FaceRecord r = make_record(x, y, z);
     const int x0 = sp.x & 0xffff, y0 = sp.x >> 16, w = sp.y & 0xffff;
     const int dr = (sp.y >> 16) & 0xff, dc = sp.y >> 24;   // the step of 32 pairs: dr rows, dc columns
     const int q = (int)(p - soff[j]);
@@ -385,92 +343,11 @@ resolve(const unsigned long long* __restrict__ zbuf, const float* __restrict__ t
   for (int c = 0; c < C; ++c) o[c] = tex[(long long)rank * C + c];
 }
 
-// The tile kernel (fp64's route, and fp32's yardstick): one block per
-// (16x16-pixel tile, image), one pixel a thread, (zbest, rank) in registers.
-// Faces stream through shared memory in chunks of 256 slots; each thread
-// tests one face's box against the tile, and a warp ballot plus a block
-// prefix sum compacts the survivors in order. Face f is ranked by its `skip`
-// code.
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-raster_tiles(const FaceRecord<T>* __restrict__ rec, const float4* __restrict__ box,
-             const uint8_t* __restrict__ skip, const T* __restrict__ tex, int F, int S, int C,
-             T* __restrict__ out) {
-  __shared__ FaceRecord<T> srec[kChunk];
-  __shared__ int sid[kChunk];
-  __shared__ int wcount[kWarps];
-
-  const int b = blockIdx.y;
-  const int tiles_x = (S + kTile - 1) / kTile;
-  const int tx0 = (blockIdx.x % tiles_x) * kTile, ty0 = (blockIdx.x / tiles_x) * kTile;
-  const int col = tx0 + threadIdx.x % kTile, row = ty0 + threadIdx.x / kTile;
-  const T px = T(col) + T(0.5), py = T(row) + T(0.5);
-  // pixel centres of the tile lie in [t0 + 0.5, t0 + kTile - 0.5]; the face
-  // boxes carry a one-pixel margin, so the test is conservative
-  const float xlo = (float)tx0, xhi = (float)(tx0 + kTile);
-  const float ylo = (float)ty0, yhi = (float)(ty0 + kTile);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long fbase = (long long)b * F;
-
-  T zbest = T(1e9);
-  int best = -1;   // rank of the nearest face so far
-  for (int base = 0; base < F; base += kChunk) {
-    const int f = base + threadIdx.x;
-    bool hit = false;
-    if (f < F) {
-      const float4 bx = box[fbase + f];
-      hit = bx.y >= xlo && bx.x <= xhi && bx.w >= ylo && bx.z <= yhi;
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) wcount[warp] = __popc(m);
-    __syncthreads();
-    int off = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = wcount[w];
-      off += w < warp ? c : 0;
-      total += c;
-    }
-    if (hit) {
-      const int pos = off + __popc(m & ((1u << lane) - 1u));
-      srec[pos] = rec[fbase + f];
-      sid[pos] = (skip != nullptr && (skip[fbase + f] & 2)) ? f + F : f;
-    }
-    __syncthreads();
-    for (int i = 0; i < total; ++i) {
-      const T zpix = face_depth(srec[i], px, py);
-      const int rank = sid[i];
-      if (zpix > T(1e-6) && (zpix < zbest || (zpix == zbest && best >= 0 && rank < best))) {
-        zbest = zpix;
-        best = rank;
-      }
-    }
-    __syncthreads();
-  }
-  if (best >= F) best -= F;
-  if (row < S && col < S) {
-    T* o = out + (((long long)b * S + row) * S + col) * C;
-    for (int c = 0; c < C; ++c) o[c] = best >= 0 ? tex[(long long)best * C + c] : T(0);
-  }
-}
-
 #define RETURN_IF_FAILED()                          \
   do {                                              \
     const cudaError_t e = cudaGetLastError();       \
     if (e != cudaSuccess) return (int)e;            \
   } while (0)
-
-template <typename T>
-int launch_tiles(const T* verts, const int* faces, const T* tex, const uint8_t* skip, int B, int V, int F, int S,
-                 int C, T scale, FaceRecord<T>* rec, float4* box, T* out, cudaStream_t st) {
-  face_setup<T><<<dim3((F + kSetupThreads - 1) / kSetupThreads, B), kSetupThreads, 0, st>>>(
-      verts, faces, skip, V, F, S, scale, rec, box, nullptr, nullptr);
-  RETURN_IF_FAILED();
-  const int tiles = ((S + kTile - 1) / kTile) * ((S + kTile - 1) / kTile);
-  raster_tiles<T><<<dim3(tiles, B), kTileThreads, 0, st>>>(rec, box, skip, tex, F, S, C, out);
-  RETURN_IF_FAILED();
-  return 0;
-}
 
 int launch_pairs(const float* verts, const int* faces, const float* tex, const uint8_t* skip, int B, int V, int F,
                  int S, int C, float scale, int4* span, long long* off, long long* totals, unsigned long long* zbuf,
@@ -479,8 +356,7 @@ int launch_pairs(const float* verts, const int* faces, const float* tex, const u
   cudaError_t e = cudaMemsetAsync(zbuf, 0xff, (size_t)n_pix * sizeof(unsigned long long), st);   // kEmptyKey
   if (e != cudaSuccess) return (int)e;
   const dim3 per_face((F + kSetupThreads - 1) / kSetupThreads, B);
-  face_setup<float><<<per_face, kSetupThreads, 0, st>>>(verts, faces, skip, V, F, S, scale, nullptr, nullptr, span,
-                                                        off);
+  face_setup<<<per_face, kSetupThreads, 0, st>>>(verts, faces, skip, V, F, S, scale, span, off);
   RETURN_IF_FAILED();
   scan_counts<<<B, kScanThreads, 0, st>>>(off, F, totals);
   RETURN_IF_FAILED();
@@ -501,35 +377,20 @@ int launch_pairs(const float* verts, const int* faces, const float* tex, const u
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64. route: 0 = the pair kernel (float32
-// only), 1 = the tile kernel. verts (B, V, 3); faces (F, 3) int32; tex
-// (F, C); skip (B, F) uint8 codes or null (bit 0: the face takes no part;
-// bit 1: it loses exact-z ties to every face without bit 1);
-// scale = S / orig_size; 2F, B*F and (B+1)*S*S < 2^31, S < 2^15. Scratch:
-// slot B*F*16 bytes (a box or a span per face); for route 1 rec, B*F*16
-// values of the dtype; for route 0 off B*F int64, totals B+1 int64
-// (totals[B] = the pairs enumerated) and zbuf B*S*S uint64. out (B, S, S, C). Launches on
-// `stream`, allocates nothing, never synchronizes; returns the first CUDA
-// error, or 0.
-extern "C" int rasterize_flat(int dtype, int route, const void* verts, const void* faces, const void* tex,
-                              const void* skip, int B, int V, int F, int S, int C, double scale, void* rec,
-                              void* slot, void* off, void* totals, void* zbuf, void* out, void* stream) {
-  const int* f = static_cast<const int*>(faces);
-  const uint8_t* m = static_cast<const uint8_t*>(skip);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// verts (B, V, 3) float32; faces (F, 3) int32; tex (F, C) float32; skip
+// (B, F) uint8 codes or null (bit 0: the face takes no part; bit 1: it loses
+// exact-z ties to every face without bit 1); scale = S / orig_size; 2F, B*F
+// and (B+1)*S*S < 2^31, S < 2^15. Scratch: span B*F int4, off B*F int64,
+// totals B+1 int64 (totals[B] = the pairs enumerated) and zbuf B*S*S uint64.
+// out (B, S, S, C) float32. Launches on `stream`, allocates nothing, never
+// synchronizes; returns the first CUDA error, or 0.
+extern "C" int rasterize_flat(const void* verts, const void* faces, const void* tex, const void* skip, int B, int V,
+                              int F, int S, int C, double scale, void* span, void* off, void* totals, void* zbuf,
+                              void* out, void* stream) {
   if (B <= 0 || F <= 0 || S <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && route == 0)
-    return launch_pairs(static_cast<const float*>(verts), f, static_cast<const float*>(tex), m, B, V, F, S, C,
-                        (float)scale, static_cast<int4*>(slot),
-                        static_cast<long long*>(off), static_cast<long long*>(totals),
-                        static_cast<unsigned long long*>(zbuf), static_cast<float*>(out), st);
-  if (dtype == 0 && route == 1)
-    return launch_tiles<float>(static_cast<const float*>(verts), f, static_cast<const float*>(tex), m, B, V, F, S,
-                               C, (float)scale, static_cast<FaceRecord<float>*>(rec),
-                               static_cast<float4*>(slot), static_cast<float*>(out), st);
-  if (dtype == 1 && route == 1)
-    return launch_tiles<double>(static_cast<const double*>(verts), f, static_cast<const double*>(tex), m, B, V, F,
-                                S, C, scale, static_cast<FaceRecord<double>*>(rec), static_cast<float4*>(slot),
-                                static_cast<double*>(out), st);
-  return (int)cudaErrorInvalidValue;
+  return launch_pairs(static_cast<const float*>(verts), static_cast<const int*>(faces),
+                      static_cast<const float*>(tex), static_cast<const uint8_t*>(skip), B, V, F, S, C,
+                      (float)scale, static_cast<int4*>(span), static_cast<long long*>(off),
+                      static_cast<long long*>(totals), static_cast<unsigned long long*>(zbuf),
+                      static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }

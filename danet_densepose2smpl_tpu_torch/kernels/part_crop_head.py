@@ -5,9 +5,10 @@ Replaces the TPU kernel `danet_densepose2smpl_tpu/kernels/part_crop_head.py
 ::fused_part_predict` and keeps its contract. What bounds each kernel on the
 H100 and how its design answers is set out at the top of the CUDA source.
 
-`fused_part_predict` dispatches on the device of `feats`: a CPU tensor goes
-to the plain version, a CUDA tensor to a kernel, which launches or raises.
-On the card the dtype alone picks the kernel:
+`fused_part_predict` dispatches on the device and dtype of `feats`. A CPU
+tensor and an f64 one go to the plain version, the tests' precision running
+the same code on every device. A bf16 or fp32 CUDA tensor goes to its kernel,
+which launches or raises; any other dtype on the card raises:
 
 - bf16 runs the conv on the tensor cores in bf16, taking the channels in
   chunks of 16 or 32 with the tile rows and chunk `bf16_plan` picks, from
@@ -18,13 +19,12 @@ On the card the dtype alone picks the kernel:
   `pack_head_weights(..., split=True)`. The conv is bound by its operations
   (1.82e9 * C FLOP at B=64: 1.30 ms at C=48 on the CUDA cores' 67 TFLOP/s,
   0.53 ms as three TF32 passes at 495); three passes keep fp32's accuracy,
-  since each product is off by about 2^-21 of itself against a 1e-4 bar;
-- f64 (the tests) runs the scalar kernel, which takes all of C where it
-  fits its shared memory, else chunks of 32.
+  since each product is off by about 2^-21 of itself against a 1e-4 bar.
 
-`fused_part_predict.launches` counts kernel launches. The kernels have no backward (nor had the TPU kernel), so on
-every device the result carries a `grad_fn` whose backward raises: a
-gradient is never dropped silently.
+`fused_part_predict.launches` counts the two kernels' launches. The kernels
+have no backward (nor had the TPU kernel), so on every device and in every
+dtype the result carries a `grad_fn` whose backward raises: a gradient is
+never dropped silently.
 """
 
 from __future__ import annotations
@@ -37,8 +37,7 @@ import torch.nn.functional as F
 
 from danet_densepose2smpl_tpu_torch.kernels.build import build
 
-_SCALAR_DTYPE_CODE = {torch.float32: 0, torch.float64: 2}   # the scalar kernel's C entry codes
-KERNEL_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 MMA_DEPTH = 16   # the bf16 kernel pads C to this (mma.sync m16n8k16)
 TF32_DEPTH = 8   # the fp32 kernel pads C to this (mma.sync m16n8k8, TF32)
 MMA_WIDTH = 24   # and O to a multiple of this (three n8 tiles a GEMM pass)
@@ -121,11 +120,10 @@ def load_library():
     """Build (at first use) and load the kernel library. Returns
     (library, compiler report)."""
     lib, log = build("part_crop_head.cu")
-    lib.part_crop_head.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.part_crop_head_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.part_crop_head_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.part_crop_head_bf16_bytes.argtypes = lib.part_crop_head_f32_bytes.argtypes = [ctypes.c_int] * 5
-    lib.part_crop_head.restype = lib.part_crop_head_bf16.restype = lib.part_crop_head_f32.restype = ctypes.c_int
+    lib.part_crop_head_bf16.restype = lib.part_crop_head_f32.restype = ctypes.c_int
     lib.part_crop_head_bf16_bytes.restype = lib.part_crop_head_f32_bytes.restype = ctypes.c_longlong
     return lib, log
 
@@ -246,7 +244,7 @@ class _ForwardOnly(torch.autograd.Function):
     def backward(ctx, grad_out):
         raise NotImplementedError(
             "fused_part_predict has no backward: train through the separable crop + grouped "
-            "conv, or decide on a K1 backward by measuring (ROADMAP.md queue 2)")
+            "conv, or decide on a K1 backward by measuring (ROADMAP.md item 32)")
 
 
 def fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Tensor:
@@ -262,7 +260,7 @@ def fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Tens
 
 
 def _fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Tensor:
-    if feats.device.type == "cpu":
+    if feats.device.type == "cpu" or feats.dtype == torch.float64:
         return part_crop_head_plain(feats, wy, wx, kernel, bias, out_size)
     if feats.device.type != "cuda":
         raise ValueError(f"fused_part_predict: no kernel for device {feats.device}")
@@ -278,15 +276,11 @@ def _fused_part_predict(feats, wy, wx, kernel, bias, out_size: int) -> torch.Ten
             wpack = pack_head_weights(kernel, k, chunk)
             err = lib.part_crop_head_bf16(*ptrs, wpack.data_ptr(), bias.data_ptr(), out.data_ptr(),
                                           b, h, w, c, s, k, o, rows, chunk, stream)
-        elif feats.dtype == torch.float32:
+        else:
             rows, chunk = f32_plan(h, w, c, s, o)
             wpack = pack_head_weights(kernel, k, chunk, split=True)
             err = lib.part_crop_head_f32(*ptrs, wpack.data_ptr(), bias.data_ptr(), out.data_ptr(),
                                          b, h, w, c, s, k, o, rows, chunk, stream)
-        else:   # f64: the scalar kernel
-            kern = kernel.reshape(3, 3, c, k, o).permute(3, 0, 1, 2, 4).contiguous()  # (K,3,3,C,O)
-            err = lib.part_crop_head(_SCALAR_DTYPE_CODE[torch.float64], *ptrs, kern.data_ptr(), bias.data_ptr(),
-                                     out.data_ptr(), b, h, w, c, s, k, o, stream)
     if err != 0:
         raise RuntimeError(f"part_crop_head kernel launch failed: cudaError {err}")
     fused_part_predict.launches += 1

@@ -19,12 +19,13 @@ One hand-written kernel file serves four entry points, one per JAX function:
 `render_shaded` (the demo's and the training vis's shaded mesh) calls
 `rasterize_flat` once per image with a 1-channel face texture.
 
-Each dispatches on the device of `verts_px`: a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel, which launches or raises. In fp32 the
-kernel's unit of work is the (pixel centre, face) pair inside the face's
-`pixel_spans`, spread evenly over the card, and the nearest face wins a
-64-bit `atomicMin` of `depth_key`; fp64 runs the tile kernel (see the
-header of `csrc/rasterizer.cu`). The port
+Each dispatches on the device and dtype of `verts_px` (`_kernel_takes`): an
+fp32 CUDA tensor goes to the kernel, which launches or raises; a CPU tensor
+and an fp64 one go to the entry's plain version, the tests' precision
+running the same code on every device. The kernel's unit of work is the
+(pixel centre, face) pair inside the face's `pixel_spans`, spread evenly
+over the card, and the nearest face wins a 64-bit `atomicMin` of
+`depth_key` (see the header of `csrc/rasterizer.cu`). The port
 holds every entry to K5's formulas (`rasterize_flat`, `rasterizer.py:82-151`):
 K2/K4 evaluate affine edge coefficients and z = za * inv_area, which round
 differently on a few pixels in 10^4. Ties in z resolve to the lowest face
@@ -37,8 +38,8 @@ fma(b2, z2, fma(b0, z0, b1 * z1)). The plain version computes those two
 fused multiply-adds exactly (an fp32 product is exact in fp64) and the
 kernel calls fmaf at the same places; without them a few pixels in 10^5,
 where two faces' depths lie within an ulp, would pick the other face.
-In fp64 there is no wider type to fuse in, so both compute the unfused
-expression.
+In fp64 there is no wider type to fuse in, so the plain version computes
+the unfused expression.
 
 Geometry: pixel (row i, col j) of the S-out map has centre (j + 0.5,
 i + 0.5) in out-map units; x_out = x_pixel_orig * S / orig. The inside test
@@ -62,11 +63,7 @@ from danet_densepose2smpl_tpu_torch.smpl.densepose_atlas import DensePoseAtlas, 
 _BIG = 1e9
 _EMPTY = 1e30                     # the empty box's sentinel extent
 _EMPTY_KEY = 2 ** 63 - 1          # the emulation's empty key, above every depth_key (the kernel's is all ones, unsigned)
-_TILE = 16                        # the banded plain version's tile (kTile in csrc/rasterizer.cu)
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
-_ROUTE_CODE = {"pairs": 0, "tiles": 1}
-_FACE_RECORD_VALUES = 16          # FaceRecord<T> in csrc/rasterizer.cu
-_SLOT_BYTES = 16                  # a float4 box (tile route) or an int4 span (pair route) per face
+_TILE = 16                        # the banded plain version's tile of pixels (K3's)
 
 
 # ---------------------------------------------------------------------------
@@ -326,8 +323,8 @@ def rasterize_flat_banded_plain(verts_px, faces, face_tex, out_size: int, orig_s
     """Plain version of `rasterize_flat_banded`, with the kernel's skipping.
 
     Faces in `band_setup` order are cut into chunks of `chunk`; each chunk's
-    extent is the union of its `face_boxes`. Each 16x16 tile of pixels (the
-    kernel's tile; 16 rows are a band) scans only the chunks whose extent
+    extent is the union of its `face_boxes`. Each 16x16 tile of pixels (K3's
+    tile; 16 rows are a band) scans only the chunks whose extent
     meets the tile, and keeps the least (z, face id). A face that covers a
     pixel centre of the tile has a box, and so a chunk, that meets it: the
     output equals `rasterize_flat_plain`'s exactly."""
@@ -380,34 +377,30 @@ def load_library():
     # no contracted products (and IEEE division, nvcc's default): every
     # rounding where the plain version has it
     lib, log = build("rasterizer.cu", ("-fmad=false",))
-    lib.rasterize_flat.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                                   + [ctypes.c_double] + [ctypes.c_void_p] * 7)
+    lib.rasterize_flat.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_double]
+                                   + [ctypes.c_void_p] * 6)
     lib.rasterize_flat.restype = ctypes.c_int
     return lib, log
 
 
-def _check_device(name, verts_px):
+def _kernel_takes(name, verts_px) -> bool:
+    """Whether an entry runs the kernel: for an fp32 CUDA tensor. A CPU
+    tensor and an fp64 one run the entry's plain version; another dtype on
+    the card, or another device, raises."""
     if verts_px.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {verts_px.device}")
-    return verts_px.device.type == "cuda"
+    return verts_px.is_cuda and verts_px.dtype != torch.float64
 
 
 def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=None, ties_last=None,
-            route=None, with_pairs=False):
-    """Run csrc/rasterizer.cu on CUDA tensors. `route` is 'pairs' (fp32)
-    or 'tiles'; None takes the dtype's route ('pairs' for fp32, 'tiles' for
-    fp64), as every entry does: 'tiles' in fp32 is a yardstick for
-    measurements. Returns (B, S, S, C) in face_tex's dtype, and with
-    `with_pairs` also a (1,) int64 device tensor, the pairs the pair route
-    enumerated (read it after the call: nothing here synchronizes)."""
+            with_pairs=False):
+    """Run csrc/rasterizer.cu on fp32 CUDA tensors. Returns (B, S, S, C) in
+    face_tex's dtype, and with `with_pairs` also a (1,) int64 device tensor,
+    the pairs the kernel enumerated (read it after the call: nothing here
+    synchronizes)."""
     dt = verts_px.dtype
-    if dt not in _DTYPE_CODE:
+    if dt != torch.float32:
         raise TypeError(f"rasterizer kernel: unsupported dtype {dt}")
-    route = route or ("pairs" if dt == torch.float32 else "tiles")
-    if route not in _ROUTE_CODE or (route == "pairs" and dt != torch.float32):
-        raise ValueError(f"rasterizer kernel: no route '{route}' for {dt}")
-    if with_pairs and route != "pairs":
-        raise ValueError("rasterizer kernel: only the pair route counts pairs")
     if verts_px.dim() != 3 or verts_px.shape[-1] != 3:
         raise ValueError(f"rasterizer kernel: verts_px must be (B, V, 3), got {tuple(verts_px.shape)}")
     if faces.dim() != 2 or faces.shape[1] != 3 or face_tex.dim() != 2 \
@@ -437,31 +430,25 @@ def _launch(verts_px, faces, face_tex, out_size: int, orig_size: float, skip=Non
             codes |= skip.to(torch.uint8)
         if ties_last is not None:
             codes |= ties_last.to(torch.uint8) << 1
-    # scratch: a box and a record (tile route) or a span (pair route) per
-    # (image, face); for the pair route also the offsets, the totals and the
-    # z-buffer
-    itemsize = verts_px.element_size()
-    records = (torch.empty(b * n_faces * _FACE_RECORD_VALUES * itemsize, dtype=torch.uint8, device=dev)
-               if route == "tiles" else None)
-    slots = torch.empty(b * n_faces * _SLOT_BYTES, dtype=torch.uint8, device=dev)
-    pairs_scratch = (torch.empty(b * n_faces, dtype=torch.int64, device=dev),
-                     torch.empty(b + 1, dtype=torch.int64, device=dev),
-                     torch.empty(b * out_size * out_size, dtype=torch.int64, device=dev)) if route == "pairs" else ()
-    offsets, totals, zbuf = (t.data_ptr() for t in pairs_scratch) if pairs_scratch else (None,) * 3
+    # scratch: an int4 span and a pair offset per (image, face), the image
+    # totals and the z-buffer
+    spans = torch.empty((b * n_faces, 4), dtype=torch.int32, device=dev)
+    offsets = torch.empty(b * n_faces, dtype=torch.int64, device=dev)
+    totals = torch.empty(b + 1, dtype=torch.int64, device=dev)
+    zbuf = torch.empty(b * out_size * out_size, dtype=torch.int64, device=dev)
     out = torch.empty((b, out_size, out_size, c), dtype=dt, device=dev)
     lib, _ = load_library()
     with torch.cuda.device(dev):
         err = lib.rasterize_flat(
-            _DTYPE_CODE[dt], _ROUTE_CODE[route], verts_px.data_ptr(), faces32.data_ptr(), tex.data_ptr(),
+            verts_px.data_ptr(), faces32.data_ptr(), tex.data_ptr(),
             codes.data_ptr() if codes is not None else None, b, v, n_faces, out_size, c, out_size / orig_size,
-            records.data_ptr() if records is not None else None, slots.data_ptr(), offsets, totals, zbuf,
-            out.data_ptr(),
+            spans.data_ptr(), offsets.data_ptr(), totals.data_ptr(), zbuf.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"rasterizer kernel launch failed: cudaError {err}")
     if with_pairs:
-        return out.to(face_tex.dtype), pairs_scratch[1][b:]
+        return out.to(face_tex.dtype), totals[b:]
     return out.to(face_tex.dtype)
 
 
@@ -475,7 +462,7 @@ def rasterize_flat(verts_px, faces, face_tex, out_size: int, orig_size: float = 
     face_tex: (F, C). Returns (B, S, S, C) in face_tex's dtype, background
     0. `chunk` is the plain version's memory knob. Replaces K5's
     `rasterize_flat` and K2 `rasterize_flat_pallas`."""
-    if not _check_device("rasterize_flat", verts_px):
+    if not _kernel_takes("rasterize_flat", verts_px):
         return rasterize_flat_plain(verts_px, faces, face_tex, out_size, orig_size, chunk)
     out = _launch(verts_px, faces, face_tex, out_size, orig_size)
     rasterize_flat.launches += 1
@@ -488,7 +475,7 @@ def rasterize_flat_masked(verts_px, faces, face_tex, out_size: int, orig_size: f
     no part. Replaces K4 `rasterize_flat_pallas_bandrange(..., cull_mask)`.
     `ties_last` (B, F) bool marks faces that lose exact-z ties to every
     unmarked face (the culled entry's filler faces)."""
-    if not _check_device("rasterize_flat_masked", verts_px):
+    if not _kernel_takes("rasterize_flat_masked", verts_px):
         return rasterize_flat_plain(verts_px, faces, face_tex, out_size, orig_size, chunk, cull_mask,
                                     ties_last)
     out = _launch(verts_px, faces, face_tex, out_size, orig_size, cull_mask, ties_last)
@@ -504,7 +491,7 @@ def rasterize_flat_culled(verts_px, faces, face_tex, out_size: int, orig_size: f
     `IUVRenderer.live_fraction`). When the budget covers every face it is
     `rasterize_flat`, dead faces included. On the card: the kernel with
     `culled_face_sets`, through `rasterize_flat_masked`."""
-    if not _check_device("rasterize_flat_culled", verts_px):
+    if not _kernel_takes("rasterize_flat_culled", verts_px):
         return rasterize_flat_culled_plain(verts_px, faces, face_tex, out_size, orig_size,
                                            chunk, budget_frac)
     budget = cull_budget(faces.shape[0], chunk, budget_frac)
@@ -522,7 +509,7 @@ def rasterize_flat_banded(verts_px, faces, face_tex, out_size: int, orig_size: f
     pixels in each face's box, in any face order). The same output as
     `rasterize_flat`, bit for bit. `chunk` is the plain
     version's chunk of faces. Replaces K3 `rasterize_flat_pallas_banded`."""
-    if not _check_device("rasterize_flat_banded", verts_px):
+    if not _kernel_takes("rasterize_flat_banded", verts_px):
         return rasterize_flat_banded_plain(verts_px, faces, face_tex, out_size, orig_size, chunk)
     # the pair kernel's work does not depend on the order of the faces, and
     # on K3's y-order it measured no faster, before the sort's own time

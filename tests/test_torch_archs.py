@@ -361,12 +361,14 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [64, 72, 200, 256, 264])
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2), ("float64", 1e-10)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2), ("float64", 0.0)])
 def test_cuda_kernel_wide_channels_match_plain(rng, cuda_device, c, dtype, tol):
     """K1 on the card at the padded HRNet's C=64, the ResNet backbone's
     C=256 and at C=72, 200 and 264 (partial last chunks), B=1, S=56, fed by
     bilinear boxes and by dense interpolation matrices, against the plain
-    version; bf16 relative to max|ref|."""
+    version; bf16 relative to max|ref|. f64 runs the plain version on the
+    card, bit for bit, and launches nothing."""
+    launched = 0 if dtype == "float64" else 1
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     dt = getattr(torch, dtype)
     b, h, s, k, o = 1, 56, 56, 24, 21
@@ -383,8 +385,9 @@ def test_cuda_kernel_wide_channels_match_plain(rng, cuda_device, c, dtype, tol):
         before = fused_part_predict.launches
         got = fused_part_predict(feats, wy, wx, kern, bi, s)
         torch.cuda.synchronize()
-        assert fused_part_predict.launches == before + 1
+        assert fused_part_predict.launches == before + launched
         ref = part_crop_head_plain(feats, wy, wx, kern, bi, s)
+        assert launched or torch.equal(got, ref)
         err = (got.double() - ref.double()).abs().max().item()
         scale = ref.double().abs().max().item() if dtype == "bfloat16" else 1.0
         assert err <= tol * scale, (dtype, c, err, scale)

@@ -121,11 +121,13 @@ def test_partial_head_fused_entry_matches_grouped_conv(rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2), ("float64", 1e-10)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2), ("float64", 0.0)])
 def test_cuda_kernel_matches_plain(rng, cuda_device, dtype, tol):
     """The kernel against its plain version on the card, fed both by bilinear
     `_axis_weights` matrices and by random dense ones. bf16 is held relative
-    to max|ref|."""
+    to max|ref|. f64 has no kernel: on the card it runs the plain version,
+    bit for bit, and launches nothing."""
+    launched = 0 if dtype == "float64" else 1
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     dt = getattr(torch, dtype)
     feats, centers, scales, kernel, bias, s = _inputs(rng, b=2, h=56, w=56, c=48, s=56)
@@ -138,8 +140,9 @@ def test_cuda_kernel_matches_plain(rng, cuda_device, dtype, tol):
         before = fused_part_predict.launches
         got = fused_part_predict(f, wy_, wx_, kern, bi, s)
         torch.cuda.synchronize()
-        assert fused_part_predict.launches == before + 1
+        assert fused_part_predict.launches == before + launched
         ref = part_crop_head_plain(f, wy_, wx_, kern, bi, s)
+        assert launched or torch.equal(got, ref)
         err = (got.double() - ref.double()).abs().max().item()
         scale = ref.double().abs().max().item() if dtype == "bfloat16" else 1.0
         assert err <= tol * scale, (dtype, err, scale)
@@ -157,7 +160,7 @@ def test_backward_refuses_on_cpu(rng, requires):
     (f if requires == "feats" else k).requires_grad_(True)
     out = fused_part_predict(f, wy, wx, k, torch.from_numpy(bias), s)
     assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 32"):
         out.sum().backward()
     with torch.no_grad():
         assert not fused_part_predict(f, wy, wx, k, torch.from_numpy(bias), s).requires_grad

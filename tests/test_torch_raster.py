@@ -556,10 +556,15 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernel_matches_plain(cuda_device, dtype):
+    """Each entry on the card against its plain version. fp32 launches the
+    kernel; fp64 has none: each entry runs its plain version there, bit for
+    bit, and moves no launch counter."""
     vb, cam, faces, tex, vpx = _closed_fixture(2500, seed=0, b=3)
     v = _t(vpx).to(cuda_device, dtype)
     f, tx = _t(faces).long().to(cuda_device), _t(tex).to(cuda_device)
     mask = R.backface_mask(_t(vb).to(cuda_device, dtype), _t(cam).to(cuda_device, dtype), f)
+    entries = (R.rasterize_flat, R.rasterize_flat_masked)
+    before = sum(e.launches for e in entries)
     cases = [
         (R.rasterize_flat(v, f, tx, 56), R.rasterize_flat_plain(v, f, tx, 56)),
         (R.rasterize_flat_masked(v, f, tx, 56, cull_mask=mask),
@@ -568,16 +573,17 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
          R.rasterize_flat_culled_plain(v, f, tx, 56, 224.0, 256, 0.2)),
     ]
     torch.cuda.synchronize()
+    fp64 = dtype == torch.float64
+    assert sum(e.launches for e in entries) == before + (0 if fp64 else 3)
     for got, exp in cases:
-        assert _agree(got.cpu(), exp.cpu()) >= 1 - 1e-5
+        assert torch.equal(got, exp) if fp64 else _agree(got.cpu(), exp.cpu()) >= 1 - 1e-5
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["closed test mesh", "backface mask", "culled face sets", "random soup, S=40"])
-def test_cuda_pair_kernel_equals_tile_kernel(cuda_device, case):
-    """The fp32 pair kernel against the tile kernel (fp64's route) and the
-    plain version, bit for bit, and the pairs it enumerates against
-    `pixel_spans`."""
+def test_cuda_pair_kernel_equals_plain(cuda_device, case):
+    """The fp32 pair kernel against the plain version, bit for bit, and the
+    pairs it enumerates against `pixel_spans`."""
     vb, cam, faces, tex, vpx = _closed_fixture(2500, seed=0, b=3)
     v, f, t, s, kw = _t(vpx), _t(faces).long(), _t(tex), 56, {}
     if case == "backface mask":
@@ -590,10 +596,8 @@ def test_cuda_pair_kernel_equals_tile_kernel(cuda_device, case):
     v, f, t = v.to(cuda_device), f.to(cuda_device), t.to(cuda_device)
     kw = {k: m.to(cuda_device) for k, m in kw.items()}
     got, pairs = R._launch(v, f, t, s, 224.0, with_pairs=True, **kw)
-    tiles = R._launch(v, f, t, s, 224.0, route="tiles", **kw)
     torch.cuda.synchronize()
     plain = R.rasterize_flat_plain(v, f, t, s, 224.0, 256, kw.get("skip"), kw.get("ties_last"))
-    np.testing.assert_array_equal(got.cpu().numpy(), tiles.cpu().numpy())
     np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
     tri = v[:, f]
     _, count = R.pixel_spans(tri[..., :2] * (s / 224.0), tri[..., 2], s, kw.get("skip"))
@@ -605,16 +609,19 @@ def test_cuda_pair_kernel_equals_tile_kernel(cuda_device, case):
 def test_cuda_banded_kernel_matches_plain(cuda_device, dtype):
     """K3's kernel against its plain version and the rasterize_flat kernel:
     bit-equal, at S=224 and at S=40 (not a multiple of 16) with invalid
-    faces."""
+    faces. fp64 runs both entries' plain versions and launches nothing."""
     _, _, faces, tex, vpx = _closed_fixture(2500, seed=0, b=3)
     cases = [(_t(vpx), _t(faces).long(), _t(tex), 224, 224.0)]
     v, f, t = _soup(40, 2, 60, 700, 0.3, 40, n_invalid=9)
     cases.append((_t(v), _t(f).long(), _t(t), 40, 224.0))
+    launched = 0 if dtype == torch.float64 else 1
     for v, f, t, s, orig in cases:
         v, f, t = v.to(cuda_device, dtype), f.to(cuda_device), t.to(cuda_device)
+        before = (R.rasterize_flat_banded.launches, R.rasterize_flat.launches)
         got = R.rasterize_flat_banded(v, f, t, s, orig)
         flat = R.rasterize_flat(v, f, t, s, orig)
         torch.cuda.synchronize()
+        assert (R.rasterize_flat_banded.launches, R.rasterize_flat.launches) == tuple(n + launched for n in before)
         plain = R.rasterize_flat_banded_plain(v, f, t, s, orig, 256)
         np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
         np.testing.assert_array_equal(got.cpu().numpy(), flat.cpu().numpy())
