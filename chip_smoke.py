@@ -292,10 +292,16 @@ cameras frame body-sized silhouettes. In phases:
      and with residual (+ ReLU), B=64 fp32 without, each first checked
      against plain under (a)'s bars, beside its bytes bound at 3.35 TB/s
      and the plain route the model ran before (the module's BatchNorm, the
-     add, F.relu), and the host's us a call; (c) W48 requests of B=64 in
+     add, F.relu), and the host's us a call; the upsampling instance (HRNet's
+     fuse terms) at B=256 bf16, 28x28x48 and 7x7x48 into a 56x56x48 residual
+     with ReLU, against the route the model ran before it (`bn_act` at the
+     low resolution, `upsample_nearest2d`, the add, the ReLU) and its bound;
+     (a) checks it on every served fuse term (C, up) at the served batches
+     too; (c) W48 requests of B=64 in
      bf16 and fp32 with the kernel, with the plain route (`kernel_dtypes`
      refused), and with the plain route on images one ulp of the dtype
-     away: every BatchNorm takes the kernel (no plain count), and image by
+     away: every BatchNorm takes the kernel (no plain count; 28 up-fused
+     fuse terms a request, no up-plain one), and image by
      image the route moves para, vertices and joints at most twice as far
      as the ulp does (largest and median gap over the plain output's max).
 
@@ -3318,12 +3324,13 @@ def phase16_requests(dev, card, timing: dict) -> dict:
 
 BN_SOURCE = "danet_densepose2smpl_tpu_torch/csrc/bn_act.cu"
 BN_TIMED = ((256, torch.bfloat16, False), (256, torch.bfloat16, True), (64, torch.float32, False))   # at 56x56x48
+BN_UP_TIMED = (2, 8)   # the upsampling instance at B=256 bf16, x 28x28x48 and 7x7x48 into 56x56x48 (+ ReLU)
 
 
 def bn_act_calls(dev) -> set:
-    """(C, H, W, residual, ReLU) of every `bn_act` call that reaches the
-    kernel in one bf16 request (B=2) of HRNet-W48 and of
-    configs/danet_resnet.yaml."""
+    """(C, H, W, residual, ReLU, up) of every `bn_act` call that reaches
+    the kernel in one bf16 request (B=2) of HRNet-W48 and of
+    configs/danet_resnet.yaml; (H, W) are x's."""
     from danet_densepose2smpl_tpu_torch.config import load_config
     from danet_densepose2smpl_tpu_torch.kernels import bn_act
     from danet_densepose2smpl_tpu_torch.serve import Predictor
@@ -3331,9 +3338,9 @@ def bn_act_calls(dev) -> set:
     seen = set()
     launch = bn_act.launch
 
-    def recording(x, mean, var, weight, bias, eps, residual=None, relu=False):
-        seen.add((x.shape[1], *(tuple(x.shape[2:]) + (1, 1))[:2], residual is not None, relu))
-        return launch(x, mean, var, weight, bias, eps, residual, relu)
+    def recording(x, mean, var, weight, bias, eps, residual=None, relu=False, up=1):
+        seen.add((x.shape[1], *(tuple(x.shape[2:]) + (1, 1))[:2], residual is not None, relu, up))
+        return launch(x, mean, var, weight, bias, eps, residual, relu, up)
 
     images = torch.from_numpy(np.random.RandomState(3).rand(2, 224, 224, 3).astype(np.float32))
     bn_act.launch = recording
@@ -3387,15 +3394,17 @@ def host_us(fn, n=2000):
     return dt / n * 1e6
 
 
-def bn_act_error(x, r, stats, relu) -> float:
+def bn_act_error(x, r, stats, relu, up=1) -> float:
     """The kernel's largest gap from `bn_act_plain` over max|ref|."""
     from danet_densepose2smpl_tpu_torch.kernels.bn_act import bn_act_plain, launch
 
-    got = launch(x, *stats, 1e-5, r, relu)
-    ref = bn_act_plain(x, *stats, 1e-5, r, relu)
-    check(got.shape == ref.shape and got.dtype == x.dtype, "bn_act keeps x's shape and dtype")
-    check(got.stride() == x.stride() or not (x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last)),
-          "bn_act keeps x's layout")
+    got = launch(x, *stats, 1e-5, r, relu, up)
+    ref = bn_act_plain(x, *stats, 1e-5, r, relu, up)
+    like = x if up == 1 else r
+    check(got.shape == ref.shape == like.shape and got.dtype == x.dtype, "bn_act keeps x's shape and dtype")
+    check(got.stride() == like.stride()
+          or not (like.is_contiguous() or like.is_contiguous(memory_format=torch.channels_last)),
+          "bn_act keeps x's layout (the residual's with up > 1)")
     return ((got.double() - ref.double()).abs().max() / ref.double().abs().max().clamp_min(1e-30)).item()
 
 
@@ -3414,7 +3423,9 @@ def phase17_bn_act(dev, card) -> dict:
         line for line in log.splitlines() if "registers" in line or "spill" in line))
     # (a) every served shape, both dtypes and layouts, with and without residual and ReLU
     calls = bn_act_calls(dev)
-    shapes = sorted({(c, h, w) for c, h, w, _, _ in calls}) + [(21, 7, 5), (3, 5, 3), (12, 56, 56)]
+    shapes = sorted({(c, h, w) for c, h, w, _, _, _ in calls}) + [(21, 7, 5), (3, 5, 3), (12, 56, 56)]
+    fuse_terms = sorted({(c, h, w, relu, up) for c, h, w, _, relu, up in calls if up > 1})
+    check(len(fuse_terms) >= 6, f"the W48 request's upsampled fuse terms reach the kernel: {fuse_terms}")
     bars = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
     worst = {}
     with torch.no_grad():
@@ -3438,6 +3449,21 @@ def phase17_bn_act(dev, card) -> dict:
                     key = (str(dtype)[6:], b, c, h, w, "cl", res is not None, relu)
                     worst[key] = bn_act_error(x, res, stats, relu)
                 del x, r
+        # every served fuse term at the served batches, with and without ReLU, and at an odd batch
+        for i, (c, h, w, _, up) in enumerate(fuse_terms):
+            for b, dtype in ((SERVE_BIG_BATCH, torch.bfloat16), (SERVE_BATCH, torch.float32), (37, torch.bfloat16),
+                             (37, torch.float32)):
+                x, _, stats = bn_inputs(b, c, h, w, dtype, dev, seed=200 + i)
+                _, r, _ = bn_inputs(b, c, h * up, w * up, dtype, dev, seed=300 + i)
+                for relu in (False, True):
+                    worst[(str(dtype)[6:], b, c, h, w, f"up{up}", True, relu)] = bn_act_error(x, r, stats, relu, up)
+                del x, r
+        for dtype in bars:   # an unaligned view of the up=2 term of branch 0: the scalar upsampling instance
+            _, _, stats = bn_inputs(1, 48, 1, 1, dtype, dev, seed=96)
+            xs = torch.randn(3 * 28 * 28 * 48 + 1, device=dev).to(dtype)[1:].view(3, 28, 28, 48).permute(0, 3, 1, 2)
+            rs = torch.randn(3 * 56 * 56 * 48 + 1, device=dev).to(dtype)[1:].view(3, 56, 56, 48).permute(0, 3, 1, 2)
+            check(xs.data_ptr() % 16 != 0 and rs.is_contiguous(memory_format=torch.channels_last), "unaligned views")
+            worst[(str(dtype)[6:], 3, 48, 28, 28, "up2_unaligned", True, True)] = bn_act_error(xs, rs, stats, True, 2)
         for dtype in bars:   # an odd C over several strides, NCHW; a transposed view (copied to the kernel's layout)
             x, r, stats = bn_inputs(SERVE_BATCH, 21, 57, 55, dtype, dev, seed=98, channels_last=False)
             worst[(str(dtype)[6:], SERVE_BATCH, 21, 57, 55, "nchw", True, True)] = bn_act_error(x, r, stats, True)
@@ -3457,7 +3483,7 @@ def phase17_bn_act(dev, card) -> dict:
         print(f"phase 17: (a) bn_act {str(dtype)[6:]} vs plain, {len(cases)} cases over {len(shapes)} shapes: "
               f"largest gap over max|ref| {cases[top]!r} at {top} (bar {bar}); at served batches {big!r}")
         check(cases[top] <= bar, f"bn_act {dtype} vs plain: {cases[top]} at {top}")
-    print(f"phase 17: (a) the served calls (C, H, W, residual, ReLU): {sorted(calls)}")
+    print(f"phase 17: (a) the served calls (C, H, W of x, residual, ReLU, up): {sorted(calls)}")
 
     # (b) the kernel alone at the W48 branch-0 shape against its bound and the plain route
     timed = {}
@@ -3486,6 +3512,33 @@ def phase17_bn_act(dev, card) -> dict:
               f"({'BN, add, ReLU' if res else 'BN'}), bound {bound_ms!r} ms ({n_bytes} bytes at 3.35 TB/s): "
               f"{100 * bound_ms / ms['kernel']!r}% of HBM bandwidth (CUDA events, calls queued behind a spin, "
               f"medians of two turns of 20); against plain {err!r} of max|ref|; card {card}")
+        del x, r, stats, fns
+    # the upsampling instance against the route before it: `bn_act` at the low resolution, upsample, add, ReLU
+    for up in BN_UP_TIMED:
+        x, _, stats = bn_inputs(SERVE_BIG_BATCH, 48, 56 // up, 56 // up, torch.bfloat16, dev, seed=9)
+        _, r, _ = bn_inputs(SERVE_BIG_BATCH, 48, 56, 56, torch.bfloat16, dev, seed=10)
+        n_bytes = nbytes(x, r, r)
+        bound_ms, _ = bound(n_bytes, 0, "fp32")
+        fns = {"kernel": lambda: launch(x, *stats, 1e-5, r, True, up),
+               "plain": lambda: torch.relu(r + torch.nn.functional.interpolate(
+                   launch(x, *stats, 1e-5), scale_factor=float(up), mode="nearest"))}
+        times = {k: [] for k in fns}
+        with torch.no_grad():
+            err = bn_act_error(x, r, stats, True, up)
+            check(err <= bars[torch.bfloat16], f"bn_act up={up}: {err}")
+            gap = ((fns["kernel"]().double() - fns["plain"]().double()).abs().max() / r.double().abs().max()).item()
+            for name in ("kernel", "plain", "plain", "kernel"):
+                times[name].append(cuda_ms_queued(fns[name], 20))
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        key = f"B{SERVE_BIG_BATCH}_bfloat16_{56 // up}x{56 // up}x48_up{up}_residual_relu"
+        timed[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": "bytes",
+                      "share_of_bound": bound_ms / ms["kernel"], "bytes": n_bytes, "max_err": err,
+                      "gap_to_route_before": gap}
+        print(f"phase 17: (b) {key}: kernel {times['kernel']} ms, the route before (bn_act at the low resolution, "
+              f"upsample_nearest2d, add, ReLU) {times['plain']} ms, bound {bound_ms!r} ms ({n_bytes} bytes at "
+              f"3.35 TB/s): {100 * bound_ms / ms['kernel']!r}% of HBM bandwidth (CUDA events, calls queued behind a "
+              f"spin, medians of two turns of 20); against plain {err!r} of max|ref|, against the route before "
+              f"{gap!r} of max|r|; card {card}")
         del x, r, stats, fns
     torch.cuda.empty_cache()
     x, r, stats = bn_inputs(1, 48, 8, 8, torch.bfloat16, dev, seed=8)
@@ -3536,7 +3589,8 @@ def phase17_bn_act(dev, card) -> dict:
             gaps[name, k] = {r: (v.max().item(), v.median().item()) for r, v in per.items()}
         fused = counts[name, "fused"]
         check(launches[name, "plain"] == launches[name, "plain_ulp"] == 0
-              and launches[name, "fused"] == fused.get("bn_act.fused", 0) > 0 and "bn_act.plain" not in fused,
+              and launches[name, "fused"] == fused.get("bn_act.fused", 0) > 0 and "bn_act.plain" not in fused
+              and fused.get("bn_act.up_fused") == 28 and "bn_act.up_plain" not in fused,
               f"bn_act {name}: launches {launches}, counts {counts}")
         print(f"phase 17: (c) W48 {name} B={SERVE_BATCH} request: kernel launches {launches[name, 'fused']}, route "
               f"counts with the kernel {fused}, with it refused {counts[name, 'plain']}; card {card}")

@@ -4,7 +4,12 @@
     y = act((x - mean) * (rsqrt(var + eps) * weight) + bias [+ residual])
 
 in fp32, rounded once to x's dtype; bf16 statistics under fp32 x form the
-scale in bf16, as `nn.layers._eval_bn_promoted` does. The kernel replaces
+scale in bf16, as `nn.layers._eval_bn_promoted` does. With `up` = 2^k > 1
+(HRNet's fuse rows) x is the low-resolution term, read by nearest index:
+
+    y[n, c, h, w] = act(residual[n, c, h, w] + bn(x)[n, c, h >> k, w >> k])
+
+for channels-last x and residual (`takes_up`). The kernel replaces
 no TPU kernel (XLA fused these on the TPU); why it was added, what bounds
 it and its design are at the top of the CUDA source. `nn.layers.bn_act`
 decides when a BatchNorm takes it and calls `launch`, its one entry;
@@ -29,10 +34,12 @@ MAX_CHANNELS = 4096
 launches = 0   # the kernel's launches in this process
 
 
-def bn_act_plain(x, mean, var, weight, bias, eps: float, residual=None, relu: bool = False) -> torch.Tensor:
+def bn_act_plain(x, mean, var, weight, bias, eps: float, residual=None, relu: bool = False,
+                 up: int = 1) -> torch.Tensor:
     """The kernel's arithmetic: in (at least) fp32, rounded once to x's
     dtype; statistics in another dtype than x's (bf16 under fp32 x) form
-    the scale in theirs. Channels are dim 1."""
+    the scale in theirs. Channels are dim 1; with `up` > 1 each of x's
+    (H, W) pixels repeated up x up times before the residual."""
     acc = torch.promote_types(x.dtype, torch.float32)
     shape = (1, -1) + (1,) * (x.dim() - 2)
     if var.dtype != x.dtype:
@@ -40,6 +47,8 @@ def bn_act_plain(x, mean, var, weight, bias, eps: float, residual=None, relu: bo
     else:
         scale = torch.rsqrt(var.to(acc) + eps) * weight.to(acc)
     y = (x.to(acc) - mean.to(acc).reshape(shape)) * scale.reshape(shape) + bias.to(acc).reshape(shape)
+    if up > 1:
+        y = y.repeat_interleave(up, dim=2).repeat_interleave(up, dim=3)
     if residual is not None:
         y = y + residual.to(acc)
     if relu:
@@ -71,13 +80,30 @@ def in_layout(t: torch.Tensor, inner: int) -> torch.Tensor:
     return t.contiguous()
 
 
-def prepare(x: torch.Tensor, residual: torch.Tensor | None) -> tuple:
+def takes_up(x: torch.Tensor, residual: torch.Tensor) -> bool:
+    """Whether the upsampling instance takes x and the residual: both 4-d
+    channels-last, C a multiple of the 16-byte vector (8 bf16, 4 fp32)."""
+    return (x.dim() == residual.dim() == 4 and run_length(x) == run_length(residual) == 1
+            and x.shape[1] % (16 // x.element_size()) == 0)
+
+
+def prepare(x: torch.Tensor, residual: torch.Tensor | None, up: int = 1) -> tuple:
     """(x, residual, run length) as the kernel takes them: x in another
     layout than contiguous or channels-last copied to channels-last (4-d)
     or contiguous, the residual to x's layout. Raises for more than
-    MAX_CHANNELS channels or a residual of another shape or dtype."""
+    MAX_CHANNELS channels or a residual of another shape or dtype. With
+    `up` > 1: as they are, and raises unless `up` is a power of two, the
+    residual is (N, C, H * up, W * up) in x's dtype and `takes_up` holds."""
     if x.shape[1] > MAX_CHANNELS:
         raise ValueError(f"bn_act: C={x.shape[1]} over the kernel's {MAX_CHANNELS} channels")
+    if up != 1:
+        if not (up > 1 and up & (up - 1) == 0 and residual is not None and residual.dtype == x.dtype
+                and takes_up(x, residual) and residual.shape == (*x.shape[:2], x.shape[2] * up, x.shape[3] * up)):
+            raise ValueError(f"bn_act: up={up} takes x (N, C, H, W) and a residual (N, C, H*up, W*up) of its "
+                             f"dtype, both channels-last, C a multiple of the vector; got x {x.dtype} "
+                             f"{tuple(x.shape)}, residual "
+                             f"{None if residual is None else (residual.dtype, tuple(residual.shape))}")
+        return x, residual, 1
     inner = run_length(x)
     if inner is None:
         x = x.contiguous(memory_format=torch.channels_last) if x.dim() == 4 else x.contiguous()
@@ -97,29 +123,31 @@ def load_library():
     lib, log = build("bn_act.cu")
     lib.bn_act.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
                            + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                              ctypes.c_void_p])
+                              ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
     lib.bn_act.restype = ctypes.c_int
     return lib, log
 
 
-def launch(x, mean, var, weight, bias, eps: float, residual=None, relu: bool = False) -> torch.Tensor:
+def launch(x, mean, var, weight, bias, eps: float, residual=None, relu: bool = False, up: int = 1) -> torch.Tensor:
     """act((x - mean) * (rsqrt(var + eps) * weight) + bias [+ residual]) on
     the card, on the current stream: a new tensor of x's shape and dtype.
     x: (N, C, ...) bf16 or fp32 on the card, C up to MAX_CHANNELS; mean,
     var, weight, bias: contiguous (C,) in x's dtype, or bf16 under fp32 x;
     the residual of x's shape and dtype; layouts as `prepare` makes them.
-    The caller (`nn.layers.bn_act`, ~350 calls a request) checks the
-    dtypes and devices."""
-    x, residual, inner = prepare(x, residual)
-    y = torch.empty_like(x)
+    With `up` > 1 the upsampling instance: x's pixels read by nearest index
+    into the residual's shape, y of the residual's shape and strides. The
+    caller (`nn.layers.bn_act`, ~350 calls a request) checks the dtypes and
+    devices."""
+    x, residual, inner = prepare(x, residual, up)
+    y = torch.empty_like(x if up == 1 else residual)
     ptrs = (x.data_ptr(), 0 if residual is None else residual.data_ptr(), y.data_ptr())
     vectors = all(p % 16 == 0 for p in ptrs)
     lib, _ = load_library()
     dev = x.get_device()
     with torch.cuda.device(dev) if dev != torch.cuda.current_device() else contextlib.nullcontext():
         err = lib.bn_act(DTYPE_CODE[x.dtype], DTYPE_CODE[var.dtype], vectors, *ptrs, mean.data_ptr(),
-                         var.data_ptr(), weight.data_ptr(), bias.data_ptr(), eps, x.numel(), x.shape[1], inner,
-                         relu, torch._C._cuda_getCurrentRawStream(dev))
+                         var.data_ptr(), weight.data_ptr(), bias.data_ptr(), eps, y.numel(), x.shape[1], inner,
+                         relu, up.bit_length() - 1, y.shape[-1], torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed: cudaError {err}")
     global launches

@@ -80,8 +80,14 @@ class HRModule(nn.Module):
     def forward(self, xs):
         """Row i sums its terms in branch order, then ReLU. A higher-res
         term (j < i) ends in a BatchNorm, which `bn_act` adds to the sum so
-        far in the same pass (the sum's order kept: acc + term)."""
+        far in the same pass (the sum's order kept: acc + term). A lower-res
+        term (j > i) is its 1x1 conv and `bn_act` with `up` = 2^(j - i): the
+        BatchNorm, the nearest upsample and the add in one pass, and the
+        row's ReLU with its last term (the `nn.Upsample` entry, which has no
+        parameters, is not called). A row whose last term is the identity
+        (i = the last branch) adds it and takes the ReLU on its own."""
         ys = [branch(x) for branch, x in zip(self.branches, xs)]
+        last_branch = len(ys) - 1
         outs = []
         for i, row in enumerate(self.fuse_layers):
             acc = None
@@ -91,10 +97,12 @@ class HRModule(nn.Module):
                     for step in steps:
                         y = bn_act(step[1], step[0](y), relu=True)
                     acc = bn_act(last[1], last[0](y), residual=acc)
-                    continue
-                y = f(y)
-                acc = y if acc is None else acc + y
-            outs.append(F.relu(acc))
+                elif j > i:
+                    conv1x1, norm, _ = f
+                    acc = bn_act(norm, conv1x1(y), residual=acc, relu=j == last_branch, up=2 ** (j - i))
+                else:
+                    acc = y if acc is None else acc + y
+            outs.append(acc if i < last_branch else F.relu(acc))
         return outs
 
 

@@ -11,9 +11,10 @@ checkpointing; a BatchNorm that its backward recomputes leaves its
 running statistics alone.
 
 Every BatchNorm, and the residual add and ReLU after it, goes through
-`bn_act`: on the card, in eval with autograd off, one kernel pass
-(`kernels/bn_act.py`); elsewhere the module's forward, the add and the
-ReLU, as separate ops.
+`bn_act` (HRNet's upsampled fuse terms too, the nearest upsample with
+them): on the card, in eval with autograd off, one kernel pass
+(`kernels/bn_act.py`); elsewhere the module's forward, the upsample, the
+add and the ReLU, as separate ops.
 """
 
 from __future__ import annotations
@@ -239,25 +240,37 @@ def kernel_dtypes(m, x) -> bool:
     return x.dtype == torch.float32 and s == torch.bfloat16 and not torch.is_autocast_enabled(x.device.type)
 
 
-def bn_act(m, x, residual=None, relu: bool = False):
-    """BatchNorm `m` of x, then `+ residual` and ReLU where given.
+def bn_act(m, x, residual=None, relu: bool = False, up: int = 1):
+    """BatchNorm `m` of x, nearest-upsampled `up` times where `up` > 1, then
+    `+ residual` and ReLU where given.
 
     One pass of the kernel (`kernels/bn_act.py::launch`) where x is on the
     card, `m` is in eval mode with running statistics and an affine on the
     card, autograd is off and `kernel_dtypes` holds; x and the residual in
     another layout than the kernel's are copied to one there, and a
-    residual of another shape or dtype raises. Every other call (train
-    mode, autograd on, the CPU, fp64, other dtype mixes) is
-    `m.plain_forward(x)`, `+ residual`, `F.relu`, in that order. Each call
-    on the card is counted into the span recorder's open item
-    (`utils.profiling.count`): 'bn_act.fused' or 'bn_act.plain'."""
+    residual of another shape or dtype raises. With `up` > 1 (HRNet's fuse
+    rows; a residual of x's shape times `up` required) the kernel also
+    needs `bn_act_kernel.takes_up`: channels-last x and residual, C a
+    multiple of the vector. Every other call (train mode, autograd on, the
+    CPU, fp64, other dtype mixes, other layouts) is `m.plain_forward(x)`,
+    `F.interpolate(mode="nearest")`, `+ residual`, `F.relu`, in that order.
+    Each call on the card is counted into the span recorder's open item
+    (`utils.profiling.count`): 'bn_act.fused' or 'bn_act.plain', and with
+    `up` > 1 also 'bn_act.up_fused' or 'bn_act.up_plain'."""
+    if up > 1 and residual is None:
+        raise ValueError(f"bn_act: up={up} needs the residual it is added to")
     if on_card(x):
         fused = (not m.training and m.track_running_stats and m.affine and not torch.is_grad_enabled()
-                 and on_card(m.weight) and kernel_dtypes(m, x))
+                 and on_card(m.weight) and kernel_dtypes(m, x) and (up == 1 or bn_act_kernel.takes_up(x, residual)))
         count("bn_act.fused" if fused else "bn_act.plain")
+        if up > 1:
+            count("bn_act.up_fused" if fused else "bn_act.up_plain")
         if fused:
-            return bn_act_kernel.launch(x, m.running_mean, m.running_var, m.weight, m.bias, m.eps, residual, relu)
+            return bn_act_kernel.launch(x, m.running_mean, m.running_var, m.weight, m.bias, m.eps, residual, relu,
+                                        up)
     y = m.plain_forward(x)
+    if up > 1:
+        y = F.interpolate(y, scale_factor=float(up), mode="nearest")
     if residual is not None:
         y = y + residual
     return F.relu(y) if relu else y

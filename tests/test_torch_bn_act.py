@@ -4,14 +4,16 @@ the kernel `kernels/bn_act.py`.
 On the CPU every call takes the plain route, which must be today's
 composition bit for bit (`torch.equal`): the module's BatchNorm forward,
 then the add, then F.relu, for `BasicBlock`, `Bottleneck`, `BNReLU`, a
-downsample and an `HRModule`, in eval and in train mode. With the card
-check stood in (`layers.on_card`) and the launch recorded, every call in
-eval with autograd off takes the kernel route where x and the BatchNorm
-share a dtype (bf16 or fp32) or fp32 x meets bf16 statistics, x and the
-residual in the layout `kernels.bn_act.prepare` makes; train mode, grad
-on, the CPU, fp64, fp16 and bf16 x into fp32 statistics take the plain
-route; each call on the card is counted into the span recorder's open
-item.
+downsample and an `HRModule`, in eval and in train mode; a narrow HRNet's
+upsampled fuse terms (`up` 2, 4, 8) are the parent's conv, BatchNorm,
+nn.Upsample, add and ReLU. With the card check stood in (`layers.on_card`)
+and the launch recorded, every call in eval with autograd off takes the
+kernel route where x and the BatchNorm share a dtype (bf16 or fp32) or
+fp32 x meets bf16 statistics, x and the residual in the layout
+`kernels.bn_act.prepare` makes (with `up` > 1: channels-last, C a
+multiple of the vector); train mode, grad on, the CPU, fp64, fp16 and
+bf16 x into fp32 statistics take the plain route; each call on the card
+is counted into the span recorder's open item.
 
 On the card (`cuda` marker; this file imports no JAX, so it runs there
 with `python -m pytest --noconftest -m cuda tests/test_torch_bn_act.py`):
@@ -19,9 +21,11 @@ the kernel against its plain version on every (C, H, W) of the bn_act
 calls of a W48 and a ResNet-50 request, in bf16 and fp32, with and
 without residual and ReLU, channels-last and NCHW, plus odd C; at served
 batches, whose grids take several strides; on fp32 x into bf16
-statistics, other layouts and an unaligned view; and each serve cell's
-`Predictor` outputs with the kernel against the plain route, within the
-cell's limits (`port_bench/limits`).
+statistics, other layouts and an unaligned view; the upsampling instance
+on every served fuse shape (C, up) at the served batches, an odd batch
+and an unaligned view; and each serve cell's `Predictor` outputs with the
+kernel against the plain route, within the cell's limits
+(`port_bench/limits`).
 """
 
 import copy
@@ -36,7 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from danet_densepose2smpl_tpu_torch.kernels import bn_act as kernel
 from danet_densepose2smpl_tpu_torch.nn import layers
-from danet_densepose2smpl_tpu_torch.nn.hrnet import HRModule
+from danet_densepose2smpl_tpu_torch.nn.hrnet import HRModule, PoseHighResolutionNet
 from danet_densepose2smpl_tpu_torch.nn.layers import BasicBlock, BNReLU, Bottleneck, _downsample, bn, bn_act
 from danet_densepose2smpl_tpu_torch.utils import profiling
 from danet_densepose2smpl_tpu_torch.utils.profiling import annotate, recorded_items
@@ -211,10 +215,10 @@ def stand_in_card(monkeypatch):
     calls and runs the plain version on what `prepare` hands the kernel."""
     calls = []
 
-    def launch(x, mean, var, weight, bias, eps, residual=None, relu=False):
-        x, residual, inner = kernel.prepare(x, residual)
+    def launch(x, mean, var, weight, bias, eps, residual=None, relu=False, up=1):
+        x, residual, inner = kernel.prepare(x, residual, up)
         calls.append((x.dtype, var.dtype, residual is not None, relu, inner))
-        return kernel.bn_act_plain(x, mean, var, weight, bias, eps, residual, relu)
+        return kernel.bn_act_plain(x, mean, var, weight, bias, eps, residual, relu, up)
 
     monkeypatch.setattr(layers, "on_card", lambda t: True)
     monkeypatch.setattr(kernel, "launch", launch)
@@ -223,11 +227,11 @@ def stand_in_card(monkeypatch):
     profiling.RECORDER.clear()
 
 
-def routed(m, x, residual=None, relu=True):
+def routed(m, x, residual=None, relu=True, up=1):
     """bn_act inside a recorded item: (output, the item's route counts)."""
     with profile(activities=[ProfilerActivity.CPU]):
         with annotate("serve.request"):
-            y = bn_act(m, x, residual, relu)
+            y = bn_act(m, x, residual, relu, up)
     return y, recorded_items()[-1]["counts"]
 
 
@@ -301,6 +305,169 @@ def test_the_cpu_takes_the_plain_route_uncounted():
     with torch.inference_mode():
         y, counts = routed(m, x, None, True)
     assert counts == {} and torch.equal(y, F.relu(m.plain_forward(x)))
+    profiling.RECORDER.clear()
+
+
+# --- the upsampling instance (HRNet's fuse terms) -----------------------------
+
+NARROW_STAGES = (
+    (1, 2, (1, 1), (8, 16)),
+    (1, 3, (1, 1, 1), (8, 16, 24)),
+    (2, 4, (1, 1, 1, 1), (8, 16, 24, 32)),
+)
+
+
+def parent_hrmodule(m, xs):
+    """HRModule's forward as the parent ran it: the higher-res terms through
+    `bn_act`, each lower-res term its Sequential (conv, BatchNorm,
+    nn.Upsample) and `acc + y`, then F.relu per row."""
+    ys = [branch(x) for branch, x in zip(m.branches, xs)]
+    outs = []
+    for i, row in enumerate(m.fuse_layers):
+        acc = None
+        for j, (f, y) in enumerate(zip(row, ys)):
+            if j < i:
+                *steps, last = f
+                for step in steps:
+                    y = bn_act(step[1], step[0](y), relu=True)
+                acc = bn_act(last[1], last[0](y), residual=acc)
+                continue
+            y = f(y)
+            acc = y if acc is None else acc + y
+        outs.append(F.relu(acc))
+    return outs
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_hrnet_upsampled_terms_are_the_parents_composition(train, monkeypatch):
+    """A narrow four-branch HRNet (fuse terms at `up` 2, 4 and 8, ReLU folded
+    into a row's last term) against the same weights run through the
+    parent's HRModule forward: equal outputs bit for bit, and in train mode
+    equal running statistics and gradients."""
+    torch.manual_seed(0)
+    net = randomize_bn_(PoseHighResolutionNet(NARROW_STAGES), seed=6).train(train)
+    twin = copy.deepcopy(net)
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(7))
+    a, b = x.clone().requires_grad_(train), x.clone().requires_grad_(train)
+    got = net(a)
+    with monkeypatch.context() as patch:
+        patch.setattr(HRModule, "forward", parent_hrmodule)
+        want = twin(b)
+    assert torch.equal(got, want)
+    for (n1, t1), (_, t2) in zip(net.state_dict().items(), twin.state_dict().items()):
+        assert torch.equal(t1, t2), n1
+    if train:
+        got.square().sum().backward()
+        want.square().sum().backward()
+        for (n1, p1), (_, p2) in zip(net.named_parameters(), twin.named_parameters()):
+            assert torch.equal(p1.grad, p2.grad), n1
+        assert torch.equal(a.grad, b.grad)
+
+
+def up_case(dtype=torch.float32, c=16, up=2, channels_last=True, seed=8):
+    """(eval BatchNorm, low-res x, full-res residual) of a fuse term."""
+    g = torch.Generator().manual_seed(seed)
+    m = randomize_bn_(bn(c), seed=seed).to(dtype).eval()
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.randn(2, c, 3, 5, generator=g).to(dtype).contiguous(memory_format=fmt)
+    r = torch.randn(2, c, 3 * up, 5 * up, generator=g).to(dtype).contiguous(memory_format=fmt)
+    return m, x, r
+
+
+def composition(m, x, r, relu, up):
+    """The parent's fuse term: the module's BatchNorm, nn.Upsample, the add
+    to the sum so far (`acc + y`), the row's ReLU."""
+    y = r + nn.Upsample(scale_factor=up, mode="nearest")(m.plain_forward(x))
+    return F.relu(y) if relu else y
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16], ids=["f64", "fp32", "bf16"])
+@pytest.mark.parametrize("up", [2, 4, 8])
+def test_plain_kernel_version_upsampled_is_the_composition(dtype, up):
+    """`bn_act_plain(up=)`, the kernel's arithmetic: in f64 exactly its own
+    BatchNorm, the nearest upsample, the add and the ReLU (no rounding
+    between them), and the module's composition to f64 rounding; in fp32
+    and bf16 the composition within the card tests' bars (the kernel
+    rounds once, the composition after the BatchNorm and after the add)."""
+    m, x, r = up_case(dtype, up=up)
+    stats = (m.running_mean, m.running_var, m.weight, m.bias)
+    with torch.no_grad():
+        for relu in (False, True):
+            got = kernel.bn_act_plain(x, *stats, m.eps, r, relu, up)
+            want = composition(m, x, r, relu, up)
+            assert got.shape == r.shape and got.dtype == dtype
+            if dtype == torch.float64:
+                own = F.interpolate(kernel.bn_act_plain(x, *stats, m.eps), scale_factor=up, mode="nearest") + r
+                assert torch.equal(got, F.relu(own) if relu else own)
+                assert torch.allclose(got, want, rtol=1e-13, atol=1e-13)
+            else:
+                gap = (got.double() - want.double()).abs().max() / want.double().abs().max()
+                assert gap <= BARS[dtype], (relu, gap)
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "none", "not_a_power", "nchw", "channels"])
+def test_prepare_refuses_upsampled_inputs_it_cannot_take(case):
+    """With `up` > 1 the residual has to be x's shape times `up` in x's
+    dtype, `up` a power of two, both channels-last, C a multiple of the
+    vector."""
+    m, x, r = up_case(c=16 if case != "channels" else 6, up=2, channels_last=case != "nchw")
+    up = 3 if case == "not_a_power" else 2
+    if case == "shape":
+        r = r[:, :, :-2]
+    elif case == "dtype":
+        r = r.double()
+    elif case == "none":
+        r = None
+    elif case == "not_a_power":
+        r = F.interpolate(r, scale_factor=1.5, mode="nearest")
+    with pytest.raises(ValueError):
+        kernel.prepare(x, r, up)
+    assert kernel.prepare(*up_case(up=2)[1:], 2)[2] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("up", [2, 4, 8])
+def test_upsampled_eval_without_autograd_takes_the_kernel(stand_in_card, dtype, up):
+    """An upsampled fuse term in eval with autograd off: the kernel, counted
+    as fused and as up-fused, its output of the residual's shape and
+    layout."""
+    m, x, r = up_case(dtype, up=up)
+    for relu in (False, True):
+        stand_in_card.clear()
+        with torch.inference_mode():
+            y, counts = routed(m, x, r, relu, up)
+        assert stand_in_card == [(dtype, dtype, True, relu, 1)]
+        assert counts == {"bn_act.fused": 1, "bn_act.up_fused": 1}
+        assert torch.equal(y, kernel.bn_act_plain(x, m.running_mean, m.running_var, m.weight, m.bias, m.eps, r, relu,
+                                                  up))
+
+
+@pytest.mark.parametrize("condition", ["train", "grad", "fp64", "nchw", "channels"])
+def test_upsampled_every_other_call_takes_the_plain_route(stand_in_card, condition):
+    """Train mode, autograd on, fp64, an NCHW layout, C not a multiple of
+    the vector: the plain route, the parent's ops bit for bit, counted as
+    plain and as up-plain; train mode updates the statistics as before."""
+    m, x, r = up_case(torch.float64 if condition == "fp64" else torch.float32, c=6 if condition == "channels" else 16,
+                      up=4, channels_last=condition != "nchw")
+    if condition == "train":
+        m.train()
+    twin = copy.deepcopy(m)
+    with torch.set_grad_enabled(condition == "grad"):
+        y, counts = routed(m, x, r, True, 4)
+        want = composition(twin, x, r, True, 4)
+    assert stand_in_card == [] and counts == {"bn_act.plain": 1, "bn_act.up_plain": 1}
+    assert torch.equal(y, want)
+    assert all(torch.equal(a, b) for a, b in zip(m.state_dict().values(), twin.state_dict().values()))
+
+
+def test_upsampled_on_the_cpu_is_the_composition_uncounted():
+    profiling.RECORDER.clear()
+    m, x, r = up_case(up=8)
+    with torch.inference_mode():
+        y, counts = routed(m, x, r, True, 8)
+        assert counts == {} and torch.equal(y, composition(m, x, r, True, 8))
+        with pytest.raises(ValueError):
+            bn_act(m, x, None, True, 8)
     profiling.RECORDER.clear()
 
 
@@ -426,6 +593,72 @@ def test_kernel_on_the_other_inputs_bn_act_hands_it(card, case):
             x = torch.randn(8 * 48 * 28 * 28 + 1, device=card, generator=g).to(dtype)[1:].view(8, 48, 28, 28)
             assert x.data_ptr() % 16 != 0
         assert kernel_error(x, st, r, True) <= bar, (case, dtype)
+    torch.cuda.synchronize()
+
+
+# (C, up) of every upsampled fuse term of a W48 request; the output is the
+# branch's 56 >> b pixels square, x that over up
+SERVED_FUSE = [(48, 2), (48, 4), (48, 8), (96, 2), (96, 4), (192, 2)]
+FUSE_SIDE = {48: 56, 96: 28, 192: 14}
+
+
+def up_kernel_error(x, st, r, relu, up) -> float:
+    """The upsampling instance's largest gap from `bn_act_plain` over
+    max|ref|; its output keeps the residual's shape, dtype and strides."""
+    got = kernel.launch(x, *st, 1e-5, r, relu, up)
+    ref = kernel.bn_act_plain(x, *st, 1e-5, r, relu, up)
+    assert got.shape == r.shape and got.dtype == r.dtype and got.stride() == r.stride()
+    return ((got.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+
+
+def fuse_inputs(b, c, side, up, dtype, dev, g):
+    cl = torch.channels_last
+    x = torch.randn(b, c, side // up, side // up, device=dev, generator=g).to(dtype).contiguous(memory_format=cl)
+    r = torch.randn(b, c, side, side, device=dev, generator=g).to(dtype).contiguous(memory_format=cl)
+    return x, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,dtype", [(256, torch.bfloat16), (64, torch.float32)], ids=["bf16_b256", "fp32_b64"])
+def test_upsampled_kernel_matches_plain_on_every_served_fuse_shape(card, batch, dtype):
+    g = torch.Generator(device=card).manual_seed(3)
+    for c, up in SERVED_FUSE:
+        st = random_stats(c, dtype, card, g)
+        x, r = fuse_inputs(batch, c, FUSE_SIDE[c], up, dtype, card, g)
+        for relu in (False, True):
+            err = up_kernel_error(x, st, r, relu, up)
+            assert err <= BARS[dtype], (c, up, relu, err)
+        del x, r
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["odd_batch", "unaligned", "bf16_statistics"])
+def test_upsampled_kernel_on_the_other_inputs(card, case):
+    """An odd batch (blocks' runs that start and end inside rows); an
+    unaligned view (the scalar instance); fp32 x into bf16 statistics (the
+    scale in bf16)."""
+    g = torch.Generator(device=card).manual_seed(4)
+    if case == "bf16_statistics":
+        st = [t.bfloat16() for t in random_stats(48, torch.float32, card, g)]
+        x, r = fuse_inputs(37, 48, 56, 4, torch.float32, card, g)
+        assert up_kernel_error(x, st, r, True, 4) <= BARS[torch.float32]
+        return
+    for dtype, bar in BARS.items():
+        for c, up in SERVED_FUSE:
+            st = random_stats(c, dtype, card, g)
+            if case == "odd_batch":
+                x, r = fuse_inputs(37, c, FUSE_SIDE[c], up, dtype, card, g)
+            else:
+                s, b = FUSE_SIDE[c], 3
+                xs = torch.randn(b * s * s * c // (up * up) + 1, device=card, generator=g).to(dtype)
+                rs = torch.randn(b * s * s * c + 1, device=card, generator=g).to(dtype)
+                x = xs[1:].view(b, s // up, s // up, c).permute(0, 3, 1, 2)
+                r = rs[1:].view(b, s, s, c).permute(0, 3, 1, 2)
+                assert x.data_ptr() % 16 != 0 and kernel.takes_up(x, r)
+            for relu in (False, True):
+                err = up_kernel_error(x, st, r, relu, up)
+                assert err <= bar, (case, dtype, c, up, relu, err)
     torch.cuda.synchronize()
 
 
