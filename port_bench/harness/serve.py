@@ -3,8 +3,9 @@
 Set-up builds the port's serving entry of the cell's model family
 (`families/<family>.py::port_server`; for DaNet `Predictor.predict`) with
 the seed's weights (made on the device, `harness.weights`) and the
-synthetic SMPL arrays, makes a pool of distinct image batches of the
-family's image size on the device and warms up on them. The window
+family's body model (the synthetic SMPL arrays by default), makes a pool
+of distinct image batches of the family's image size on the device and
+warms up on them. The window
 sends requests until `seconds` have passed: a request is the entry called
 on the next batch of the pool, and its latency runs from the call to the
 end of its `torch.cuda.synchronize()`. A sample of
@@ -12,15 +13,21 @@ the finished requests, drawn from the seed as the window goes (a
 reservoir), is kept; once the window has closed (and the profiled slice,
 with `--trace 1`), the peak memory is read, the port is freed, and the
 plain reference of the family recomputes each sampled request from the
-same images and weights: `para`, `vertices` and `joints` are compared.
+same images and weights (and, for a family whose reference is
+conditioned, the port's choices in that request): the family's compared
+outputs, `para`, `vertices` and `joints` by default, are compared. The
+family's optional attributes and their defaults are listed in
+`families/__init__.py`.
 """
 
 from __future__ import annotations
 
 import gc
+import math
 import random
 import statistics
 import time
+from pathlib import Path
 
 import torch
 
@@ -77,6 +84,18 @@ def smpl_arrays():
     return synthetic_smpl_model()
 
 
+def family_name(family) -> str:
+    return Path(family.__file__).stem
+
+
+def body_on(family, arrays, device):
+    """`arrays` as the reference's body model on `device`: the family's
+    `body_to_device`, else the reference's SMPL `to_torch`."""
+    from port_bench.reference.smpl.loader import to_torch
+
+    return getattr(family, "body_to_device", to_torch)(arrays, device)
+
+
 def port_server(cfg_port, ref_cfg, seed: int, dtype: torch.dtype, device, smpl):
     """DaNet's serving entry (`families/danet.py::port_server`), by the
     name that callers outside the harness use."""
@@ -85,18 +104,18 @@ def port_server(cfg_port, ref_cfg, seed: int, dtype: torch.dtype, device, smpl):
     return danet_server(cfg_port, ref_cfg, seed, dtype, device, smpl)
 
 
-def control_server(family, ref_cfg, seed: int, dtype: torch.dtype, device, smpl, kind: str, block: int):
+def control_server(family, ref_cfg, seed: int, dtype: torch.dtype, device, body, kind: str, block: int):
     """The family's reference put in the port's place, computed in `kind`
-    (a precision below the cell's): the control of the comparison."""
-    from port_bench.reference.smpl.loader import to_torch
-
+    (a precision below the cell's): the control of the comparison. A
+    conditioned reference makes its own choices here, and `compare`
+    conditions the fp32 reference on them."""
     model = family.reference_model(ref_cfg, seed, device, dtype).eval()
-    smpl_t = to_torch(smpl, device)
+    body_t = body_on(family, body, device)
 
     @torch.no_grad()
     def serve(images):
         with computed_in(kind, model):
-            return family.reference_outputs(model, smpl_t, images, block)
+            return family.reference_outputs(model, body_t, images, block)
 
     return serve
 
@@ -105,13 +124,42 @@ def control_server(family, ref_cfg, seed: int, dtype: torch.dtype, device, smpl,
 PARA_BLOCKS = ((0, 3), (3, 13), (13, 229))
 
 
+def para_blocks(family, cfg, width: int) -> tuple:
+    """The column blocks of `para` that `image_gaps` and `nearest_ratios`
+    read, each against its own spread: the family's `para_blocks(cfg)`,
+    else `PARA_BLOCKS`. Raises ValueError, naming the family and the first
+    column left out or read twice, unless they tile columns 0 to `width`
+    in order, so that no column goes unread."""
+    blocks = tuple(map(tuple, family.para_blocks(cfg))) if hasattr(family, "para_blocks") else PARA_BLOCKS
+    at, fault = 0, None
+    for lo, hi in blocks:
+        if lo > at:
+            fault = f"column {at} is left out"
+        elif lo < at:
+            fault = f"column {lo} is read twice"
+        elif hi <= lo:
+            fault = f"block ({lo}, {hi}) is empty"
+        if fault:
+            break
+        at = hi
+    else:
+        if at < width:
+            fault = f"column {at} is left out"
+        elif at > width:
+            fault = f"the blocks run past column {width - 1}"
+    if fault:
+        raise ValueError(f"model family '{family_name(family)}': para_blocks {blocks} do not tile the "
+                         f"{width} columns of para: {fault}")
+    return blocks
+
+
 def image_gaps(got: torch.Tensor, ref: torch.Tensor, blocks=None) -> torch.Tensor:
-    """(N,) each image's largest gap in an output (N, ...), over the spread
+    """(N,) each answer's largest gap in an output (N, ...), over the spread
     of the reference's answers (a column's median distance of an answer
-    from the column's median over the sampled images, widest over the
+    from the column's median over the sampled answers, widest over the
     columns, and at least a thousandth of the block's largest magnitude),
-    so a gap reads against how much answers typically differ from image to
-    image; with `blocks` (column ranges), each block against its own
+    so a gap reads against how much answers typically differ from one
+    another; with `blocks` (column ranges), each block against its own
     spread. Inf where the port's answer is missing or not finite."""
     ref = ref.flatten(1).double()
     if got.shape[0] != ref.shape[0] or got[0].numel() != ref.shape[1]:
@@ -126,14 +174,13 @@ def image_gaps(got: torch.Tensor, ref: torch.Tensor, blocks=None) -> torch.Tenso
 
 
 def nearest_ratios(got: torch.Tensor, refs: torch.Tensor, own: torch.Tensor, blocks=None) -> torch.Tensor:
-    """(N,) each answer's distance to its own image's reference answer over
-    its distance to the nearest reference answer of any other sampled
-    image: under 1 where the answer is nearer its own image's than any
-    other's. `got` (N, ...) answers, `refs` (U, ...) the reference answers
-    of the U distinct sampled images, `own` (N,) the index into `refs` of
-    each answer's image. Euclidean over the columns, each block of columns
-    (`blocks`) over its spread as in `image_gaps`. Inf where an answer is
-    missing or not finite."""
+    """(N,) each answer's distance to its own reference answer over its
+    distance to the nearest other reference answer: under 1 where the
+    answer is nearer its own than any other. `got` (N, ...) answers,
+    `refs` (U, ...) the U distinct reference answers of the sample, `own`
+    (N,) the index into `refs` of each answer's own. Euclidean over the
+    columns, each block of columns (`blocks`) over its spread as in
+    `image_gaps`. Inf where an answer is missing or not finite."""
     refs = refs.flatten(1).double()
     n = own.shape[0]
     if refs.shape[0] < 2 or got.shape[0] != n or got[0].numel() != refs.shape[1]:
@@ -152,7 +199,7 @@ def nearest_ratios(got: torch.Tensor, refs: torch.Tensor, own: torch.Tensor, blo
 
 
 def unexplained(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """The share of the reference answers' variation from image to image
+    """The share of the reference answers' variation from answer to answer
     that the port's answers leave unexplained: for each column of an
     output (N, ...), the sum of squared gaps over the sum of squared
     distances of the reference's answers from their mean, the median over
@@ -168,59 +215,92 @@ def unexplained(got: torch.Tensor, ref: torch.Tensor) -> float:
     return share if share == share else float("inf")
 
 
-def compare(family, served: list, ref_cfg, seed: int, dtype: torch.dtype, device, smpl, pool,
+def answer_rows(family, k: str, rows: int, images: int, answers: int) -> None:
+    """Raises ValueError, naming the family, unless the reference's output
+    `k` holds one row for each image or one for each answer (`answers`
+    an image), and `para` one for each answer."""
+    if rows in (images * answers, images) and (k != "para" or rows == images * answers):
+        return
+    raise ValueError(f"model family '{family_name(family)}': its reference's '{k}' holds {rows} rows for "
+                     f"{images} images of {answers} answers each: an output holds one row an image or one an "
+                     f"answer, and para one an answer")
+
+
+def compare(family, served: list, ref_cfg, seed: int, dtype: torch.dtype, device, body, pool,
             block: int) -> tuple:
-    """({number: reading}, {'flops_per_image', 'k1_call'}) over the sampled
-    requests; the family's reference computes each distinct sampled batch
-    once.
-    Readings, for each output k of `COMPARED`: `k`, the widest image gap
+    """({number: reading}, {'flops_per_image', 'k1_call'}) over the answers
+    of the sampled requests. An image gives the family's
+    `answers_per_image(cfg)` answers (1 by default), so an output holds a
+    row for each answer, image-major, or one for each image. The family's
+    reference computes each distinct sampled batch once; a conditioned
+    reference (`reference_conditioned`) computes each sampled request
+    once, given that request's served outputs, so it answers for the
+    choices the port made on the card, and the readings of its own that
+    it returns under `readings` (the larger the worse) are merged in, the
+    largest over the requests.
+    Readings, for each output k that the family compares (`compared`,
+    default `COMPARED`): `k`, the widest answer gap
     (`image_gaps`); `k_nearest`, the largest of `nearest_ratios` (over 1
-    where an answer lies nearer another sampled image's reference answer
+    where an answer lies nearer another reference answer of the sample
     than its own), and `k_not_nearest`, the share of answers for which it
     is over 1; `k_unexplained` (`unexplained`); and the median and the
-    10th percentile of the images' `para` gaps. Each cell's limits file
+    10th percentile of the answers' `para` gaps, `para` read in its
+    blocks (`para_blocks`, which have to tile it). Each cell's limits file
     names the readings it compares. With random weights many of the
     model's hard decisions, the argmax of the index maps and the part
     visibility threshold, sit on a knife's edge, and the answers vary
-    little from image to image, so an image's gap swings with rounding:
+    little from image to image, so an answer's gap swings with rounding:
     the low percentiles read where the decisions agree, and the shares
     read the sample as a whole. The yardstick's counts come from the
-    reference's first sampled request: its FLOPs, and K1's call where the
-    reference made part crops (none: no `k1_call`)."""
-    from port_bench.reference.smpl.loader import to_torch
-
+    reference's first computed request: its FLOPs, and K1's call where
+    the reference made part crops (none: no `k1_call`)."""
     model = family.reference_model(ref_cfg, seed, device, dtype).eval()
-    smpl_t = to_torch(smpl, device)
-    slots = sorted({slot for slot, _ in served})
-    ref = {}
-    counts = {}
+    body_t = body_on(family, body, device)
+    conditioned = getattr(family, "reference_conditioned", False)
+    answers = family.answers_per_image(ref_cfg) if hasattr(family, "answers_per_image") else 1
+    counts, readings = {}, {}
+
+    def reference(images, **given):
+        if counts:
+            return family.reference_outputs(model, body_t, images, block, **given)
+        with counting_flops() as c:
+            out = family.reference_outputs(model, body_t, images, block, **given)
+        counts["flops_per_image"] = c["flops"] / images.shape[0]
+        calls = c["crops"]
+        if calls:
+            b = sum(call[0] for call in calls)
+            counts["k1_call"] = (b, *calls[0][1:6], sum(call[6] for call in calls),
+                                 sum(call[7] for call in calls))
+        return out
+
     with torch.no_grad(), computed_in("fp32", model):
-        for slot in slots:
-            images = pool[slot]
-            if not counts:
-                with counting_flops() as c:
-                    ref[slot] = family.reference_outputs(model, smpl_t, images, block)
-                counts = {"flops_per_image": c["flops"] / images.shape[0]}
-                calls = c["crops"]
-                if calls:
-                    b = sum(call[0] for call in calls)
-                    counts["k1_call"] = (b, *calls[0][1:6], sum(call[6] for call in calls),
-                                         sum(call[7] for call in calls))
-            else:
-                ref[slot] = family.reference_outputs(model, smpl_t, images, block)
+        if conditioned:
+            refs = [reference(pool[slot], served=out) for slot, out in served]
+            for ref in refs:
+                for name, value in ref.pop("readings", {}).items():   # NaN reads as inf
+                    readings[name] = max(readings.get(name, -math.inf), value if value == value else math.inf)
+        else:
+            slots = sorted({slot for slot, _ in served})
+            by_slot = {slot: reference(pool[slot]) for slot in slots}
+            refs = [by_slot[slot] for slot, _ in served]
     b = pool.shape[1]
-    own = torch.cat([slots.index(slot) * b + torch.arange(b, device=device) for slot, _ in served])
-    readings = {}
-    for k in COMPARED:
-        r_all = torch.cat([ref[slot][k] for slot in slots])
-        r = r_all[own]
-        got = torch.cat([out[k].float() if out[k].shape == ref[slot][k].shape
-                         else torch.full_like(ref[slot][k], float("inf")) for slot, out in served])
-        blocks = PARA_BLOCKS if k == "para" else None
-        gaps = image_gaps(got, r, blocks).cpu()
+    blocks = para_blocks(family, ref_cfg, refs[0]["para"].flatten(1).shape[1])
+    for k in getattr(family, "compared", COMPARED):
+        rows = refs[0][k].shape[0]
+        answer_rows(family, k, rows, b, answers)
+        r = torch.cat([ref[k] for ref in refs])
+        got = torch.cat([out[k].float() if out[k].shape == ref[k].shape else torch.full_like(ref[k], float("inf"))
+                         for (_, out), ref in zip(served, refs)])
+        if conditioned:   # the sample's distinct reference answers
+            r_all, own = torch.unique(r, dim=0, return_inverse=True)
+        else:
+            r_all = torch.cat([by_slot[slot][k] for slot in slots])
+            own = torch.cat([slots.index(slot) * rows + torch.arange(rows, device=device) for slot, _ in served])
+        k_blocks = blocks if k == "para" else None
+        gaps = image_gaps(got, r, k_blocks).cpu()
         finite = bool(torch.isfinite(gaps).all())
         readings[k] = gaps.max().item()
-        ratios = nearest_ratios(got, r_all, own, blocks)
+        ratios = nearest_ratios(got, r_all, own, k_blocks)
         readings[f"{k}_nearest"] = ratios.max().item()
         readings[f"{k}_not_nearest"] = (ratios > 1).double().mean().item()
         readings[f"{k}_unexplained"] = unexplained(got, r)
@@ -242,12 +322,13 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device, t_start
     dtype = DTYPES[t["dtype"]]
     block = t["reference_block"]
     marks = [("start", time.perf_counter())]
-    smpl = smpl_arrays()
-    marks.append(("smpl", time.perf_counter()))
+    # the body model that the port and the reference share
+    body = family.body_arrays(ref_cfg) if hasattr(family, "body_arrays") else smpl_arrays()
+    marks.append(("body model", time.perf_counter()))
     if server == "port":
-        predict = family.port_server(cfg, ref_cfg, seed, dtype, device, smpl)
+        predict = family.port_server(cfg, ref_cfg, seed, dtype, device, body)
     else:
-        predict = control_server(family, ref_cfg, seed, dtype, device, smpl, server, block)
+        predict = control_server(family, ref_cfg, seed, dtype, device, body, server, block)
     if wrap is not None:
         predict = wrap(predict)
     marks.append(("model", time.perf_counter()))
@@ -300,7 +381,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device, t_start
         torch.cuda.empty_cache()
 
     t_check = time.perf_counter()
-    readings, counts = compare(family, served, ref_cfg, seed, dtype, device, smpl, pool, block)
+    readings, counts = compare(family, served, ref_cfg, seed, dtype, device, body, pool, block)
     check_s = time.perf_counter() - t_check
     b = t["batch"]
     ms = [x * 1e3 for x in latency]
